@@ -1,0 +1,535 @@
+"""DenseScanner: the device-resident scanning model, in PyTorch.
+
+The port of ``models/scanner.py:DenseScanner``'s single-device count and
+retrieval path. It owns an immutable table snapshot (models/snapshot.py)
+and scans B parallel streams with halo overlap (ops/blocking.py's
+exactness argument) through hand-written kernels:
+
+* ``count``: K3, the packed k-gram count (ops/multistep.py), or K1, the
+  1-char dense count (ops/scan_dense.py) where no packed table exists;
+* ``find_matches``: K4, the k-gram emit scan, then the plain-PyTorch
+  refinement of live grams (ops/hits.py); without a packed table, K2
+  states decoded on the host;
+* ``scan_states``: K2.
+
+bytes, uint8 arrays and str upload their raw symbols and translate them
+through a LUT inside the kernel (``device_encode``); other host inputs are
+encoded on the host. A 1-D integer ``torch.Tensor`` is taken as letter ids
+already encoded (the counterpart of a ``jax.Array`` input) and is checked
+against ``[0, V)``, since a CUDA kernel would read out of bounds where XLA
+clamps.
+
+Not ported yet (ROADMAP): refresh, sessions, ``count_many``, the prefilter,
+the MXU and hybrid engines, calibration, and upload overlap.
+"""
+
+from __future__ import annotations
+
+import functools
+import threading
+import time
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .._host import MatchSet, decode_matches_arrays, expand_hits_arrays
+from ..ops.hits import hits_extract, hits_extract_dense, stepped_emit
+from ..ops.multistep import pack, stepped_count
+from ..ops.scan_dense import dense_count, dense_states, lookup
+from .snapshot import DeviceSnapshot
+
+
+def _guard_pos32(n_symbols: int) -> None:
+    """The JAX package's bound on retrieval: its device positions are
+    int32. The port keeps it so that both accept the same inputs."""
+    if n_symbols >= (2 ** 31) - (1 << 20):
+        raise ValueError(
+            f"retrieval positions are int32 on device and this stream has "
+            f"{n_symbols} symbols; chunk it with scanner.session()")
+
+
+def _is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def encode_signs(machine, signs, V: int) -> np.ndarray:
+    """Map signs to dense letter ids. An int32 ndarray is taken as
+    pre-encoded letter ids and checked against [0, V). Letters registered
+    after the snapshot (ids >= V) are unknown letters for it: OOV."""
+    if isinstance(signs, np.ndarray) and signs.dtype == np.int32:
+        if signs.size and (int(signs.max()) >= V or int(signs.min()) < 0):
+            raise ValueError(
+                "int32 arrays are treated as pre-encoded letter ids, but "
+                f"values fall outside [0, {V}); for integer-sign alphabets "
+                "encode via machine.vocab.lookup_many(signs) first")
+        return signs
+    out = np.asarray(machine.vocab.lookup_many(signs), dtype=np.int32)
+    if machine.vocab.size > V and out.size:
+        out = np.where(out < V, out, 0)
+    return out
+
+
+def raw_lut_entry(machine, V: int, tables, kind: str, max_cp: int,
+                  cache: dict, place):
+    """Device LUT for the raw (device-side encode) path: (lut_dev,
+    n_entries, needs_max_check, lut_host), or None when the raw path
+    cannot be exact. Cached per (vocab version, snapshot V) in ``cache``;
+    ``place`` uploads the host LUT. Two contracts: ids >= V mask to OOV
+    (snapshot pinning), and raw 0 behaves exactly like OOV (the staging
+    pads with raw 0): either lut[0] is OOV, or its letter appears in no
+    keyword."""
+    vocab = machine.vocab
+    key = (kind, getattr(vocab, "_version", 0), V)
+    hit = cache.get(key)
+    if hit is not None:
+        return None if hit == "no" else hit
+    fn = getattr(vocab,
+                 "byte_lut" if kind == "byte" else "codepoint_lut", None)
+    res = None
+    if fn is not None:
+        res = fn() if kind == "byte" else fn(max_cp)
+    if res is None:
+        cache.clear()
+        cache[key] = "no"
+        return None
+    if kind == "byte":
+        lut, needs_check = np.asarray(res, np.int32).copy(), False
+    else:
+        lut, needs_check = res
+    lut = np.where(lut < V, lut, 0).astype(np.int32)
+    lid = int(lut[0])
+    if lid != 0 and not bool((tables.delta[:, lid] == 0).all()):
+        cache.clear()
+        cache[key] = "no"
+        return None
+    entry = (place(lut), int(lut.shape[0]), needs_check, lut)
+    cache.clear()
+    cache[key] = entry
+    return entry
+
+
+def raw_stream_for(machine, signs, get_lut):
+    """(raw symbol ndarray, lut entry) for device-side encode, or None
+    (host-encode path). bytes/uint8 arrays -> raw uint8 through the
+    256-entry byte LUT; str -> int32 codepoints through the codepoint
+    LUT (utils/vocab.codepoint_lut exactness rules)."""
+    if isinstance(signs, (bytes, bytearray)) or (
+            isinstance(signs, np.ndarray) and signs.dtype == np.uint8):
+        ent = get_lut("byte")
+        if ent is None:
+            return None
+        raw = (np.frombuffer(bytes(signs), np.uint8)
+               if not isinstance(signs, np.ndarray) else signs)
+        return raw, ent
+    if isinstance(signs, str):
+        enc = getattr(machine.vocab, "str_encoding", None)
+        if enc:  # fixed byte alphabet (ByteMachine): str == its bytes
+            ent = get_lut("byte")
+            if ent is None:
+                return None
+            return np.frombuffer(signs.encode(enc), np.uint8), ent
+        ent = get_lut("cp")
+        if ent is None:
+            return None
+        cps = np.frombuffer(signs.encode("utf-32-le"),
+                            dtype=np.uint32).view(np.int32)
+        _, n_lut, needs_check = ent[:3]
+        if needs_check and cps.size and int(cps.max()) >= n_lut - 1:
+            return None  # beyond the eager LUT: host path stays exact
+        return cps, ent
+    return None
+
+
+class DenseScanner:
+    # Past _pipeline_min symbols a raw host input is counted in
+    # _pipeline_chunk-symbol chunks, each with its halo taken from the raw
+    # input itself. Kept from the JAX package (tuned there for a TPU);
+    # overlapping the uploads is ROADMAP A.4.
+    _pipeline_min = 16 << 20
+    _pipeline_chunk = 8 << 20
+
+    def __init__(self, machine, n_streams: "int | str" = "auto",
+                 halo: Optional[int] = None, tables=None,
+                 step_k: "int | str" = "auto",
+                 step_budget_bytes: int = 128 * 1024 * 1024,
+                 engine: str = "auto", prefilter: str = "off",
+                 device_encode: bool = True,
+                 device_encode_max_cp: int = 1024,
+                 calibrate: bool = False, device="cuda",
+                 snapshot: Optional[DeviceSnapshot] = None):
+        """The JAX scanner's keyword arguments, plus ``device`` (where the
+        tables live and the kernels run; there is no fallback to the CPU)
+        and ``snapshot`` (prebuilt tables on that device, e.g. from
+        utils/convert.py, in place of ``tables``/``step_k``).
+
+        ``engine``: "auto" and "gather" both scan through the packed
+        k-gram gather; "mxu" and "hybrid" are not ported (ROADMAP A.9),
+        nor are ``prefilter`` "auto"/"on" (A.7) and ``calibrate`` (A.9)."""
+        if engine in ("mxu", "hybrid") or calibrate:
+            raise NotImplementedError(
+                "the MXU and hybrid engines and calibration are not ported "
+                "yet (ROADMAP A.9)")
+        if engine not in ("auto", "gather"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if prefilter in ("auto", "on"):
+            raise NotImplementedError(
+                "the sparse prefilter is not ported yet (ROADMAP A.7)")
+        if prefilter != "off":
+            raise ValueError(f"unknown prefilter {prefilter!r}")
+        self.machine = machine
+        self.device = torch.device(device)
+        self._auto_streams = n_streams == "auto"
+        self.n_streams = 512 if self._auto_streams else int(n_streams)
+        if snapshot is None:
+            snapshot = DeviceSnapshot(
+                tables if tables is not None else machine.compile(),
+                step_k=step_k, step_budget_bytes=step_budget_bytes,
+                device=self.device)
+        elif snapshot.device != self.device:
+            raise ValueError(f"snapshot on {snapshot.device}, scanner on "
+                             f"{self.device}")
+        self._snap = snapshot
+        self.halo = int(halo) if halo is not None else max(
+            self.tables.max_depth - 1, 0)
+        st = self._stepped
+        self._halo_steps = -(-self.halo // st.k) if st is not None else 0
+        self._halo_sym = self._halo_steps * st.k if st is not None else 0
+        self.stats: dict = {}
+        # Serialises the public device calls on one scanner; use one
+        # scanner per thread to scan in parallel.
+        self._dispatch = threading.RLock()
+        self._device_encode = bool(device_encode)
+        self._device_encode_max_cp = int(device_encode_max_cp)
+        self._lut_cache: dict = {}
+
+    @property
+    def tables(self):
+        return self._snap.tables
+
+    @property
+    def V(self) -> int:
+        return self._snap.V
+
+    @property
+    def step_k(self) -> int:
+        return self._snap.step_k
+
+    @property
+    def _stepped(self):
+        return self._snap.stepped
+
+    # -- encoding and staging ----------------------------------------------
+
+    def encode(self, signs: Sequence[Any]) -> np.ndarray:
+        """Map a stream of signs to dense letter ids (OOV -> 0). int32
+        arrays pass through as pre-encoded ids (bounds-checked)."""
+        return encode_signs(self.machine, signs, self.V)
+
+    def _get_lut(self, kind: str):
+        return raw_lut_entry(self.machine, self.V, self.tables, kind,
+                             self._device_encode_max_cp, self._lut_cache,
+                             self._snap.place)
+
+    def _raw_stream(self, signs):
+        if not self._device_encode:
+            return None
+        return raw_stream_for(self.machine, signs, self._get_lut)
+
+    def _streams_for(self, T: int) -> int:
+        if not self._auto_streams:
+            return self.n_streams
+        b = max(512, min(16384, T // 4096))
+        return 1 << (b - 1).bit_length()
+
+    def _layout(self, T: int, unit: int):
+        """(B, L): streams and per-stream symbols, L a multiple of unit."""
+        B = self._streams_for(T)
+        return B, max(unit, -(-(-(-T // B)) // unit) * unit)
+
+    def _head_ids(self, head, halo: int) -> np.ndarray:
+        """The last ``halo`` letter ids of ``head`` (the symbols before the
+        stream), left-padded with OOV; checked against [0, V) because the
+        kernels index tables with them."""
+        head_ids = np.zeros(halo, np.int32)
+        if head is not None and len(head) and halo:
+            tail = np.asarray(head)[-min(len(head), halo):]
+            if int(tail.min()) < 0 or int(tail.max()) >= self.V:
+                raise ValueError(f"head letter ids fall outside [0, {self.V})")
+            head_ids[halo - len(tail):] = tail
+        return head_ids
+
+    def _stream_ext_raw(self, raw: np.ndarray, head, halo: int, unit: int):
+        """Stage a raw symbol stream for the raw kernels: (ext [halo + B*L]
+        in the raw dtype, padded with raw 0 == OOV; head_ids [halo] for
+        stream 0's warm-up rows; B, L, T)."""
+        T = len(raw)
+        B, L = self._layout(T, unit)
+        buf = np.zeros(halo + B * L, raw.dtype)
+        buf[halo:halo + T] = raw
+        place = self._snap.place
+        return place(buf), place(self._head_ids(head, halo)), B, L, T
+
+    def _stream_ext(self, ids: np.ndarray, head, halo: int, unit: int):
+        """Stage letter ids: (ext [halo + B*L] int32 = head, ids, OOV pad;
+        B, L, T)."""
+        T = len(ids)
+        B, L = self._layout(T, unit)
+        buf = np.zeros(halo + B * L, np.int32)
+        buf[:halo] = self._head_ids(head, halo)
+        buf[halo:halo + T] = ids
+        return self._snap.place(buf), B, L, T
+
+    def _check_ids(self, ids: torch.Tensor) -> None:
+        """Tensor input: 1-D integer letter ids within [0, V)."""
+        if ids.dim() != 1 or ids.dtype.is_floating_point \
+                or ids.dtype.is_complex or ids.dtype == torch.bool:
+            raise ValueError(
+                "tensor input must be 1-D integer letter ids "
+                f"(got {ids.dtype}, shape {tuple(ids.shape)})")
+        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= self.V):
+            raise ValueError(f"tensor letter ids fall outside [0, {self.V})")
+
+    def _ext_device(self, ids: torch.Tensor, head, halo: int, unit: int):
+        """ext [halo + B*L] int32 built on the device from a letter-id
+        tensor: no host staging."""
+        T = ids.numel()
+        B, L = self._layout(T, unit)
+        ext = torch.cat([
+            self._snap.place(self._head_ids(head, halo)),
+            ids.to(device=self.device, dtype=torch.int32),
+            torch.zeros(B * L - T, dtype=torch.int32, device=self.device)])
+        return ext, B, L
+
+    def _stage(self, signs, raw, head, halo: int, unit: int):
+        """(ext, lut, head_ids, B, L, T) for a scan: raw symbols with their
+        LUT (``raw`` from _raw_stream), a letter-id tensor, or ids encoded
+        on the host."""
+        if raw is not None:
+            ext, head_ids, B, L, T = self._stream_ext_raw(raw[0], head, halo,
+                                                          unit)
+            return ext, raw[1][0], head_ids, B, L, T
+        if _is_tensor(signs):
+            self._check_ids(signs)
+            ext, B, L = self._ext_device(signs, head, halo, unit)
+            return ext, None, None, B, L, signs.numel()
+        ext, B, L, T = self._stream_ext(self.encode(signs), head, halo, unit)
+        return ext, None, None, B, L, T
+
+    # -- scanning ------------------------------------------------------------
+
+    def scan_states(self, signs, head=None) -> np.ndarray:
+        """states[t] after consuming symbol t, for the whole stream (K2)."""
+        if len(signs) == 0:
+            return np.zeros(0, dtype=np.int32)
+        t0 = time.perf_counter()
+        raw = self._raw_stream(signs)
+        with self._dispatch:
+            ext, lut, head_ids, B, L, T = self._stage(signs, raw, head,
+                                                      self.halo, 128)
+            out = dense_states(self._snap.dflat, self.V, self.halo, B, L,
+                               ext, lut, head_ids)
+            out = out[:T].cpu().numpy()
+        self._record("scan_states", T, time.perf_counter() - t0)
+        return out
+
+    def count(self, signs, head=None) -> int:
+        """Total number of keyword occurrences in the stream."""
+        if len(signs) == 0:
+            return 0
+        t0 = time.perf_counter()
+        raw = self._raw_stream(signs)
+        with self._dispatch:
+            n = None
+            if raw is not None and len(raw[0]) >= self._pipeline_min:
+                n = self._count_raw_pipelined(raw[0], raw[1], head)
+            if n is None:
+                halo, unit, count = self._count_kernel()
+                ext, lut, head_ids, B, L, _ = self._stage(signs, raw, head,
+                                                          halo, unit)
+                self._guard_acc(L)
+                # int64 grand total: per-stream int32 totals can pass 2^31
+                n = int(count(B, L, ext, lut, head_ids).sum(dtype=torch.int64))
+        self._record("count", len(signs), time.perf_counter() - t0)
+        return n
+
+    def _count_kernel(self):
+        """(halo, unit, count(B, L, ext, lut=None, head_ids=None) ->
+        per-stream int32 totals [B]): K3 with a packed table, else K1."""
+        st, snap = self._stepped, self._snap
+        if st is not None:
+            return self._halo_sym, 128 * st.k, functools.partial(
+                stepped_count, snap.packed, st.V, st.k, st.count_bits,
+                self._halo_steps)
+        return self.halo, 128, functools.partial(
+            dense_count, snap.dflat, snap.nb_out, self.V, self.halo)
+
+    def _count_raw_pipelined(self, raw, ent, head) -> Optional[int]:
+        """Raw count of a large host input in independent chunks, each
+        with its halo encoded from the raw input through the host LUT.
+        Chunks are staged and launched one after another with one
+        synchronisation at the end. None when the input is under two
+        chunks."""
+        lut_dev, n_lut, _, lut_host = ent
+        halo, unit, count = self._count_kernel()
+        T = len(raw)
+        C = self._pipeline_chunk
+        n_chunks = -(-T // C)
+        if n_chunks < 2:
+            return None
+        B, L = self._layout(C, unit)
+        self._guard_acc(L)
+        place = self._snap.place
+        partials = []
+        for i in range(n_chunks):
+            start, end = i * C, min(T, (i + 1) * C)
+            buf = np.zeros(halo + B * L, raw.dtype)
+            buf[halo:halo + (end - start)] = raw[start:end]
+            if i == 0:
+                head_ids = self._head_ids(head, halo)
+            else:
+                # the previous chunk's last raw symbols through the LUT the
+                # kernel uses, clamped like its lookup
+                head_raw = np.minimum(
+                    raw[start - halo:start].astype(np.int64), n_lut - 1)
+                head_ids = lut_host[head_raw]
+            partials.append(count(B, L, place(buf), lut_dev,
+                                  place(head_ids)).sum(dtype=torch.int64))
+        return int(torch.stack(partials).sum())
+
+    def _guard_acc(self, stream_symbols: int) -> None:
+        """Per-stream totals accumulate in int32 on the device: a stream of
+        L symbols holds at most L * max(nb_outputs) matches. Raise rather
+        than wrap."""
+        if stream_symbols * max(self._snap.max_nb, 1) >= 2 ** 31:
+            raise ValueError(
+                f"a stream of {stream_symbols} symbols with up to "
+                f"{self._snap.max_nb} matches/position could overflow the "
+                "int32 per-stream accumulator; chunk the input or raise "
+                "n_streams")
+
+    # -- retrieval -----------------------------------------------------------
+
+    def find_matches(self, signs, offset: int = 0, head=None,
+                     max_hits: Optional[int] = None):
+        """All (event, Match) occurrences as a columnar ``MatchSet``,
+        ordered by end position, longest first within a position.
+
+        With a packed k-gram table (the default) retrieval is two-phase:
+        K4 emits per-gram words and counts the live grams, which size the
+        refinement's buffers, so no ``max_hits`` is needed. ``max_hits``
+        bounds the result and raises if more positions match."""
+        if max_hits is not None or self._stepped is not None:
+            return self._find_matches_device(signs, offset, head, max_hits)
+        states = self.scan_states(signs, head=head)
+        ends, end_states, idx = decode_matches_arrays(states, self.tables,
+                                                      offset)
+        return MatchSet(self.machine, self.tables, ends, end_states, idx)
+
+    def _find_matches_device(self, signs, offset, head, max_hits):
+        if len(signs) == 0:
+            return MatchSet(self.machine, self.tables,
+                            np.zeros(0, np.int64), np.zeros(0, np.int32),
+                            np.zeros(0, np.int32))
+        t0 = time.perf_counter()
+        raw = self._raw_stream(signs)
+        auto = max_hits is None
+        if not auto:
+            max_hits = int(max_hits)
+        _guard_pos32(len(raw[0]) if raw is not None else len(signs))
+        st, snap = self._stepped, self._snap
+        with self._dispatch:
+            if st is None:
+                # No packed table: K2 states decoded on the host, bounded
+                # by max_hits as the JAX package's fused hits kernel is.
+                states = self.scan_states(signs, head=head)
+                n_hit_pos = int(np.count_nonzero(
+                    self.tables.nb_outputs[states]))
+                if n_hit_pos > max_hits:
+                    raise ValueError(
+                        f"{n_hit_pos} matching positions exceed "
+                        f"max_hits={max_hits}; raise max_hits or chunk the "
+                        "stream with a session")
+                ends, end_states, idx = decode_matches_arrays(
+                    states, self.tables, offset)
+                return MatchSet(self.machine, self.tables, ends, end_states,
+                                idx)
+            ext, lut, head_ids, B, L, T = self._stage(
+                signs, raw, head, self._halo_sym, 128 * st.k)
+            # per-stream int32 n_hits must not wrap: the count's bound
+            self._guard_acc(L)
+            emit, n_hits_dev, n_live_dev = stepped_emit(
+                snap.packed, st.V, st.k, st.count_bits, self._halo_steps, B,
+                L, ext, lut, head_ids)
+            n_live = int(n_live_dev.sum(dtype=torch.int64))
+            if not auto and n_live > max_hits:
+                raise ValueError(
+                    f"at least {n_live} matching positions exceed "
+                    f"max_hits={max_hits}; raise max_hits or chunk the "
+                    "stream with a session")
+            if n_live == 0:
+                positions = np.zeros(0, np.int64)
+                sts = np.zeros(0, np.int32)
+                n_hit_pos = 0
+            else:
+                cap = max(8, 1 << (n_live - 1).bit_length())
+                if auto:
+                    # n_hit_pos <= n_hits, so this bound cannot overflow
+                    n_hits = int(n_hits_dev.sum(dtype=torch.int64))
+                    out_size = min(
+                        cap * st.k,
+                        max(8, 1 << (max(n_hits, 1) - 1).bit_length()))
+                else:
+                    out_size = min(max_hits, cap * st.k)
+                body = ext[self._halo_sym:]
+                # Past 1/8 live grams refining every position beats
+                # compacting the live ones (the JAX package's threshold).
+                if self._pk1 is not None and n_live * 8 > (B * L) // st.k:
+                    syms = body.long() if lut is None else lookup(lut, body)
+                    pk1, cb1 = self._pk1
+                    positions, sts, n_hit_pos = hits_extract_dense(
+                        st.V, st.k, st.count_bits, cb1, out_size, pk1, emit,
+                        syms)
+                else:
+                    positions, sts, n_hit_pos = hits_extract(
+                        st.V, st.k, st.count_bits, cap, out_size, emit,
+                        (lambda p: body[p].long()) if lut is None
+                        else (lambda p: lookup(lut, body[p])),
+                        snap.dflat, snap.nb_out)
+                positions = positions.cpu().numpy()
+                sts = sts.cpu().numpy()
+        keep = (positions >= 0) & (positions < T)
+        positions, sts = positions[keep], sts[keep]
+        if not auto and n_hit_pos > max_hits:
+            raise ValueError(
+                f"{n_hit_pos} matching positions exceed max_hits={max_hits}; "
+                "raise max_hits or chunk the stream with a session")
+        order = np.argsort(positions, kind="stable")
+        ends, end_states, idx = expand_hits_arrays(
+            positions[order], sts[order], self.tables, offset)
+        self._record("find_matches_device", T, time.perf_counter() - t0)
+        return MatchSet(self.machine, self.tables, ends, end_states, idx)
+
+    @functools.cached_property
+    def _pk1(self):
+        """(packed k=1 table (next_state << cb1) | nb on the device, cb1)
+        for the dense refinement: one gather per position. The snapshot's
+        own table when step_k == 1; None when it does not fit 31 bits."""
+        st = self._stepped
+        if st is not None and st.k == 1:
+            return self._snap.packed, st.count_bits
+        cb1 = max(1, int(self._snap.max_nb).bit_length())
+        state_bits = max(1, int(self.tables.n_states - 1).bit_length())
+        if state_bits + cb1 > 31:
+            return None
+        return (self._snap.place(pack(self.tables.delta,
+                                      self.tables.nb_outputs, 1, cb1)), cb1)
+
+    def _record(self, op: str, n_symbols: int, seconds: float) -> None:
+        self.stats["last_op"] = op
+        self.stats["last_symbols"] = n_symbols
+        self.stats["last_seconds"] = seconds
+        self.stats["last_symbols_per_sec"] = (
+            n_symbols / seconds if seconds > 0 else float("inf"))
+        self.stats["total_symbols"] = (
+            self.stats.get("total_symbols", 0) + n_symbols)

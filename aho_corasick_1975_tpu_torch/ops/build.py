@@ -1,0 +1,182 @@
+"""Build and bind the hand-written kernels of ``csrc/``.
+
+The CUDA sources compile with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, at first use, and load with ctypes. The library's
+name carries a hash of its sources and command, so an edited source builds
+anew; concurrent processes build under a file lock and publish the result
+with an atomic rename. ``host_library()`` builds the same per-stream scans
+with g++ for the CPU tests.
+
+Every launch goes through ``launch()``, which raises on a non-zero
+``cudaGetLastError()`` and counts the launch per entry point in
+``launches``, so that a run can show which kernels it went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+
+_HEADERS = ("ac_scan.cuh",)
+_CUDA_SOURCES = ("dense_scan.cu", "stepped_scan.cu")
+_HOST_SOURCES = ("ac_scan_host.cpp",)
+ENTRY_POINTS = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
+                "ac_stepped_emit")
+
+# Launches per entry point since the last reset_launches(); only launch()
+# adds to it.
+launches: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
+# Seconds and compiler output of the last build this process ran (None
+# when the library was already built).
+last_build: Dict[str, object] = {"seconds": None, "log": ""}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class AcScanArgs(ctypes.Structure):
+    """Mirror of ``struct AcScanArgs`` in csrc/ac_scan.cuh."""
+    _fields_ = [
+        ("table", ctypes.c_void_p), ("nb_out", ctypes.c_void_p),
+        ("ext", ctypes.c_void_p), ("lut", ctypes.c_void_p),
+        ("head_ids", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("n_hits", ctypes.c_void_p), ("n_live", ctypes.c_void_p),
+        ("L", ctypes.c_int64), ("Vk", ctypes.c_int64),
+        ("B", ctypes.c_int32), ("V", ctypes.c_int32),
+        ("halo", ctypes.c_int32), ("ext_u8", ctypes.c_int32),
+        ("n_lut", ctypes.c_int32), ("k", ctypes.c_int32),
+        ("count_bits", ctypes.c_int32),
+    ]
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME or "
+                           "/usr/local/cuda/bin); the CUDA kernels cannot be "
+                           "built on this machine")
+    return path
+
+
+def _build(name: str, sources, command) -> str:
+    """Compile ``sources`` (in csrc/) with ``command(out_path, paths)`` into
+    BUILD_DIR at most once across processes; return the library's path."""
+    paths = [os.path.join(CSRC_DIR, s) for s in sources]
+    digest = hashlib.sha1()
+    for p in sorted(paths + [os.path.join(CSRC_DIR, h) for h in _HEADERS]):
+        with open(p, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(command("out.so", paths)[1:]).encode())
+    so = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(so):
+            return so
+        tmp = f"{so}.tmp{os.getpid()}"
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(command(tmp, paths), capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {name} failed:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        last_build["seconds"] = time.perf_counter() - t0
+        last_build["log"] = proc.stdout + proc.stderr
+    return so
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    for name in ENTRY_POINTS:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(AcScanArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.ac_error_string.argtypes = [ctypes.c_int]
+    lib.ac_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _load(kind: str, build) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(kind)
+        if lib is None:
+            lib = _libs[kind] = _bind(ctypes.CDLL(build()))
+        return lib
+
+
+def cuda_library() -> ctypes.CDLL:
+    """The sm_90a kernels, built with nvcc at first use."""
+    def command(out, paths):
+        return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v", "-I", CSRC_DIR, "-o", out, *paths]
+    return _load("cuda", lambda: _build("ac_kernels", _CUDA_SOURCES,
+                                        command))
+
+
+def host_library() -> ctypes.CDLL:
+    """The same per-stream scans built with g++ (csrc/ac_scan_host.cpp),
+    one stream after another: what the CPU tests run in place of the
+    card."""
+    def command(out, paths):
+        return ["g++", "-std=c++17", "-O2", "-shared", "-fPIC",
+                "-I", CSRC_DIR, "-o", out, *paths]
+    return _load("host", lambda: _build("ac_scan_host", _HOST_SOURCES,
+                                        command))
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def scan_args(**fields) -> AcScanArgs:
+    """AcScanArgs from tensors (pointers; None for a null pointer) and
+    ints."""
+    args = AcScanArgs()
+    for key, val in fields.items():
+        setattr(args, key, _ptr(val) if isinstance(val, torch.Tensor)
+                or val is None else val)
+    return args
+
+
+def launch(name: str, device: torch.device, **fields) -> None:
+    """Launch entry point ``name`` of the CUDA library on the current
+    stream of ``device``; raise on a launch error, count the launch."""
+    lib = cuda_library()
+    args = scan_args(**fields)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(ctypes.byref(args), stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} "
+                           f"({lib.ac_error_string(err).decode()})")
+    launches[name] += 1

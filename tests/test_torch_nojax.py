@@ -1,0 +1,53 @@
+"""The port imports no JAX: the GPU machine it runs on has none.
+
+A fresh interpreter blocks every ``jax``/``jaxlib`` import with a meta-path
+finder, imports ``aho_corasick_1975_tpu_torch`` and runs the golden flow
+on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import sys
+
+    class BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib"):
+                raise ImportError(f"jax is blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, BlockJax())
+    sys.path.insert(0, sys.argv[1])
+    import aho_corasick_1975_tpu_torch as act
+
+    m = act.Machine()
+    for kw in ["he", "she", "his", "hers"]:
+        m.insert_keyword(kw)
+    text = "To ushers: he found his pencil, but she could not find hers."
+    for step_k in ("auto", 1):
+        sc = m.scanner(device="cpu", step_k=step_k)
+        assert sc.count(text) == 9
+        ms = sc.find_matches(text)
+        assert isinstance(ms, act.MatchSet) and len(ms) == 9
+        assert [mt.text() for _, mt in ms][:3] == ["she", "he", "hers"]
+    loaded = sorted(n for n in sys.modules
+                    if n.split(".")[0] in ("jax", "jaxlib",
+                                           "aho_corasick_1975_tpu"))
+    assert not loaded, loaded
+    print("NOJAX-OK")
+""")
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, ROOT],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NOJAX-OK" in proc.stdout

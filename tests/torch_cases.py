@@ -1,0 +1,60 @@
+"""Seeded inputs shared by the port's op tests (tests/test_torch_ops.py,
+tests/test_torch_kernel_body.py): automaton tables from the port's own
+snapshot and stream buffers made with numpy, at small sizes."""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+
+from aho_corasick_1975_tpu_torch import Machine
+from aho_corasick_1975_tpu_torch.models.snapshot import DeviceSnapshot
+from aho_corasick_1975_tpu_torch.ops.multistep import build_stepped, pack
+
+KINDS = ("ids", "raw_u8", "raw_i32")
+B = 8
+
+
+def machine(seed: int = 0) -> Machine:
+    rng = random.Random(seed)
+    m = Machine()
+    for _ in range(40):
+        m.insert_keyword(bytes(rng.choice(b"abcd")
+                               for _ in range(rng.randint(1, 6))))
+    return m
+
+
+def tables(k: int, seed: int = 0) -> dict:
+    """The automaton's capacity-padded tables as numpy arrays: the 1-char
+    tables, the packed k-gram table and the packed k=1 table ``pk1``."""
+    m = machine(seed)
+    t = m.compile()
+    snap = DeviceSnapshot(t, step_k=1, device="cpu")
+    st = build_stepped(t, k, cap_rows=snap.cap)
+    cb1 = max(1, snap.max_nb.bit_length())
+    lut = m.vocab.byte_lut()
+    return dict(machine=m, V=snap.V, k=k, count_bits=st.count_bits,
+                dflat=snap.dflat.numpy(), nb_out=snap.nb_out.numpy(),
+                packed=st.cap_packed, cb1=cb1,
+                pk1=pack(t.delta, t.nb_outputs, 1, cb1),
+                byte_lut=np.where(lut < snap.V, lut, 0).astype(np.int32))
+
+
+def stream(tab: dict, kind: str, halo: int, L: int, seed: int = 1) -> dict:
+    """ext [halo + B*L] of one kind, with the LUT and non-zero head_ids
+    of the raw kinds. Raw int32 symbols run past the LUT's end, so the
+    clamp of the lookup is exercised."""
+    rng = np.random.default_rng(seed)
+    n = halo + B * L
+    V = tab["V"]
+    if kind == "ids":
+        ext = rng.integers(0, V, n).astype(np.int32)
+        return dict(ext=ext, lut=None, head_ids=None)
+    if kind == "raw_u8":
+        ext = rng.choice(np.frombuffer(b"abcdabcdxy\0", np.uint8), n)
+    else:
+        ext = rng.choice(np.array([97, 98, 99, 100, 0, 120, 255, 256, 4000],
+                                  np.int32), n)
+    head_ids = rng.integers(1, V, halo).astype(np.int32)
+    return dict(ext=ext, lut=tab["byte_lut"], head_ids=head_ids)
