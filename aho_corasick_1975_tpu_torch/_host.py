@@ -12,6 +12,9 @@ imported through it are the JAX package's own source files, but the JAX
 package's ``__init__.py`` never runs. The alias only ever loads the jax-free
 modules below; it never touches ``models.scanner``, ``models.snapshot`` or
 anything under ``ops/`` other than ``decode`` and ``blocking``.
+
+The machine classes here are the JAX package's with ``scanner()`` building
+the port's scanner, and ``load_machine`` returns them.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ def _ref(name: str) -> types.ModuleType:
 _builder = _ref("core.builder")
 _native = _ref("core.native")
 _machine = _ref("models.machine")
+_bytes_machine = _ref("models.bytes_machine")
+_checkpoint = _ref("utils.checkpoint")
 _decode = _ref("ops.decode")
 
 Builder = _builder.Builder
@@ -61,12 +66,42 @@ decode_matches_arrays = _decode.decode_matches_arrays
 MatchSet = _ref("models.results").MatchSet
 
 
-class Machine(_machine.Machine):
-    """The JAX package's ``Machine``; ``scanner()`` builds the port's
-    scanner."""
-
+class _PortScanner:
     def scanner(self, **kwargs):
         """Build a device scanner over the current snapshot
         (``aho_corasick_1975_tpu_torch.models.scanner``)."""
         from .models.scanner import DenseScanner
         return DenseScanner(self, **kwargs)
+
+
+class Machine(_PortScanner, _machine.Machine):
+    """The JAX package's ``Machine``; ``scanner()`` builds the port's
+    scanner."""
+
+
+class ByteMachine(_PortScanner, _bytes_machine.ByteMachine):
+    """The JAX package's ``ByteMachine`` (fixed 256-byte alphabet);
+    ``scanner()`` builds the port's scanner."""
+
+
+class UnicodeMachine(_PortScanner, _bytes_machine.UnicodeMachine):
+    """The JAX package's ``UnicodeMachine`` (codepoints, optional case
+    folding); ``scanner()`` builds the port's scanner."""
+
+
+save_machine = _checkpoint.save_machine
+_PORT_CLASS = {_machine.Machine: Machine,
+               _bytes_machine.ByteMachine: ByteMachine}
+
+
+def load_machine(path_or_file, key_fn="saved", cmp_fn="saved",
+                 backend: str = "auto"):
+    """``utils/checkpoint.py:load_machine``, returning the port's
+    ``Machine`` or ``ByteMachine``: the checkpoint module builds its own
+    package's classes, whose ``scanner()`` would import the JAX scanner.
+    The port's classes only add ``scanner()``, so the loaded machine takes
+    the port's class as it is."""
+    m = _checkpoint.load_machine(path_or_file, key_fn=key_fn, cmp_fn=cmp_fn,
+                                 backend=backend)
+    m.__class__ = _PORT_CLASS[type(m)]
+    return m

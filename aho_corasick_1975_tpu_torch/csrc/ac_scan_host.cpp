@@ -1,5 +1,6 @@
-// Host build of the per-stream scans in ac_scan.cuh, with the same C entry
-// points as the CUDA kernels: each loops over the streams one by one. Built
+// Host build of the per-thread scans in ac_scan.cuh, with the same C entry
+// points as the CUDA kernels: each loops over the streams (or batch
+// columns) one by one. Built
 // with g++ by the CPU tests, so that the logic the H100 kernels run is
 // tested where there is no GPU; the scanner never loads it.
 #include "ac_scan.cuh"
@@ -31,6 +32,16 @@ int ac_stepped_count(const AcScanArgs* a, void*) {
 
 int ac_stepped_emit(const AcScanArgs* a, void*) {
   return run<ac_stepped_emit_stream<uint8_t>, ac_stepped_emit_stream<int32_t>>(a);
+}
+
+int ac_dense_count_many(const AcScanArgs* a, void*) {
+  return run<ac_dense_count_many_column<uint8_t>,
+             ac_dense_count_many_column<int32_t>>(a);
+}
+
+int ac_stepped_count_many(const AcScanArgs* a, void*) {
+  return run<ac_stepped_count_many_column<uint8_t>,
+             ac_stepped_count_many_column<int32_t>>(a);
 }
 
 const char* ac_error_string(int) { return "host build"; }

@@ -1,13 +1,18 @@
-// K3 stepped count and K4 stepped emit for sm_90a: one thread per stream,
-// each running the per-stream scan of ac_scan.cuh.
+// K3 stepped count, K4 stepped emit and K5 stepped count_many for sm_90a:
+// one thread per stream (K5: per batch column), each running the
+// per-thread scan of ac_scan.cuh.
 //
 // K3 replaces ops/multistep.py:stepped_count_core (make_stepped_count_stream
 // / _raw), the default count. K4 replaces ops/hits.py:_stepped_emit_scan
-// (make_stepped_hits_scan / _raw), phase A of retrieval.
+// (make_stepped_hits_scan / _raw), phase A of retrieval. K5 replaces
+// ops/multistep.py:_stepped_count_many_body / make_stepped_count_many
+// (split_docs_layout folded into the addressing), count_many's default: the
+// K3 recurrence over the [L, B] batch, whose symbol loads coalesce.
 //
 // Bound: one dependent gather of the packed k-gram table per k symbols
 // per thread, so load latency. The table (28 MB for the 1,000-keyword
-// byte dictionary at k = 3) fits in the H100's 50 MB L2.
+// byte dictionary at k = 3) fits in the H100's 50 MB L2; the 10,000-keyword
+// batch-scoring dictionary's k = 1 table (62 MB) does not.
 #include <cuda_runtime.h>
 
 #include "ac_scan.cuh"
@@ -26,6 +31,12 @@ template <typename T>
 __global__ void stepped_emit_kernel(AcScanArgs a) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b < a.B) ac_stepped_emit_stream<T>(a, b);
+}
+
+template <typename T>
+__global__ void stepped_count_many_kernel(AcScanArgs a) {
+  const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (col < a.B) ac_stepped_count_many_column<T>(a, col);
 }
 
 }  // namespace
@@ -47,5 +58,15 @@ extern "C" int ac_stepped_emit(const AcScanArgs* a, void* stream) {
     stepped_emit_kernel<uint8_t><<<grid, kThreads, 0, st>>>(*a);
   else
     stepped_emit_kernel<int32_t><<<grid, kThreads, 0, st>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ac_stepped_count_many(const AcScanArgs* a, void* stream) {
+  const dim3 grid((a->B + kThreads - 1) / kThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (a->ext_u8)
+    stepped_count_many_kernel<uint8_t><<<grid, kThreads, 0, st>>>(*a);
+  else
+    stepped_count_many_kernel<int32_t><<<grid, kThreads, 0, st>>>(*a);
   return (int)cudaGetLastError();
 }

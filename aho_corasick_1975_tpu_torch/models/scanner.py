@@ -1,26 +1,35 @@
-"""DenseScanner: the device-resident scanning model, in PyTorch.
+"""DenseScanner and StreamSession: the device-resident scanning model, in
+PyTorch.
 
-The port of ``models/scanner.py:DenseScanner``'s single-device count and
-retrieval path. It owns an immutable table snapshot (models/snapshot.py)
-and scans B parallel streams with halo overlap (ops/blocking.py's
-exactness argument) through hand-written kernels:
+The port of ``models/scanner.py:DenseScanner``'s single-device path. It
+owns a table snapshot (models/snapshot.py), pinned to one dictionary
+version until ``refresh()`` brings it up to the machine's in place, and
+scans B parallel streams with halo overlap (ops/blocking.py's exactness
+argument) through hand-written kernels:
 
 * ``count``: K3, the packed k-gram count (ops/multistep.py), or K1, the
   1-char dense count (ops/scan_dense.py) where no packed table exists;
 * ``find_matches``: K4, the k-gram emit scan, then the plain-PyTorch
   refinement of live grams (ops/hits.py); without a packed table, K2
   states decoded on the host;
-* ``scan_states``: K2.
+* ``scan_states``: K2;
+* ``count_many``: one document per column of a time-major [L, B] batch,
+  split into blocks: K5, the packed count of the batch, or K6, its dense
+  count;
+* ``session()``: a ``StreamSession``, chunked scanning exact across chunk
+  edges, over count and find_matches.
 
 bytes, uint8 arrays and str upload their raw symbols and translate them
 through a LUT inside the kernel (``device_encode``); other host inputs are
 encoded on the host. A 1-D integer ``torch.Tensor`` is taken as letter ids
 already encoded (the counterpart of a ``jax.Array`` input) and is checked
 against ``[0, V)``, since a CUDA kernel would read out of bounds where XLA
-clamps.
+clamps; so is a 2-D integer tensor given to ``count_many``. ``encode``
+takes host signs only and raises ``TypeError`` for a tensor, as the JAX
+package's does for a ``jax.Array``.
 
-Not ported yet (ROADMAP): refresh, sessions, ``count_many``, the prefilter,
-the MXU and hybrid engines, calibration, and upload overlap.
+Not ported yet (ROADMAP): the prefilter, the MXU and hybrid engines,
+calibration, and upload overlap.
 """
 
 from __future__ import annotations
@@ -35,8 +44,9 @@ import torch
 
 from .._host import MatchSet, decode_matches_arrays, expand_hits_arrays
 from ..ops.hits import hits_extract, hits_extract_dense, stepped_emit
-from ..ops.multistep import pack, stepped_count
-from ..ops.scan_dense import dense_count, dense_states, lookup
+from ..ops.multistep import pack, stepped_count, stepped_count_many
+from ..ops.scan_dense import (dense_count, dense_count_many, dense_states,
+                              lookup)
 from .snapshot import DeviceSnapshot
 
 
@@ -56,7 +66,13 @@ def _is_tensor(x) -> bool:
 def encode_signs(machine, signs, V: int) -> np.ndarray:
     """Map signs to dense letter ids. An int32 ndarray is taken as
     pre-encoded letter ids and checked against [0, V). Letters registered
-    after the snapshot (ids >= V) are unknown letters for it: OOV."""
+    after the snapshot (ids >= V) are unknown letters for it: OOV. A
+    ``torch.Tensor`` raises ``TypeError``: its elements are not signs, and
+    the vocabulary would map every one of them to OOV."""
+    if _is_tensor(signs):
+        raise TypeError(
+            "encode takes host signs, not a torch.Tensor; a tensor of letter "
+            "ids goes to count(), find_matches() or scan_states() as it is")
     if isinstance(signs, np.ndarray) and signs.dtype == np.int32:
         if signs.size and (int(signs.max()) >= V or int(signs.min()) < 0):
             raise ValueError(
@@ -190,18 +206,18 @@ class DenseScanner:
             raise ValueError(f"snapshot on {snapshot.device}, scanner on "
                              f"{self.device}")
         self._snap = snapshot
+        self._halo_auto = halo is None
         self.halo = int(halo) if halo is not None else max(
             self.tables.max_depth - 1, 0)
-        st = self._stepped
-        self._halo_steps = -(-self.halo // st.k) if st is not None else 0
-        self._halo_sym = self._halo_steps * st.k if st is not None else 0
         self.stats: dict = {}
-        # Serialises the public device calls on one scanner; use one
-        # scanner per thread to scan in parallel.
+        # Serialises the public device calls on one scanner, refresh()
+        # included; use one scanner per thread to scan in parallel.
         self._dispatch = threading.RLock()
         self._device_encode = bool(device_encode)
         self._device_encode_max_cp = int(device_encode_max_cp)
         self._lut_cache: dict = {}
+        self._pk1_cache = None
+        self._bind()
 
     @property
     def tables(self):
@@ -218,6 +234,58 @@ class DenseScanner:
     @property
     def _stepped(self):
         return self._snap.stepped
+
+    @property
+    def version(self) -> int:
+        return self.tables.version
+
+    def _bind(self) -> None:
+        """Derive what depends on the snapshot and the halo: the halo in
+        gram steps, and the raw-encode LUTs, whose exactness rests on the
+        tables (raw_lut_entry). ``__init__`` and ``refresh()`` call it."""
+        st = self._stepped
+        self._halo_steps = -(-self.halo // st.k) if st is not None else 0
+        self._halo_sym = self._halo_steps * st.k if st is not None else 0
+        self._lut_cache.clear()
+
+    # -- incremental snapshot refresh ----------------------------------------
+
+    def refresh(self) -> bool:
+        """Bring the pinned snapshot up to the machine's current dictionary
+        (``models/scanner.py:DenseScanner.refresh``): re-emit the dense
+        tables on the host, diff them against the snapshot, recompute the
+        k-gram cells routed through a changed edge
+        (``ops/multistep.py:stepped_delta_cells``) and write rows and cells
+        into the device tables in place.
+
+        Returns True for the in-place path (or no change), False when it
+        fell back to a full rebuild (vocabulary growth, state capacity,
+        packed count width, or a large delta). Either way the scanner then
+        scans exactly as a freshly built one. Open sessions see the new
+        dictionary from their next chunk on. The refresh holds the dispatch
+        lock, so no scan of this scanner runs against half-written
+        tables."""
+        t0 = time.perf_counter()
+        new = self.machine.compile()
+        if new.version == self.tables.version:
+            return True
+        with self._dispatch:
+            status = self._snap.refresh(new)
+            self._refresh_halo()
+            self._bind()
+        rows = self._snap.last_refresh.get("rows", 0)
+        self._record("refresh", rows, time.perf_counter() - t0)
+        self.stats["refresh_rows"] = rows
+        self.stats["refresh_cells"] = self._snap.last_refresh.get("cells", 0)
+        return status != "rebuild"
+
+    def _refresh_halo(self) -> None:
+        """Grow an automatic halo when a new keyword outgrows it, rounded up
+        to a multiple of 8 (the JAX package's rule, there to spare
+        recompiles)."""
+        need = max(self.tables.max_depth - 1, 0)
+        if self._halo_auto and need > self.halo:
+            self.halo = -(-need // 8) * 8
 
     # -- encoding and staging ----------------------------------------------
 
@@ -323,8 +391,10 @@ class DenseScanner:
         if len(signs) == 0:
             return np.zeros(0, dtype=np.int32)
         t0 = time.perf_counter()
-        raw = self._raw_stream(signs)
+        # The LUT and the tables are read under the lock: refresh() swaps
+        # them.
         with self._dispatch:
+            raw = self._raw_stream(signs)
             ext, lut, head_ids, B, L, T = self._stage(signs, raw, head,
                                                       self.halo, 128)
             out = dense_states(self._snap.dflat, self.V, self.halo, B, L,
@@ -338,8 +408,8 @@ class DenseScanner:
         if len(signs) == 0:
             return 0
         t0 = time.perf_counter()
-        raw = self._raw_stream(signs)
         with self._dispatch:
+            raw = self._raw_stream(signs)
             n = None
             if raw is not None and len(raw[0]) >= self._pipeline_min:
                 n = self._count_raw_pipelined(raw[0], raw[1], head)
@@ -408,6 +478,141 @@ class DenseScanner:
                 "int32 per-stream accumulator; chunk the input or raise "
                 "n_streams")
 
+    # -- batch scoring ---------------------------------------------------------
+
+    def count_many(self, docs) -> np.ndarray:
+        """Per-document match counts (int64 [len(docs)]) of a batch of
+        independent documents (``models/scanner.py:DenseScanner.count_many``).
+
+        Each document is one column of a time-major [L, B] batch, starts at
+        the root and is padded with the OOV id 0, which sends every state to
+        the root and never matches (the reference's modification [3]), so
+        it adds nothing. Documents are grouped into power-of-two length
+        buckets (multiples of 128*k), one launch per bucket, and long
+        documents are split into blocks with a halo from the same document
+        (``_split_for``). When every document takes the same raw LUT
+        (bytes or str), the batch is staged raw and encoded in the kernel.
+
+        A 2-D integer ``torch.Tensor`` [L, B] is a batch of letter ids
+        already encoded, one document per column, padded with 0 (the
+        counterpart of a ``jax.Array``); it is checked against [0, V)."""
+        if _is_tensor(docs):
+            return self._count_many_device(docs)
+        n = len(docs)
+        if n == 0:
+            return np.zeros(0, dtype=np.int64)
+        t0 = time.perf_counter()
+        out = np.zeros(n, dtype=np.int64)
+        with self._dispatch:
+            unit = 128 * (self._stepped.k if self._stepped is not None
+                          else 1)
+            raws = self._raw_docs(docs)
+            if raws is not None:
+                docs_arrs, ent = raws
+            else:
+                docs_arrs, ent = [self.encode(d) for d in docs], None
+            lengths = np.asarray([len(e) for e in docs_arrs], np.int64)
+            for L, idx in self._length_buckets(lengths, unit):
+                self._guard_acc(L)
+                out[idx] = self._count_many_launch(
+                    [docs_arrs[i] for i in idx], L, ent)
+        self._record("count_many" if ent is None else "count_many_raw",
+                     int(lengths.sum()), time.perf_counter() - t0)
+        return out
+
+    def _raw_docs(self, docs):
+        """(raw symbol arrays, LUT entry) when every document takes the
+        same raw LUT, else None (host encode)."""
+        if not self._device_encode:
+            return None
+        out, ent0 = [], None
+        for d in docs:
+            r = self._raw_stream(d)
+            if r is None:
+                return None
+            raw, ent = r
+            if ent0 is None:
+                ent0 = ent
+            elif ent is not ent0:
+                return None  # byte and codepoint LUTs in one batch
+            out.append(raw)
+        return (out, ent0) if out else None
+
+    def _count_many_device(self, tm: torch.Tensor) -> np.ndarray:
+        """Scoring of a batch already on the device: ``tm`` [L, B] integer
+        letter ids, checked against [0, V) (the reference clamps)."""
+        if tm.dim() != 2:
+            raise ValueError(
+                f"device-resident batch must be [L, B] (got {tm.dim()}-D)")
+        if tm.dtype.is_floating_point or tm.dtype.is_complex \
+                or tm.dtype == torch.bool:
+            raise ValueError("device-resident batch must be integer letter "
+                             f"ids (got dtype {tm.dtype})")
+        if tm.numel() and (int(tm.min()) < 0 or int(tm.max()) >= self.V):
+            raise ValueError(
+                f"device-resident letter ids fall outside [0, {self.V})")
+        L, B = tm.shape
+        t0 = time.perf_counter()
+        tm = tm.to(device=self.device, dtype=torch.int32).contiguous()
+        with self._dispatch:
+            self._guard_acc(L)
+            out = self._count_many_kernel(tm, L, B)
+        self._record("count_many_device", L * B, time.perf_counter() - t0)
+        return out
+
+    @staticmethod
+    def _length_buckets(lengths: np.ndarray, unit: int):
+        """(L, document indices) per power-of-two multiple of ``unit``
+        covering the documents' lengths, longest first."""
+        L_each = np.maximum(lengths, 1)  # empty documents: smallest bucket
+        buckets = unit * (1 << np.maximum(
+            0, np.ceil(np.log2(np.maximum(L_each / unit, 1))).astype(np.int64)))
+        for L in np.unique(buckets)[::-1]:
+            yield int(L), np.flatnonzero(buckets == L)
+
+    def _split_for(self, L: int, n_cols: int, unit: int):
+        """(c, Lp): split each document into c blocks of Lp symbols (a
+        multiple of unit, L <= c*Lp) so that a batch of few long documents
+        has the stream path's width, ``_streams_for(L * n_cols)``
+        columns."""
+        target = self._streams_for(L * max(n_cols, 1))
+        c = min(-(-target // max(n_cols, 1)), max(L // unit, 1))
+        if c <= 1:
+            return 1, L
+        Lp = -(-(-(-L // c)) // unit) * unit
+        return -(-L // Lp), Lp
+
+    def _count_many_launch(self, encoded, L: int, ent=None) -> np.ndarray:
+        """One bucket: stage the documents as the columns of a [L, B]
+        batch (B a multiple of 8), raw symbols with ``ent``, and count."""
+        n = len(encoded)
+        B = -(-n // 8) * 8
+        tm = np.zeros((L, B), dtype=encoded[0].dtype if ent is not None
+                      else np.int32)
+        for j, e in enumerate(encoded):
+            tm[:len(e), j] = e
+        return self._count_many_kernel(self._snap.place(tm), L, B, ent)[:n]
+
+    def _count_many_kernel(self, tm: torch.Tensor, L: int, B: int,
+                           ent=None) -> np.ndarray:
+        """Count a [L, B] batch on the device: K5 with a packed table and
+        L % k == 0, else K6 (which also stands in for the reference's
+        unpacked two-table count, not ported). Documents split into c > 1
+        blocks warm up from a halo of their own; c == 1 takes none, as in
+        the reference. Returns int64 counts [B]."""
+        st, snap = self._stepped, self._snap
+        lut = None if ent is None else ent[0]
+        if st is not None and L % st.k == 0:
+            c, Lp = self._split_for(L, B, 128 * st.k)
+            per = stepped_count_many(
+                snap.packed, st.V, st.k, st.count_bits,
+                self._halo_steps if c > 1 else 0, c, Lp, tm, lut)
+        else:
+            c, Lp = self._split_for(L, B, 128)
+            per = dense_count_many(snap.dflat, snap.nb_out, self.V,
+                                   self.halo if c > 1 else 0, c, Lp, tm, lut)
+        return per.view(c, B).sum(dim=0, dtype=torch.int64).cpu().numpy()
+
     # -- retrieval -----------------------------------------------------------
 
     def find_matches(self, signs, offset: int = 0, head=None,
@@ -419,12 +624,16 @@ class DenseScanner:
         K4 emits per-gram words and counts the live grams, which size the
         refinement's buffers, so no ``max_hits`` is needed. ``max_hits``
         bounds the result and raises if more positions match."""
-        if max_hits is not None or self._stepped is not None:
-            return self._find_matches_device(signs, offset, head, max_hits)
-        states = self.scan_states(signs, head=head)
-        ends, end_states, idx = decode_matches_arrays(states, self.tables,
-                                                      offset)
-        return MatchSet(self.machine, self.tables, ends, end_states, idx)
+        # Under the lock from the scan to the decode: refresh() swaps the
+        # tables both read.
+        with self._dispatch:
+            if max_hits is not None or self._stepped is not None:
+                return self._find_matches_device(signs, offset, head,
+                                                 max_hits)
+            states = self.scan_states(signs, head=head)
+            ends, end_states, idx = decode_matches_arrays(
+                states, self.tables, offset)
+            return MatchSet(self.machine, self.tables, ends, end_states, idx)
 
     def _find_matches_device(self, signs, offset, head, max_hits):
         if len(signs) == 0:
@@ -484,9 +693,10 @@ class DenseScanner:
                 body = ext[self._halo_sym:]
                 # Past 1/8 live grams refining every position beats
                 # compacting the live ones (the JAX package's threshold).
-                if self._pk1 is not None and n_live * 8 > (B * L) // st.k:
+                pk1 = self._pk1()
+                if pk1 is not None and n_live * 8 > (B * L) // st.k:
                     syms = body.long() if lut is None else lookup(lut, body)
-                    pk1, cb1 = self._pk1
+                    pk1, cb1 = pk1
                     positions, sts, n_hit_pos = hits_extract_dense(
                         st.V, st.k, st.count_bits, cb1, out_size, pk1, emit,
                         syms)
@@ -510,20 +720,31 @@ class DenseScanner:
         self._record("find_matches_device", T, time.perf_counter() - t0)
         return MatchSet(self.machine, self.tables, ends, end_states, idx)
 
-    @functools.cached_property
     def _pk1(self):
         """(packed k=1 table (next_state << cb1) | nb on the device, cb1)
         for the dense refinement: one gather per position. The snapshot's
-        own table when step_k == 1; None when it does not fit 31 bits."""
+        own table when step_k == 1; otherwise built at first use and cached
+        per table version, so a refresh invalidates it. None when it does
+        not fit 31 bits."""
         st = self._stepped
         if st is not None and st.k == 1:
             return self._snap.packed, st.count_bits
+        ver = self.tables.version
+        if self._pk1_cache is not None and self._pk1_cache[0] == ver:
+            return self._pk1_cache[1]
         cb1 = max(1, int(self._snap.max_nb).bit_length())
         state_bits = max(1, int(self.tables.n_states - 1).bit_length())
-        if state_bits + cb1 > 31:
-            return None
-        return (self._snap.place(pack(self.tables.delta,
-                                      self.tables.nb_outputs, 1, cb1)), cb1)
+        entry = None
+        if state_bits + cb1 <= 31:
+            entry = (self._snap.place(pack(self.tables.delta,
+                                           self.tables.nb_outputs, 1, cb1)),
+                     cb1)
+        self._pk1_cache = (ver, entry)
+        return entry
+
+    def session(self) -> "StreamSession":
+        """Open a chunked streaming session (exact across chunk edges)."""
+        return StreamSession(self)
 
     def _record(self, op: str, n_symbols: int, seconds: float) -> None:
         self.stats["last_op"] = op
@@ -533,3 +754,87 @@ class DenseScanner:
             n_symbols / seconds if seconds > 0 else float("inf"))
         self.stats["total_symbols"] = (
             self.stats.get("total_symbols", 0) + n_symbols)
+
+
+class StreamSession:
+    """Chunked streaming scan, exact across chunk edges
+    (``models/scanner.py:StreamSession``).
+
+    Each chunk is scanned with the previous chunk's last ``_hmax`` letter
+    ids as its head, so matches that span a chunk edge are found and
+    counted in the chunk where they end. A checkpoint is (offset, tail ids,
+    total, dictionary version): small, and exact to resume from.
+    """
+
+    def __init__(self, scanner: DenseScanner):
+        self.scanner = scanner
+        self.offset = 0
+        self.total = 0
+        self._tail = np.zeros(0, dtype=np.int32)
+
+    @property
+    def _hmax(self) -> int:
+        # Read live: a refresh() between chunks may grow the halo, and the
+        # tails must keep up from then on. The chunk right after such a
+        # growth carries the shorter tail, which the snapshot semantics of
+        # insertion during a scan allow.
+        s = self.scanner
+        return max(s.halo, s._halo_sym if s._stepped is not None else 0)
+
+    def _advance(self, signs) -> np.ndarray:
+        """Return the previous tail (this chunk's head) and keep the new
+        one. Only the chunk's last ``_hmax`` signs are encoded on the host;
+        the chunk itself takes whichever path the scanner picks."""
+        head = self._tail
+        hmax = self._hmax
+        n = len(signs)
+        if hmax and n:
+            tail_ids = np.asarray(self.scanner.encode(signs[-hmax:]),
+                                  np.int32)
+            joined = (np.concatenate([self._tail, tail_ids])
+                      if len(self._tail) else tail_ids)
+            self._tail = joined[-hmax:]
+        elif not hmax:
+            self._tail = self._tail[:0]
+        self.offset += n
+        return head
+
+    def feed_count(self, signs) -> int:
+        """Matches in the next chunk, those that span the previous chunk
+        edge included."""
+        head = self._advance(signs)
+        n = self.scanner.count(signs, head=head) if len(signs) else 0
+        self.total += n
+        return n
+
+    def feed_matches(self, signs, max_hits: Optional[int] = None):
+        """Match events of the next chunk as a ``MatchSet`` with absolute
+        stream positions; ``max_hits`` bounds it as in
+        ``DenseScanner.find_matches``."""
+        offset = self.offset
+        head = self._advance(signs)
+        s = self.scanner
+        if not len(signs):
+            return MatchSet(s.machine, s.tables, np.zeros(0, np.int64),
+                            np.zeros(0, np.int32), np.zeros(0, np.int32))
+        out = s.find_matches(signs, offset=offset, head=head,
+                             max_hits=max_hits)
+        self.total += len(out)
+        return out
+
+    # -- resume --------------------------------------------------------------
+
+    def checkpoint(self) -> dict:
+        return {"offset": self.offset, "tail": self._tail.copy(),
+                "total": self.total, "version": self.scanner.version}
+
+    @classmethod
+    def restore(cls, scanner: DenseScanner, state: dict) -> "StreamSession":
+        if state["version"] != scanner.version:
+            raise ValueError("session checkpoint belongs to a different "
+                             "table snapshot")
+        s = cls(scanner)
+        s.offset = int(state["offset"])
+        s._tail = np.asarray(state["tail"], np.int32)
+        s.total = int(state["total"])
+        return s

@@ -1,35 +1,64 @@
 """Capacity-padded device snapshot of the dense automaton tables.
 
-The port of ``models/snapshot.py:DeviceSnapshot``, build only: the 1-char
-tables ``dflat`` [cap*V] and ``nb_out`` [cap] and the packed k-gram table
+The port of ``models/snapshot.py:DeviceSnapshot``: the 1-char tables
+``dflat`` [cap*V] and ``nb_out`` [cap] and the packed k-gram table
 [cap*V^k] as int32 tensors on one explicit device. Rows are padded to the
 JAX package's ``round_cap`` state capacity so that both packages hold
-bit-identical tables. In-place refresh is not ported yet (ROADMAP A.8).
+bit-identical tables, and so that ``refresh`` can bring an online insertion
+in without changing a shape.
 
 Where (state, count) need more than 31 bits the k-gram table would take
 the JAX package's two-table unpacked form; the port drops it instead and
 counts through the 1-char tables (the JAX mesh scanner's ``packed_only``
-rule).
+rule), on a first build and on every rebuild.
+
+The device tensors are the only copy the snapshot keeps: the port reads no
+host mirror, so a refresh updates the device tables alone, in place.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .._host import round_cap
-from ..ops.multistep import SteppedTables, build_stepped, choose_k
+from ..ops.multistep import (SteppedTables, build_stepped, choose_k,
+                             stepped_delta_cells)
 
 
 class DeviceSnapshot:
-    """Device-resident tables of one ``DenseTables`` snapshot."""
+    """Device-resident tables of one ``DenseTables`` snapshot, with
+    in-place incremental refresh."""
 
     def __init__(self, tables, step_k="auto",
                  step_budget_bytes: int = 128 * 1024 * 1024,
                  device="cuda"):
         self.device = torch.device(device)
+        self._spec = (step_k, step_budget_bytes)
+        self.last_refresh: dict = {}
+        self._build(tables)
+
+    def place(self, a: np.ndarray) -> torch.Tensor:
+        """Synchronous upload of a host array to the snapshot's device."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _table(self, a: np.ndarray) -> torch.Tensor:
+        """An int32 table's own copy on the device. On the CPU ``place``
+        would alias the host array, which may back the machine's
+        ``DenseTables``; refresh writes into the tables in place."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(np.array(a, dtype=np.int32))
+        return self.place(np.asarray(a, np.int32))
+
+    # -- full (re)build ------------------------------------------------------
+
+    def _build(self, tables) -> None:
+        """``models/snapshot.py:DeviceSnapshot._build``: the 1-char tables
+        and the choice of k, with ``packed_only``."""
         self.tables = tables
         S = tables.n_states
         self.V = tables.vocab_size
@@ -37,29 +66,18 @@ class DeviceSnapshot:
         # Largest per-position match count; bounds the per-stream int32
         # accumulators (the scanner's overflow guard).
         self.max_nb = int(tables.nb_outputs.max()) if S else 0
-        buf = tables.claim_cap_delta()
-        if buf is not None and buf.shape == (self.cap, self.V):
-            delta_host = buf
-        else:
+        delta_host = tables.claim_cap_delta()
+        if delta_host is None or delta_host.shape != (self.cap, self.V):
             delta_host = np.zeros((self.cap, self.V), np.int32)
             delta_host[:S] = tables.delta
         nb_host = np.zeros(self.cap, np.int32)
         nb_host[:S] = tables.nb_outputs
-        self.dflat = self.place(delta_host.reshape(-1))
-        self.nb_out = self.place(nb_host)
+        self.dflat = self._table(delta_host.reshape(-1))
+        self.nb_out = self._table(nb_host)
         self.stepped: Optional[SteppedTables] = None
         self.packed: Optional[torch.Tensor] = None
-        self._build_stepped(step_k, step_budget_bytes)
-
-    def place(self, a: np.ndarray) -> torch.Tensor:
-        """Synchronous upload of a host array to the snapshot's device."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-    def _build_stepped(self, step_k, budget: int) -> None:
-        """``models/snapshot.py:DeviceSnapshot._build``'s choice of k, with
-        ``packed_only``."""
-        tables = self.tables
-        S, V = tables.n_states, self.V
+        step_k, budget = self._spec
+        V = self.V
         auto_k = step_k == "auto"
         self.step_k = choose_k(S, V, budget) if auto_k else max(1, int(step_k))
         if self.step_k == 1:
@@ -83,6 +101,8 @@ class DeviceSnapshot:
         self._adopt(st)
 
     def _adopt(self, st: SteppedTables) -> None:
+        """Upload a packed table at capacity; keep its geometry, not its
+        host arrays."""
         if st.packed is None:
             return
         if (st.cap_packed is not None
@@ -91,8 +111,8 @@ class DeviceSnapshot:
         else:
             host = np.zeros(self.cap * st.Vk, np.int32)
             host[:st.packed.size] = st.packed
-        self.stepped = st
-        self.packed = self.place(host)
+        self.packed = self._table(host)
+        self.stepped = dataclasses.replace(st, packed=None, cap_packed=None)
 
     @classmethod
     def from_arrays(cls, tables, dflat: np.ndarray, nb_out: np.ndarray,
@@ -100,21 +120,91 @@ class DeviceSnapshot:
                     device="cuda") -> "DeviceSnapshot":
         """A snapshot of given host arrays (capacity-padded ``dflat``,
         ``nb_out`` and, if any, the packed k-gram table), e.g. the JAX
-        scanner's own (utils/convert.py)."""
+        scanner's own (utils/convert.py). A rebuild on refresh keeps k."""
         snap = cls.__new__(cls)
         snap.device = torch.device(device)
+        snap._spec = (k, 128 * 1024 * 1024)
+        snap.last_refresh = {}
         snap.tables = tables
         snap.V = tables.vocab_size
         snap.cap = int(nb_out.shape[0])
         snap.max_nb = (int(tables.nb_outputs.max())
                        if tables.n_states else 0)
-        snap.dflat = snap.place(np.array(dflat, np.int32))
-        snap.nb_out = snap.place(np.array(nb_out, np.int32))
+        snap.dflat = snap._table(dflat)
+        snap.nb_out = snap._table(nb_out)
         snap.step_k = k
         snap.stepped = snap.packed = None
         if packed is not None:
-            packed = np.array(packed, np.int32)
             snap.stepped = SteppedTables(k=k, V=snap.V, count_bits=count_bits,
-                                         packed=packed)
-            snap.packed = snap.place(packed)
+                                         packed=None)
+            snap.packed = snap._table(packed)
         return snap
+
+    # -- incremental refresh ---------------------------------------------
+
+    def refresh(self, new) -> str:
+        """Apply ``new`` (a later snapshot of the same machine) in place
+        (``models/snapshot.py:DeviceSnapshot.refresh``).
+
+        Returns "noop" (same content), "inplace" (row and cell scatter into
+        the device tables), or "rebuild" (a full rebuild: vocabulary
+        growth, state capacity, packed count width, or a delta past a
+        quarter of the k-gram table). The scatters are enqueued on the
+        device's current stream; the caller serialises this against scans
+        (the scanner's dispatch lock), so a scan on that stream sees either
+        the old tables or the new ones."""
+        old = self.tables
+        t0 = time.perf_counter()
+        self.last_refresh = {}
+        if new.vocab_size != self.V or new.n_states > self.cap:
+            self._build(new)
+            return "rebuild"
+
+        S_old, S_new = old.n_states, new.n_states
+        changed = np.zeros(S_new, dtype=bool)
+        changed[:S_old] = (
+            np.any(old.delta != new.delta[:S_old], axis=1)
+            | (old.nb_outputs != new.nb_outputs[:S_old]))
+        changed[S_old:] = True
+        rows1 = np.flatnonzero(changed)
+        if not len(rows1):
+            self.tables = new
+            return "noop"
+
+        n_cells = 0
+        cell_update = None
+        st = self.stepped
+        if st is not None:
+            cells, land, cnt = stepped_delta_cells(old, new, st.k)
+            n_cells = len(cells)
+            # Past a quarter of the table a rebuild beats the scatter (the
+            # JAX package's measured rule); below 64k cells stay in place.
+            if n_cells > max(S_new * st.Vk // 4, 1 << 16):
+                self._build(new)
+                return "rebuild"
+            max_cnt = int(cnt.max()) if cnt.size else 0
+            state_bits = max(1, int(S_new - 1).bit_length())
+            if (max_cnt.bit_length() > st.count_bits
+                    or state_bits + st.count_bits > 31):
+                self._build(new)
+                return "rebuild"
+            cell_update = (cells, ((land.astype(np.int64) << st.count_bits)
+                                   | cnt).astype(np.int32))
+
+        self._scatter(self.dflat, rows1, new.delta[rows1], self.V)
+        self._scatter(self.nb_out, rows1, new.nb_outputs[rows1], 1)
+        if cell_update is not None:
+            self._scatter(self.packed, *cell_update, 1)
+        self.tables = new
+        self.max_nb = int(new.nb_outputs.max()) if S_new else 0
+        self.last_refresh = {"rows": int(len(rows1)), "cells": int(n_cells),
+                             "seconds": time.perf_counter() - t0}
+        return "inplace"
+
+    def _scatter(self, table: torch.Tensor, rows: np.ndarray,
+                 vals: np.ndarray, width: int) -> None:
+        """Rows of ``width`` entries of the flat ``table``, written in place
+        (the port of ``models/snapshot.py:_make_row_scatter``)."""
+        table.view(-1, width).index_copy_(
+            0, self.place(rows.astype(np.int64)),
+            self.place(np.asarray(vals, np.int32).reshape(-1, width)))

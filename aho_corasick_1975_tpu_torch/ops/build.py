@@ -34,7 +34,8 @@ _HEADERS = ("ac_scan.cuh",)
 _CUDA_SOURCES = ("dense_scan.cu", "stepped_scan.cu")
 _HOST_SOURCES = ("ac_scan_host.cpp",)
 ENTRY_POINTS = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
-                "ac_stepped_emit")
+                "ac_stepped_emit", "ac_stepped_count_many",
+                "ac_dense_count_many")
 
 # Launches per entry point since the last reset_launches(); only launch()
 # adds to it.
@@ -59,6 +60,7 @@ class AcScanArgs(ctypes.Structure):
         ("halo", ctypes.c_int32), ("ext_u8", ctypes.c_int32),
         ("n_lut", ctypes.c_int32), ("k", ctypes.c_int32),
         ("count_bits", ctypes.c_int32),
+        ("doc_len", ctypes.c_int64), ("n_docs", ctypes.c_int32),
     ]
 
 

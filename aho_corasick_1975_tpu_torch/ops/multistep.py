@@ -1,16 +1,20 @@
-"""k-char stepped scan tables (host) and K3, the packed k-gram count.
+"""k-char stepped scan tables (host), K3 the packed k-gram count and K5
+its count_many form.
 
-Host half: ``choose_k``, ``compose_rows`` and ``build_stepped`` are the
-numpy functions of the JAX package's ``ops/multistep.py``, which cannot be
-imported without JAX. They build the packed table
-``(next_state << count_bits) | gram_count`` over k-grams, so one gather
-advances k symbols and counts every match inside them; the native threaded
-``compose_pack`` does the work where it is available.
+Host half: ``choose_k``, ``compose_rows``, ``build_stepped`` and
+``stepped_delta_cells`` are the numpy functions of the JAX package's
+``ops/multistep.py``, which cannot be imported without JAX. They build the
+packed table ``(next_state << count_bits) | gram_count`` over k-grams, so
+one gather advances k symbols and counts every match inside them (the
+native threaded ``compose_pack`` does the work where it is available), and
+find the cells an online insertion changes (refresh).
 
 Device half: K3 (csrc/stepped_scan.cu) is the count of
 ``ops/multistep.py:stepped_count_core`` (``make_stepped_count_stream`` /
-``_raw``), beside its plain PyTorch version. Inputs follow
-``ops/scan_dense.py``, with ``halo = halo_steps * k`` and ``L % k == 0``.
+``_raw``), and K5 the same count over a split ``[L, B]`` batch
+(``_stepped_count_many_body``), each beside its plain PyTorch version.
+Inputs follow ``ops/scan_dense.py``, with ``halo = halo_steps * k`` and
+``L % k == 0``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from .._host import compose_pack, round_cap
 from . import build
-from .scan_dense import check_stream, window
+from .scan_dense import check_batch, check_stream, split_window, window
 
 
 @dataclass
@@ -32,9 +36,10 @@ class SteppedTables:
     k: int                      # symbols per gather
     V: int                      # base vocab size
     count_bits: int             # 0 when unpacked
-    # int32 [S * V^k]; None where (state, count) need more than 31 bits —
-    # the JAX package's two-table unpacked form, not ported (the snapshot
-    # drops such a table)
+    # int32 [S * V^k] as built; None where (state, count) need more than 31
+    # bits — the JAX package's two-table unpacked form, not ported (the
+    # snapshot drops such a table) — and in a snapshot's own record, whose
+    # table is the device copy
     packed: Optional[np.ndarray]
     # capacity-padded backing buffer of ``packed`` (its first S*V^k
     # entries), set when build_stepped was given cap_rows
@@ -67,6 +72,82 @@ def compose_rows(delta: np.ndarray, nb: np.ndarray, rows: np.ndarray,
         cnt = (cnt[..., None] + nb[d2]).reshape(R, -1)
         d = d2.reshape(R, -1)
     return d, cnt
+
+
+def stepped_delta_cells(old, new, k: int):
+    """Exact changed-cell set of the k-gram stepped table between two
+    snapshots of one machine (``ops/multistep.py:stepped_delta_cells``,
+    where the derivation is). dirty_1 marks the (state, letter) cells whose
+    hop or landing count changed; dirty_{j+1}[m, c.g] = dirty_1[m, c] |
+    dirty_j[delta[m, c], g]; the top level is enumerated sparsely, so the
+    cost is O(S*V + output cells).
+
+    Returns (cells, land, cnt): flat int32 indices into the [S_new * V^k]
+    table, the recomputed landing states (int32) and the recomputed k-gram
+    counts (int64)."""
+    assert k >= 1
+    S_old = old.n_states
+    delta, nb = new.delta, new.nb_outputs
+    S_new, V = delta.shape
+    dirty1 = np.ones((S_new, V), dtype=bool)
+    np.not_equal(old.delta, delta[:S_old], out=dirty1[:S_old])
+    nbD = np.ones(S_new, dtype=bool)
+    np.not_equal(old.nb_outputs, nb[:S_old], out=nbD[:S_old])
+    dirty1 |= nbD[delta]
+    if k == 1:
+        sp, cp = np.nonzero(dirty1)
+        cells = (sp.astype(np.int64) * V + cp).astype(np.int32)
+        land = delta[sp, cp].astype(np.int32)
+        return cells, land, nb[land].astype(np.int64)
+    dirty = dirty1
+    for _ in range(k - 2):
+        G = dirty.shape[1]
+        dirty = (dirty1[:, :, None] | dirty[delta]).reshape(S_new, V * G)
+    G = dirty.shape[1]
+    Vk = V * G
+
+    # sparse top level: per (state, first letter) pair, all G tails when
+    # its own hop is dirty, else the landing state's changed tails
+    t_cnt = dirty.sum(axis=1, dtype=np.int64)
+    sp, cp = np.nonzero(dirty1 | (t_cnt[delta] > 0))
+    if not len(sp):
+        z = np.zeros(0, np.int32)
+        return z, z, np.zeros(0, np.int64)
+    mp = delta[sp, cp]
+    full = dirty1[sp, cp]
+    cnts = np.where(full, G, t_cnt[mp])
+    offs = np.cumsum(cnts) - cnts
+    tails_out = np.empty(int(cnts.sum()), np.int64)
+    fi = np.flatnonzero(full)
+    if len(fi):
+        idx = (offs[fi][:, None] + np.arange(G, dtype=np.int64)).reshape(-1)
+        tails_out[idx] = np.tile(np.arange(G, dtype=np.int64), len(fi))
+    si = np.flatnonzero(~full & (cnts > 0))
+    if len(si):
+        # CSR over the changed-tail lists of the dirty states
+        changed_states = np.flatnonzero(t_cnt > 0)
+        _, tails_vals = np.nonzero(dirty[changed_states])
+        tails_start = np.concatenate(
+            [[0], np.cumsum(t_cnt[changed_states])])[:-1]
+        inv = np.full(S_new, -1, np.int64)
+        inv[changed_states] = np.arange(len(changed_states))
+        lens = cnts[si]
+        src0 = tails_start[inv[mp[si]]]
+        inner = (np.arange(int(lens.sum()), dtype=np.int64)
+                 - np.repeat(np.cumsum(lens) - lens, lens))
+        tails_out[np.repeat(offs[si], lens) + inner] = \
+            tails_vals[np.repeat(src0, lens) + inner]
+    srep = np.repeat(sp.astype(np.int64), cnts)
+    grep = np.repeat(cp.astype(np.int64), cnts) * G + tails_out
+    cells = (srep * Vk + grep).astype(np.int32)
+
+    # recompute the cells' values by walking the gram's letters
+    m = srep
+    cnt = np.zeros(len(srep), np.int64)
+    for i in range(k):
+        m = delta[m, grep // (V ** (k - 1 - i)) % V]
+        cnt += nb[m]
+    return cells, m.astype(np.int32), cnt
 
 
 def build_stepped(tables, k: int,
@@ -130,21 +211,44 @@ def check_stepped(packed, k, halo_steps, B, L, ext, lut, head_ids):
     return check_stream(B, L, halo_steps * k, ext, lut, head_ids, packed)
 
 
-def stepped_count_plain(packed, V: int, k: int, count_bits: int,
-                        halo_steps: int, B: int, L: int, ext, lut=None,
-                        head_ids=None) -> torch.Tensor:
-    """Plain K3: per-stream int32 match totals [B] past the halo grams."""
-    grams = combine_grams(window(B, L, halo_steps * k, ext, lut, head_ids),
-                          V, k)
+def _count_grams(packed, V: int, k: int, count_bits: int, halo_steps: int,
+                 win: torch.Tensor) -> torch.Tensor:
+    """int32 match totals per column of [rows, n] letter ids (rows % k ==
+    0), grams past the halo (``ops/multistep.py:stepped_count_core``)."""
+    grams = combine_grams(win, V, k)
     mask, Vk = (1 << count_bits) - 1, V ** k
-    s = torch.zeros(B, dtype=torch.int64, device=ext.device)
-    tot = torch.zeros(B, dtype=torch.int32, device=ext.device)
+    s = torch.zeros(win.shape[1], dtype=torch.int64, device=win.device)
+    tot = torch.zeros(win.shape[1], dtype=torch.int32, device=win.device)
     for j in range(grams.shape[0]):
         v = packed[s * Vk + grams[j]]
         s = (v >> count_bits).long()
         if j >= halo_steps:
             tot += v & mask
     return tot
+
+
+def stepped_count_plain(packed, V: int, k: int, count_bits: int,
+                        halo_steps: int, B: int, L: int, ext, lut=None,
+                        head_ids=None) -> torch.Tensor:
+    """Plain K3: per-stream int32 match totals [B] past the halo grams."""
+    return _count_grams(packed, V, k, count_bits, halo_steps,
+                        window(B, L, halo_steps * k, ext, lut, head_ids))
+
+
+def check_stepped_many(packed, k, c, Lp, tm, lut):
+    if Lp % k or tm.dim() != 2 or tm.shape[0] % k:
+        raise ValueError(f"Lp={Lp} and L (tm {tuple(tm.shape)}) must be "
+                         f"multiples of k={k}")
+    return check_batch(c, Lp, tm, lut, packed)
+
+
+def stepped_count_many_plain(packed, V: int, k: int, count_bits: int,
+                             halo_steps: int, c: int, Lp: int, tm,
+                             lut=None) -> torch.Tensor:
+    """Plain K5: int32 match totals per batch column [c*B]; column i*B + j
+    holds block i of document j (``ops/scan_dense.py:split_window``)."""
+    return _count_grams(packed, V, k, count_bits, halo_steps,
+                        split_window(c, Lp, halo_steps * k, tm, lut))
 
 
 def stepped_count(packed, V: int, k: int, count_bits: int, halo_steps: int,
@@ -162,4 +266,28 @@ def stepped_count(packed, V: int, k: int, count_bits: int, halo_steps: int,
                  halo=halo_steps * k, ext_u8=int(ext.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), k=k,
                  count_bits=count_bits)
+    return out
+
+
+def stepped_count_many(packed, V: int, k: int, count_bits: int,
+                       halo_steps: int, c: int, Lp: int, tm,
+                       lut=None) -> torch.Tensor:
+    """K5: int32 match totals per batch column [c*B] of the time-major
+    batch ``tm`` [L, B] (int32 ids, or raw uint8/int32 symbols with
+    ``lut``) split into c blocks of Lp with ``halo_steps`` grams of halo
+    from the same document; the caller sums each document's c blocks in
+    int64. L and Lp are multiples of k."""
+    dev = check_stepped_many(packed, k, c, Lp, tm, lut)
+    if dev.type == "cpu":
+        return stepped_count_many_plain(packed, V, k, count_bits, halo_steps,
+                                        c, Lp, tm, lut)
+    L, B = tm.shape
+    out = torch.empty(c * B, dtype=torch.int32, device=dev)
+    if not out.numel():
+        return out
+    build.launch("ac_stepped_count_many", dev, table=packed, ext=tm, lut=lut,
+                 out=out, L=Lp, Vk=V ** k, B=c * B, V=V,
+                 halo=halo_steps * k, ext_u8=int(tm.dtype == torch.uint8),
+                 n_lut=0 if lut is None else lut.numel(), k=k,
+                 count_bits=count_bits, doc_len=L, n_docs=B)
     return out

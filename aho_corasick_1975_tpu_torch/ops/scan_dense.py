@@ -1,11 +1,12 @@
-"""K1 dense count and K2 dense states: the 1-char scans over the
-fail-collapsed table, each as a CUDA kernel (csrc/dense_scan.cu) beside its
-plain PyTorch version.
+"""K1 dense count, K2 dense states and K6 dense count_many: the 1-char
+scans over the fail-collapsed table, each as a CUDA kernel
+(csrc/dense_scan.cu) beside its plain PyTorch version.
 
 Counterparts: K1 is ``ops/scan_pallas.py:make_pallas_blocked_count``, the
 JAX package's only Pallas kernel, whose function is
 ``ops/scan_xla.py:blocked_count_core`` (``make_blocked_count_stream`` /
-``_raw``); K2 is ``ops/scan_xla.py:make_blocked_scan_stream`` / ``_raw``.
+``_raw``); K2 is ``ops/scan_xla.py:make_blocked_scan_stream`` / ``_raw``;
+K6 is ``ops/scan_xla.py:_count_many_body`` (``make_blocked_count_many``).
 
 Every scan here reads a contiguous stream buffer ``ext`` of
 ``halo + B*L`` symbols, cut into B streams of L symbols; window row t of
@@ -14,6 +15,10 @@ bytes or int32 codepoints) and translate to letter ids on the fly, with
 stream 0's ``halo`` warm-up rows taken from ``head_ids``
 (``ops/scan_xla.py:raw_window``). Without one, ``ext`` holds int32 letter
 ids.
+
+The count_many scans read a time-major batch ``tm`` [L, B] instead, one
+document per column, each split into c blocks of Lp symbols
+(``split_window``).
 
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 device it launches the kernel or raises.
@@ -28,28 +33,24 @@ import torch
 from . import build
 
 
-def check_stream(B: int, L: int, halo: int, ext: torch.Tensor,
-                 lut: Optional[torch.Tensor], head_ids: Optional[torch.Tensor],
-                 *tables: torch.Tensor) -> torch.device:
-    """Validate a scan's inputs; return their common device."""
-    dev = ext.device
-    if ext.dim() != 1 or ext.numel() != halo + B * L:
-        raise ValueError(f"ext must be 1-D with halo + B*L = {halo + B * L} "
-                         f"symbols (got shape {tuple(ext.shape)})")
+def _check_inputs(syms: torch.Tensor, lut: Optional[torch.Tensor],
+                  tables) -> torch.device:
+    """Types, devices and contiguity of a scan's symbols and tables; return
+    their common device."""
+    dev = syms.device
     if lut is None:
-        if ext.dtype != torch.int32:
-            raise ValueError(f"letter-id ext must be int32 (got {ext.dtype})")
+        if syms.dtype != torch.int32:
+            raise ValueError(f"letter-id input must be int32 "
+                             f"(got {syms.dtype})")
     else:
-        if ext.dtype not in (torch.uint8, torch.int32):
-            raise ValueError(f"raw ext must be uint8 or int32 "
-                             f"(got {ext.dtype})")
-        if head_ids is None or head_ids.numel() != halo:
-            raise ValueError(f"raw input needs {halo} head_ids")
-        tables = tables + (lut, head_ids)
+        if syms.dtype not in (torch.uint8, torch.int32):
+            raise ValueError(f"raw input must be uint8 or int32 "
+                             f"(got {syms.dtype})")
+        tables = tables + (lut,)
     for t in tables:
         if t.dtype != torch.int32:
             raise ValueError(f"tables must be int32 (got {t.dtype})")
-    for t in (ext,) + tables:
+    for t in (syms,) + tables:
         if t.device != dev:
             raise ValueError(f"inputs on {t.device} and {dev}")
         if not t.is_contiguous():
@@ -57,6 +58,30 @@ def check_stream(B: int, L: int, halo: int, ext: torch.Tensor,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def check_stream(B: int, L: int, halo: int, ext: torch.Tensor,
+                 lut: Optional[torch.Tensor], head_ids: Optional[torch.Tensor],
+                 *tables: torch.Tensor) -> torch.device:
+    """Validate a stream scan's inputs; return their common device."""
+    if ext.dim() != 1 or ext.numel() != halo + B * L:
+        raise ValueError(f"ext must be 1-D with halo + B*L = {halo + B * L} "
+                         f"symbols (got shape {tuple(ext.shape)})")
+    if lut is not None:
+        if head_ids is None or head_ids.numel() != halo:
+            raise ValueError(f"raw input needs {halo} head_ids")
+        tables = tables + (head_ids,)
+    return _check_inputs(ext, lut, tables)
+
+
+def check_batch(c: int, Lp: int, tm: torch.Tensor,
+                lut: Optional[torch.Tensor], *tables: torch.Tensor
+                ) -> torch.device:
+    """Validate a count_many scan's inputs; return their common device."""
+    if tm.dim() != 2 or c < 1 or tm.shape[0] > c * Lp:
+        raise ValueError(f"tm must be [L, B] with L <= c*Lp = {c * Lp} "
+                         f"(got shape {tuple(tm.shape)})")
+    return _check_inputs(tm, lut, tables)
 
 
 def lookup(lut: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
@@ -81,17 +106,47 @@ def window(B: int, L: int, halo: int, ext: torch.Tensor,
     return win
 
 
-def dense_count_plain(dflat, nb_out, V: int, halo: int, B: int, L: int,
-                      ext, lut=None, head_ids=None) -> torch.Tensor:
-    """Plain K1: per-stream int32 match totals [B] (rows past the halo)."""
-    win = window(B, L, halo, ext, lut, head_ids)
-    s = torch.zeros(B, dtype=torch.int64, device=ext.device)
-    tot = torch.zeros(B, dtype=torch.int32, device=ext.device)
-    for t in range(halo + L):
+def split_window(c: int, Lp: int, halo: int, tm: torch.Tensor,
+                 lut: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[halo + Lp, c*B] letter ids of a [L, B] batch: column i*B + j is
+    block i of document j, rows i*Lp - halo .. (i+1)*Lp of it, id 0 before
+    the document's head and past L — ``ops/scan_xla.py:split_docs_layout``,
+    after the reference's LUT gather (``lut[tm]``)."""
+    L, B = tm.shape
+    ids = tm.long() if lut is None else lookup(lut, tm)
+    padded = torch.zeros((halo + c * Lp, B), dtype=torch.int64,
+                         device=tm.device)
+    padded[halo:halo + L] = ids
+    return padded.as_strided((halo + Lp, c, B), (B, Lp * B, 1)).reshape(
+        halo + Lp, c * B)
+
+
+def _count_window(dflat, nb_out, V: int, halo: int,
+                  win: torch.Tensor) -> torch.Tensor:
+    """int32 match totals per column of [halo + L, n] letter ids, rows
+    past the halo (``ops/scan_xla.py:blocked_count_core``)."""
+    s = torch.zeros(win.shape[1], dtype=torch.int64, device=win.device)
+    tot = torch.zeros(win.shape[1], dtype=torch.int32, device=win.device)
+    for t in range(win.shape[0]):
         s = dflat[s * V + win[t]].long()
         if t >= halo:
             tot += nb_out[s]
     return tot
+
+
+def dense_count_plain(dflat, nb_out, V: int, halo: int, B: int, L: int,
+                      ext, lut=None, head_ids=None) -> torch.Tensor:
+    """Plain K1: per-stream int32 match totals [B] (rows past the halo)."""
+    return _count_window(dflat, nb_out, V, halo,
+                         window(B, L, halo, ext, lut, head_ids))
+
+
+def dense_count_many_plain(dflat, nb_out, V: int, halo: int, c: int,
+                           Lp: int, tm, lut=None) -> torch.Tensor:
+    """Plain K6: int32 match totals per batch column [c*B]; column
+    i*B + j holds block i of document j."""
+    return _count_window(dflat, nb_out, V, halo,
+                         split_window(c, Lp, halo, tm, lut))
 
 
 def dense_states_plain(dflat, V: int, halo: int, B: int, L: int, ext,
@@ -137,4 +192,25 @@ def dense_states(dflat, V: int, halo: int, B: int, L: int, ext, lut=None,
                  head_ids=head_ids, out=out, L=L, B=B, V=V, halo=halo,
                  ext_u8=int(ext.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel())
+    return out
+
+
+def dense_count_many(dflat, nb_out, V: int, halo: int, c: int, Lp: int, tm,
+                     lut=None) -> torch.Tensor:
+    """K6: int32 match totals per batch column [c*B] of the time-major
+    batch ``tm`` [L, B] (int32 ids, or raw uint8/int32 symbols with
+    ``lut``) split into c blocks of Lp with a ``halo`` from the same
+    document; the caller sums each document's c blocks in int64."""
+    dev = check_batch(c, Lp, tm, lut, dflat, nb_out)
+    if dev.type == "cpu":
+        return dense_count_many_plain(dflat, nb_out, V, halo, c, Lp, tm, lut)
+    L, B = tm.shape
+    out = torch.empty(c * B, dtype=torch.int32, device=dev)
+    if not out.numel():
+        return out
+    build.launch("ac_dense_count_many", dev, table=dflat, nb_out=nb_out,
+                 ext=tm, lut=lut, out=out, L=Lp, B=c * B, V=V, halo=halo,
+                 ext_u8=int(tm.dtype == torch.uint8),
+                 n_lut=0 if lut is None else lut.numel(), doc_len=L,
+                 n_docs=B)
     return out

@@ -1,8 +1,9 @@
 """The port imports no JAX: the GPU machine it runs on has none.
 
 A fresh interpreter blocks every ``jax``/``jaxlib`` import with a meta-path
-finder, imports ``aho_corasick_1975_tpu_torch`` and runs the golden flow
-on the CPU.
+finder, imports ``aho_corasick_1975_tpu_torch`` and runs on the CPU the
+golden flow, then a ByteMachine through save_machine/load_machine, a
+session, count_many (raw bytes and a resident tensor) and refresh().
 """
 
 import os
@@ -35,6 +36,33 @@ SCRIPT = textwrap.dedent("""
         ms = sc.find_matches(text)
         assert isinstance(ms, act.MatchSet) and len(ms) == 9
         assert [mt.text() for _, mt in ms][:3] == ["she", "he", "hers"]
+
+    import io
+    import numpy as np
+    import torch
+    bm = act.ByteMachine()
+    for kw in [b"he", b"she", b"his", b"hers"]:
+        bm.insert_keyword(kw)
+    blob = io.BytesIO()
+    act.save_machine(bm, blob)
+    blob.seek(0)
+    bm = act.load_machine(blob)
+    assert isinstance(bm, act.ByteMachine)
+    sc = bm.scanner(device="cpu", n_streams=4)
+    data = text.encode()
+    s = sc.session()
+    assert sum(s.feed_count(data[i:i + 5]) for i in range(0, len(data), 5)) == 9
+    restored = act.StreamSession.restore(sc, s.checkpoint())
+    assert restored.total == 9
+    docs = [data[:12], data[12:], b""]
+    got = sc.count_many(docs)
+    assert got.tolist() == [3, 5, 0], got
+    tm = torch.zeros((64, 2), dtype=torch.int32)
+    tm[:12, 0] = torch.from_numpy(sc.encode(data[:12]))
+    assert sc.count_many(tm).tolist() == [3, 0]
+    bm.insert_keyword(b"us")
+    assert sc.refresh() is True
+    assert sc.count(data) == 10
     loaded = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib",
                                            "aho_corasick_1975_tpu"))

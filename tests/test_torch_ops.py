@@ -255,3 +255,42 @@ def test_wrappers_reject_bad_inputs(bad):
         packed = packed.long()
     with pytest.raises(ValueError):
         multistep.stepped_count(packed, ext=ext, lut=lut, head_ids=head, **kw)
+
+
+def test_count_many_wrappers_on_cpu_are_the_plain_versions():
+    tab = tc.tables(2)
+    b = tc.batch(tab, "raw_u8", 46)
+    tm, lut = _t(b["tm"]), _t(b["lut"])
+    args = (_t(tab["packed"]), tab["V"], 2, tab["count_bits"], 3, 2, 24, tm,
+            lut)
+    assert torch.equal(multistep.stepped_count_many(*args),
+                       multistep.stepped_count_many_plain(*args))
+    dargs = (_t(tab["dflat"]), _t(tab["nb_out"]), tab["V"], 5, 2, 24, tm, lut)
+    assert torch.equal(scan_dense.dense_count_many(*dargs),
+                       scan_dense.dense_count_many_plain(*dargs))
+
+
+@pytest.mark.parametrize("bad", ["long_tm", "flat_tm", "float_tm", "u8_ids",
+                                 "odd_Lp", "odd_L", "int64_table"])
+def test_count_many_wrappers_reject_bad_inputs(bad):
+    tab = tc.tables(2)
+    b = tc.batch(tab, "raw_u8", 46)
+    packed, tm, lut = _t(tab["packed"]), _t(b["tm"]), _t(b["lut"])
+    kw = dict(V=tab["V"], k=2, count_bits=tab["count_bits"], halo_steps=3,
+              c=2, Lp=24)
+    if bad == "long_tm":
+        kw["c"] = 1
+    elif bad == "flat_tm":
+        tm = tm.reshape(-1)
+    elif bad == "float_tm":
+        tm = tm.float()
+    elif bad == "u8_ids":
+        lut = None
+    elif bad == "odd_Lp":
+        kw["Lp"] = 25
+    elif bad == "odd_L":
+        tm = tm[:-1]
+    else:
+        packed = packed.long()
+    with pytest.raises(ValueError):
+        multistep.stepped_count_many(packed, tm=tm, lut=lut, **kw)

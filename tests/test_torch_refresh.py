@@ -1,0 +1,343 @@
+"""The port's refresh() (device="cpu") against a fresh scanner and the JAX
+package's refresh.
+
+The cases of tests/test_refresh.py other than the unpacked two-table mode
+(the port drops that table): after online insertions a refreshed scanner
+scans exactly as a freshly built one, takes the in-place path where the
+reference does and rebuilds where it does, and its device tables equal the
+JAX snapshot's bit for bit after the same insertions. The port's
+stepped_delta_cells equals the JAX package's. find_matches after a refresh
+goes through the per-version packed k=1 table, and counts through the
+rebound halo.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import aho_corasick_1975_tpu as ac
+from aho_corasick_1975_tpu.models.scanner import DenseScanner as JaxScanner
+from aho_corasick_1975_tpu.ops import multistep as jms
+from aho_corasick_1975_tpu_torch import ByteMachine, DenseScanner, Machine
+from aho_corasick_1975_tpu_torch.ops import multistep as ms
+
+TEXT = "To ushers: he found his pencil, but she could not find hers."
+
+
+def fresh_like(m, **kw):
+    kw.setdefault("n_streams", 4)
+    kw.setdefault("step_k", 2)
+    return DenseScanner(m, device="cpu", **kw)
+
+
+def assert_equiv(sc, m, text, **kw):
+    fresh = fresh_like(m, **kw)
+    assert sc.count(text) == fresh.count(text)
+    np.testing.assert_array_equal(sc.scan_states(text),
+                                  fresh.scan_states(text))
+    a = [(ev.start, ev.end, ev.index, mt.rank, tuple(mt.letters))
+         for ev, mt in sc.find_matches(text)]
+    b = [(ev.start, ev.end, ev.index, mt.rank, tuple(mt.letters))
+         for ev, mt in fresh.find_matches(text)]
+    assert a == b
+    return fresh
+
+
+def _same_tables(sc, jsc):
+    """The port's device tables equal the JAX snapshot's, bit for bit."""
+    snap = sc._snap
+    np.testing.assert_array_equal(snap.dflat.numpy(), np.asarray(jsc._dflat))
+    np.testing.assert_array_equal(snap.nb_out.numpy(),
+                                  np.asarray(jsc._nb_out))
+    assert (snap.packed is None) == (jsc._stepped is None)
+    if snap.packed is not None:
+        np.testing.assert_array_equal(snap.packed.numpy(),
+                                      np.asarray(jsc._st_dev[0]))
+        assert sc._stepped.count_bits == jsc._stepped.count_bits
+    assert (sc.halo, sc._halo_steps, sc._halo_sym) == (
+        jsc.halo, jsc._halo_steps, jsc._halo_sym)
+
+
+def test_refresh_in_place_equals_fresh_and_reference():
+    m = Machine()
+    for w in ["he", "she", "his", "hers"]:
+        m.insert_keyword(w)
+    sc = fresh_like(m)
+    jsc = JaxScanner(m, n_streams=4, step_k=2)
+    assert sc.count(TEXT) == 9
+    cap, ptr = sc._snap.cap, sc._snap.packed.data_ptr()
+    for w in ["is", "her", "hiss", "shes", "here"]:
+        m.insert_keyword(w)
+    assert sc.refresh() is True and jsc.refresh() is True
+    assert sc.version == m.version == jsc.version
+    assert sc.stats["refresh_rows"] == jsc.stats["refresh_rows"] > 0
+    assert sc.stats["refresh_cells"] == jsc.stats["refresh_cells"] > 0
+    assert sc.stats["last_op"] == "refresh"
+    # in place: same capacity, same buffer
+    assert sc._snap.cap == cap and sc._snap.packed.data_ptr() == ptr
+    _same_tables(sc, jsc)
+    assert_equiv(sc, m, TEXT)
+
+
+def test_refresh_noop_on_duplicate_insert():
+    m = Machine()
+    m.insert_keyword("he")
+    sc = fresh_like(m)
+    before = sc._snap.packed.clone()
+    m.insert_keyword("he")            # version bump, no table change
+    assert sc.refresh() is True
+    assert sc.version == m.version
+    assert torch.equal(sc._snap.packed, before)
+    assert sc.count("he he") == 2
+    assert sc.refresh() is True       # nothing new: no work
+
+
+def test_vocab_growth_falls_back_to_full_rebuild():
+    m = Machine()
+    m.insert_keyword("he")
+    sc = fresh_like(m)
+    jsc = JaxScanner(m, n_streams=4, step_k=2)
+    m.insert_keyword("ox")            # new letters: wider tables
+    assert sc.refresh() is False and jsc.refresh() is False
+    _same_tables(sc, jsc)
+    assert_equiv(sc, m, "an ox and he and hex")
+
+
+def test_capacity_growth_falls_back_to_full_rebuild():
+    m = Machine()
+    m.insert_keyword("ab")
+    sc = fresh_like(m)
+    assert sc._snap.cap == 1024
+    m.insert_keyword("ab" * 700)      # 1,400 new states > capacity
+    assert sc.refresh() is False
+    assert sc._snap.cap >= m.n_states
+    assert sc._snap.dflat.device == sc.device
+    assert sc.count("xx abab yy") == 2
+
+
+def test_count_bits_headroom_absorbs_small_growth():
+    m = Machine()
+    m.insert_keyword("ab")
+    sc = fresh_like(m)
+    assert sc._stepped.count_bits == 4
+    m.insert_keyword("b")             # gram (a, b) now holds 2 matches
+    assert sc.refresh() is True
+    assert_equiv(sc, m, "ab b abab")
+
+
+def test_count_bits_overflow_falls_back_to_full_rebuild():
+    m = Machine()
+    m.insert_keyword("ab")
+    sc = fresh_like(m)
+    bits = sc._stepped.count_bits
+    for j in [0] + list(range(2, 16)):
+        m.insert_keyword("a" * j + "b")
+    assert sc.refresh() is False
+    assert sc._stepped.count_bits > bits
+    assert_equiv(sc, m, "a" * 20 + "b" + " ab b")
+
+
+@pytest.mark.parametrize("step_k", [2, 3])
+def test_halo_growth_rebinds_the_halo(step_k):
+    """A keyword longer than the halo grows it (auto halo); the halo in
+    gram steps follows, so block-spanning matches stay exact."""
+    m = Machine()
+    for w in ["he", "she"]:
+        m.insert_keyword(w)
+    sc = fresh_like(m, step_k=step_k)
+    jsc = JaxScanner(m, n_streams=4, step_k=step_k)
+    assert sc.halo == 2
+    long_kw = "hehehehehehehehehehe"
+    m.insert_keyword(long_kw)
+    assert sc.refresh() is True and jsc.refresh() is True
+    assert sc.halo == 24 and sc._halo_sym >= 24
+    _same_tables(sc, jsc)
+    text = ("x" * 37 + long_kw + "y" * 23) * 40
+    fresh = assert_equiv(sc, m, text, step_k=step_k)
+    host = m.match_stream(m.initiate(), text, parallel=False)
+    assert sc.count(text) == host == fresh.count(text) == jsc.count(text)
+
+
+@pytest.mark.parametrize("step_k", [2, 3])
+def test_find_matches_after_refresh_uses_current_pk1(step_k):
+    """The dense refinement's packed k=1 table is cached per dictionary
+    version: after an in-place refresh, find_matches of a match-dense text
+    equals a fresh scanner's."""
+    rng = np.random.default_rng(3)
+    m = Machine()
+    m.insert_keyword("ab")
+    m.insert_keyword("ba")
+    sc = fresh_like(m, step_k=step_k)
+    text = "".join(rng.choice(list("ab"), 3000))
+    sc.find_matches(text)             # builds and caches pk1
+    assert sc._pk1_cache is not None
+    for w in ["aab", "bab", "abba", "b"]:
+        m.insert_keyword(w)
+    assert sc.refresh() is True
+    fresh = fresh_like(m, step_k=step_k)
+    got, want = sc.find_matches(text), fresh.find_matches(text)
+    np.testing.assert_array_equal(got.ends, want.ends)
+    np.testing.assert_array_equal(got.end_states, want.end_states)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    assert len(got) == sc.count(text) > 0
+
+
+def test_refresh_fuzz_rounds_match_fresh_and_reference():
+    rng = np.random.default_rng(7)
+    alphabet = "abcd"
+    m = Machine()
+    m.insert_keyword(alphabet)        # pins the vocabulary
+    sc = fresh_like(m)
+    jsc = JaxScanner(m, n_streams=4, step_k=2)
+    in_place = 0
+    for _ in range(8):
+        for _ in range(int(rng.integers(1, 6))):
+            m.insert_keyword("".join(rng.choice(list(alphabet),
+                                                int(rng.integers(1, 7)))))
+        status = sc.refresh()
+        assert status == jsc.refresh()
+        in_place += status
+        _same_tables(sc, jsc)
+        text = "".join(rng.choice(list(alphabet + " "), 400))
+        fresh = fresh_like(m)
+        assert sc.count(text) == fresh.count(text) == jsc.count(text)
+        np.testing.assert_array_equal(sc.scan_states(text),
+                                      fresh.scan_states(text))
+    assert in_place >= 6
+
+
+def test_session_sees_refresh_from_next_chunk():
+    m = Machine()
+    m.insert_keyword("he")
+    m.insert_keyword("hse")           # pins the vocabulary
+    sc = fresh_like(m)
+    s = sc.session()
+    assert s.feed_count("he she") == 2
+    m.insert_keyword("she")
+    assert sc.refresh() is True
+    assert s.feed_count(" she h") == 2
+    assert s.feed_count("e") == 1     # 'he' across the chunk edge
+    assert s.checkpoint()["version"] == m.version
+
+
+def test_refresh_on_1char_path_without_stepped_tables():
+    m = Machine()
+    for w in ["he", "she", "hers"]:
+        m.insert_keyword(w)
+    sc = fresh_like(m, step_k=1)
+    jsc = JaxScanner(m, n_streams=4, step_k=1)
+    assert sc._stepped is None
+    m.insert_keyword("hehe")
+    assert sc.refresh() is True and jsc.refresh() is True
+    _same_tables(sc, jsc)
+    assert_equiv(sc, m, TEXT + " hehe", step_k=1)
+
+
+def test_refresh_revalidates_the_raw_lut():
+    """A keyword with byte 0 (ByteMachine id 1, the raw staging's pad)
+    breaks the raw path's contract that raw 0 matches nothing: after the
+    refresh the scanner must stop staging raw, or its padding matches. The
+    JAX package keeps its LUT cache across refresh() (ROADMAP C9); the
+    port re-validates it."""
+    m = ByteMachine()
+    m.insert_keyword(b"ab")
+    sc = DenseScanner(m, device="cpu", n_streams=4)
+    assert sc.count(b"xa") == 0 and sc._raw_stream(b"xa") is not None
+    m.insert_keyword(b"a\x00")
+    sc.refresh()
+    assert sc._raw_stream(b"xa") is None
+    for text in (b"xa", b"a\x00a", b"ab" * 300 + b"a"):
+        assert sc.count(text) == m.match_stream(m.initiate(), text,
+                                                parallel=False)
+        assert len(sc.find_matches(text)) == sc.count(text)
+    np.testing.assert_array_equal(sc.count_many([b"xa", b"a\x00"]), [0, 1])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_stepped_delta_cells_equal_reference(k):
+    """The port's stepped_delta_cells equals the JAX package's, and the
+    cells it returns turn the old k-gram table into the new one."""
+    rng = np.random.default_rng(11)
+    alphabet = "abc"
+    m = ac.Machine()
+    m.insert_keyword(alphabet)
+    old = m.compile()
+    for _ in range(25):
+        m.insert_keyword("".join(rng.choice(list(alphabet),
+                                            int(rng.integers(1, 8)))))
+    new = m.compile()
+    cells, land, cnt = ms.stepped_delta_cells(old, new, k)
+    for got, want in zip((cells, land, cnt),
+                         jms.stepped_delta_cells(old, new, k)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    d_old, c_old = ms.compose_rows(old.delta, old.nb_outputs,
+                                   np.arange(old.n_states), k)
+    d_new, c_new = ms.compose_rows(new.delta, new.nb_outputs,
+                                   np.arange(new.n_states), k)
+    d_app = np.full_like(d_new, -7)
+    c_app = np.full_like(c_new, -7)
+    d_app[:old.n_states] = d_old
+    c_app[:old.n_states] = c_old
+    d_app.reshape(-1)[cells] = land
+    c_app.reshape(-1)[cells] = cnt
+    np.testing.assert_array_equal(d_app, d_new)
+    np.testing.assert_array_equal(c_app, c_new)
+
+
+def test_refresh_under_concurrent_scans():
+    """Threads scan one scanner while the main thread inserts keywords and
+    refreshes it, in place and through a rebuild (a new letter): every
+    count and every match set's length must be one of a whole snapshot's
+    (the two are equal for each), never a mix of old and new tables or
+    LUTs."""
+    import random
+    import sys
+    import threading
+
+    stages = [["ab", "ba"], ["aab", "bab"], ["abba", "b"], ["cab", "bb"]]
+    rng = random.Random(5)
+    text = "".join(rng.choice("abc ") for _ in range(3000))
+    want, m = set(), Machine()
+    for batch in stages:
+        for w in batch:
+            m.insert_keyword(w)
+        fresh = fresh_like(m)
+        want.add(fresh.count(text))
+        assert len(fresh.find_matches(text)) in want
+    m = Machine()
+    for w in stages[0]:
+        m.insert_keyword(w)
+    sc = fresh_like(m)
+    got, errors, stop = [], [], threading.Event()
+
+    def scan():
+        try:
+            while not stop.is_set():
+                got.append(sc.count(text))
+                got.append(len(sc.find_matches(text)))
+        except Exception as e:     # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=scan) for _ in range(6)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for batch in stages[1:]:
+            for w in batch:
+                m.insert_keyword(w)
+            sc.refresh()
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        stop.set()
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert got and set(got) <= want, set(got) - want
+    assert sc.count(text) == len(sc.find_matches(text)) == max(want)

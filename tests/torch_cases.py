@@ -1,6 +1,7 @@
 """Seeded inputs shared by the port's op tests (tests/test_torch_ops.py,
 tests/test_torch_kernel_body.py): automaton tables from the port's own
-snapshot and stream buffers made with numpy, at small sizes."""
+snapshot, and stream buffers and count_many batches made with numpy, at
+small sizes."""
 
 from __future__ import annotations
 
@@ -58,3 +59,19 @@ def stream(tab: dict, kind: str, halo: int, L: int, seed: int = 1) -> dict:
                                   np.int32), n)
     head_ids = rng.integers(1, V, halo).astype(np.int32)
     return dict(ext=ext, lut=tab["byte_lut"], head_ids=head_ids)
+
+
+def batch(tab: dict, kind: str, L: int, n_docs: int = 4, seed: int = 2
+          ) -> dict:
+    """A time-major count_many batch tm [L, n_docs] of one kind, with the
+    LUT of the raw kinds (raw int32 symbols run past the LUT's end)."""
+    rng = np.random.default_rng(seed)
+    if kind == "ids":
+        tm = rng.integers(0, tab["V"], (L, n_docs)).astype(np.int32)
+        return dict(tm=tm, lut=None)
+    if kind == "raw_u8":
+        tm = rng.choice(np.frombuffer(b"abcdabcdxy\0", np.uint8), (L, n_docs))
+    else:
+        tm = rng.choice(np.array([97, 98, 99, 100, 0, 120, 255, 256, 4000],
+                                 np.int32), (L, n_docs))
+    return dict(tm=tm, lut=tab["byte_lut"])
