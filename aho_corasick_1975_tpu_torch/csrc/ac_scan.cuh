@@ -1,7 +1,7 @@
 // Per-stream automaton scans shared by the CUDA kernels (dense_scan.cu,
-// stepped_scan.cu) and the g++ host shim (ac_scan_host.cpp) that the CPU
-// tests run: one function per kernel, computing everything one stream
-// (one CUDA thread) does.
+// stepped_scan.cu, sparse_scan.cu) and the g++ host shim (ac_scan_host.cpp)
+// that the CPU tests run: one function per kernel, computing everything one
+// stream (one CUDA thread) does.
 //
 // Layout: B streams of L symbols each over a contiguous ext buffer of
 // halo + B*L symbols. Window row t of stream b (t in [0, halo + L)) is
@@ -11,6 +11,10 @@
 // kernels (K5, K6) run the same count bodies over another symbol accessor,
 // AcBatchSyms: column i*n_docs + j is block i of document j of a
 // time-major [doc_len, n_docs] batch (ops/scan_xla.py:split_docs_layout).
+// The sparse prefilter's kernels (K7, K8 window form) run them over a third,
+// AcWinSyms: column c is the window of live block idx[c], read in place
+// from the stream (ops/sparse.py:_window_gather) or from host-elided
+// windows.
 //
 // What bounds these scans on an H100: each step's table index depends on
 // the previous step's gather, so a stream is a chain of dependent loads
@@ -33,16 +37,19 @@
 // Arguments of one launch. Passed by pointer through the C entry points
 // and by value to the kernels; the Python side mirrors it in ops/build.py.
 struct AcScanArgs {
-  const int32_t* table;     // dflat [cap*V] (K1, K2, K6) or packed [cap*V^k] (K3-K5)
-  const int32_t* nb_out;    // [cap] matches per state (K1, K6)
-  const void* ext;          // K1-K4: [halo + B*L] letter ids (int32) or raw
-                            // symbols; K5, K6: the [doc_len, n_docs] batch tm
+  const int32_t* table;     // dflat [cap*V] (K1, K2, K6, K7 dense, K8) or
+                            // packed [cap*V^k] (K3-K5, K7 stepped)
+  const int32_t* nb_out;    // [cap] matches per state (K1, K6, K7 dense, K8)
+  const void* ext;          // K1-K4, K8 stream: [halo + B*L] letter ids
+                            // (int32) or raw symbols; K5, K6: the
+                            // [doc_len, n_docs] batch tm; K7, K8 window: below
   const int32_t* lut;       // raw symbol -> letter id; null when ext holds ids
   const int32_t* head_ids;  // [halo] letter ids of stream 0's warm-up rows (raw)
   int32_t* out;             // K1, K3, K5, K6: [B] totals; K2: [B*L] states;
                             // K4: [B, L/k] emit
-  int32_t* n_hits;          // K4: [B] matches per stream
-  int32_t* n_live;          // K4: [B] grams with a match per stream
+  int32_t* n_hits;          // K4, K8 pass 1: [B] matches per stream
+  int32_t* n_live;          // K4: [B] grams with a match per stream;
+                            // K8 pass 1: [B] hit positions per stream
   int64_t L;                // symbols per stream or block (a multiple of k)
   int64_t Vk;               // V^k
   int32_t B, V, halo;       // B streams or columns; halo in symbols
@@ -50,8 +57,20 @@ struct AcScanArgs {
   int32_t ext_u8;           // ext is uint8 (else int32)
   int32_t n_lut;
   int32_t k, count_bits;
-  int64_t doc_len;          // K5, K6: rows of tm
-  int32_t n_docs;           // K5, K6: columns of tm (B = c * n_docs)
+  int64_t doc_len;          // K5, K6, K2 time-major: rows of tm
+  int32_t n_docs;           // K5, K6, K2 time-major: columns of tm
+                            // (B = c * n_docs)
+  // K7, K8 windows: column c's window row t is
+  // ext[(gather ? idx[c] : c) * col_stride + t * row_stride] (int32 ids);
+  // its positions are idx[c]*L + t.
+  const int32_t* idx;       // [B] block index of each column
+  int64_t col_stride, row_stride;
+  int32_t gather;           // 1: ext is the stream; 0: ext holds the windows
+  // K8 pass 2 (null in pass 1): each column writes its hits, stream order,
+  // from slot hit_off[c] on.
+  int32_t* hit_pos;         // positions
+  int32_t* hit_state;       // states after the symbol at each position
+  const int64_t* hit_off;   // [B] first slot of each column
 };
 
 // Letter id of one symbol: raw symbols translate through the LUT with the
@@ -123,6 +142,26 @@ AC_HD AcBatchSyms<T> ac_batch_syms(const AcScanArgs& a, int64_t column) {
   return s;
 }
 
+// Letter id at window row t of sparse column c (ops/sparse.py): the
+// window of live block idx[c], halo rows included, read in place from the
+// stream ext [halo + (nB+1)*L] (gather) or from host-elided time-major
+// windows [halo + L, B] (ops/sparse.py:elide_windows). Ids only: the
+// prefilter encodes (or LUT-translates) on the host first.
+struct AcWinSyms {
+  const int32_t* col;
+  int64_t stride;
+
+  AC_HD int32_t operator()(int64_t t) const { return col[t * stride]; }
+};
+
+AC_HD AcWinSyms ac_win_syms(const AcScanArgs& a, int64_t column) {
+  AcWinSyms s;
+  const int64_t base = a.gather ? (int64_t)a.idx[column] : column;
+  s.col = (const int32_t*)a.ext + base * a.col_stride;
+  s.stride = a.row_stride;
+  return s;
+}
+
 // k-gram id of the k symbols from row t0, in ops/multistep.py:combine_grams
 // order.
 template <typename Syms>
@@ -159,18 +198,82 @@ AC_HD void ac_dense_count_many_column(const AcScanArgs& a, int64_t column) {
   a.out[column] = ac_dense_count_body(a, ac_batch_syms<T>(a, column));
 }
 
-// K2 (ops/scan_xla.py:make_blocked_scan_stream / _raw): the state after
-// each body symbol, written in stream order.
-template <typename T>
-AC_HD void ac_dense_states_stream(const AcScanArgs& a, int64_t b) {
-  const AcSyms<T> sym = ac_syms<T>(a, b);
-  int32_t* out = a.out + b * a.L;
+// K7 dense (ops/sparse.py:make_sparse_count / _dev over _window_gather,
+// and the elided count of models/scanner.py:_elided_count_core): K1's
+// recurrence over one live-block window.
+AC_HD void ac_sparse_count_column(const AcScanArgs& a, int64_t column) {
+  a.out[column] = ac_dense_count_body(a, ac_win_syms(a, column));
+}
+
+// K2: the state after each body symbol, out[t*ostride].
+template <typename Syms>
+AC_HD void ac_dense_states_body(const AcScanArgs& a, const Syms& sym,
+                                int32_t* out, int64_t ostride) {
   int32_t s = 0;
   for (int64_t t = 0; t < a.halo; ++t) s = a.table[(int64_t)s * a.V + sym(t)];
   for (int64_t t = 0; t < a.L; ++t) {
     s = a.table[(int64_t)s * a.V + sym(a.halo + t)];
-    out[t] = s;
+    out[t * ostride] = s;
   }
+}
+
+// K2 (ops/scan_xla.py:make_blocked_scan_stream / _raw), written in stream
+// order; with B = 1 and halo 0 it is ops/scan_xla.py:make_sequential_scan.
+template <typename T>
+AC_HD void ac_dense_states_stream(const AcScanArgs& a, int64_t b) {
+  ac_dense_states_body(a, ac_syms<T>(a, b), a.out + b * a.L, 1);
+}
+
+// K2 time-major (ops/scan_xla.py:make_blocked_scan): column j of a
+// [L, n_docs] batch from the root, states written to out [L, n_docs].
+template <typename T>
+AC_HD void ac_dense_states_tm_column(const AcScanArgs& a, int64_t j) {
+  ac_dense_states_body(a, ac_batch_syms<T>(a, j), a.out + j, a.n_docs);
+}
+
+// K8 (ops/hits.py:make_blocked_hits, ops/sparse.py:_window_hits_core): the
+// K2 recurrence; a body row t hits when nb_out[s] > 0. Pass 1 (hit_pos
+// null) writes the column's matches to n_hits and its hit positions to
+// n_live; pass 2 re-runs the chain and writes (pos0 + t, s) of each hit
+// from slot hit_off[column] on, so the output holds exactly the hits.
+template <typename Syms>
+AC_HD void ac_dense_hits_body(const AcScanArgs& a, const Syms& sym,
+                              int64_t column, int64_t pos0) {
+  int32_t s = 0;
+  for (int64_t t = 0; t < a.halo; ++t) s = a.table[(int64_t)s * a.V + sym(t)];
+  int64_t slot = a.hit_pos != nullptr ? a.hit_off[column] : 0;
+  uint32_t hits = 0;
+  int32_t n_pos = 0;
+  for (int64_t t = 0; t < a.L; ++t) {
+    s = a.table[(int64_t)s * a.V + sym(a.halo + t)];
+    const int32_t nb = a.nb_out[s];
+    if (nb > 0) {
+      if (a.hit_pos != nullptr) {
+        a.hit_pos[slot] = (int32_t)(pos0 + t);
+        a.hit_state[slot] = s;
+        ++slot;
+      }
+      hits += (uint32_t)nb;
+      ++n_pos;
+    }
+  }
+  if (a.hit_pos == nullptr) {
+    a.n_hits[column] = (int32_t)hits;
+    a.n_live[column] = n_pos;
+  }
+}
+
+// K8 stream form (make_blocked_hits_stream / _raw): positions b*L + t.
+template <typename T>
+AC_HD void ac_dense_hits_stream(const AcScanArgs& a, int64_t b) {
+  ac_dense_hits_body(a, ac_syms<T>(a, b), b, b * a.L);
+}
+
+// K8 window form (make_sparse_hits[_dev], make_elided_hits): positions
+// idx[c]*L + t.
+AC_HD void ac_window_hits_column(const AcScanArgs& a, int64_t column) {
+  ac_dense_hits_body(a, ac_win_syms(a, column), column,
+                     (int64_t)a.idx[column] * a.L);
 }
 
 // K3 (ops/multistep.py:stepped_count_core) and K5
@@ -199,6 +302,13 @@ AC_HD void ac_stepped_count_stream(const AcScanArgs& a, int64_t b) {
 template <typename T>
 AC_HD void ac_stepped_count_many_column(const AcScanArgs& a, int64_t column) {
   a.out[column] = ac_stepped_count_body(a, ac_batch_syms<T>(a, column));
+}
+
+// K7 stepped (ops/sparse.py:make_sparse_count_stepped / _dev, and the
+// elided stepped count): K3's recurrence over one live-block window.
+AC_HD void ac_sparse_count_stepped_column(const AcScanArgs& a,
+                                          int64_t column) {
+  a.out[column] = ac_stepped_count_body(a, ac_win_syms(a, column));
 }
 
 // K4 (ops/hits.py:_stepped_emit_scan): the K3 recurrence, writing per body

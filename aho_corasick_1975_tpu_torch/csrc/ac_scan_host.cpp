@@ -1,6 +1,6 @@
 // Host build of the per-thread scans in ac_scan.cuh, with the same C entry
 // points as the CUDA kernels: each loops over the streams (or batch
-// columns) one by one. Built
+// columns, or windows) one by one. Built
 // with g++ by the CPU tests, so that the logic the H100 kernels run is
 // tested where there is no GPU; the scanner never loads it.
 #include "ac_scan.cuh"
@@ -9,9 +9,15 @@ namespace {
 
 template <void (*U8)(const AcScanArgs&, int64_t),
           void (*I32)(const AcScanArgs&, int64_t)>
-int run(const AcScanArgs* a) {
-  for (int64_t b = 0; b < a->B; ++b) (a->ext_u8 ? U8 : I32)(*a, b);
+int run(const AcScanArgs* a, int64_t n) {
+  for (int64_t b = 0; b < n; ++b) (a->ext_u8 ? U8 : I32)(*a, b);
   return 0;
+}
+
+template <void (*U8)(const AcScanArgs&, int64_t),
+          void (*I32)(const AcScanArgs&, int64_t)>
+int run(const AcScanArgs* a) {
+  return run<U8, I32>(a, a->B);
 }
 
 }  // namespace
@@ -32,6 +38,28 @@ int ac_stepped_count(const AcScanArgs* a, void*) {
 
 int ac_stepped_emit(const AcScanArgs* a, void*) {
   return run<ac_stepped_emit_stream<uint8_t>, ac_stepped_emit_stream<int32_t>>(a);
+}
+
+int ac_dense_states_tm(const AcScanArgs* a, void*) {
+  return run<ac_dense_states_tm_column<uint8_t>,
+             ac_dense_states_tm_column<int32_t>>(a, a->n_docs);
+}
+
+int ac_sparse_count(const AcScanArgs* a, void*) {
+  return run<ac_sparse_count_column, ac_sparse_count_column>(a);
+}
+
+int ac_sparse_count_stepped(const AcScanArgs* a, void*) {
+  return run<ac_sparse_count_stepped_column,
+             ac_sparse_count_stepped_column>(a);
+}
+
+int ac_dense_hits(const AcScanArgs* a, void*) {
+  return run<ac_dense_hits_stream<uint8_t>, ac_dense_hits_stream<int32_t>>(a);
+}
+
+int ac_window_hits(const AcScanArgs* a, void*) {
+  return run<ac_window_hits_column, ac_window_hits_column>(a);
 }
 
 int ac_dense_count_many(const AcScanArgs* a, void*) {

@@ -1,6 +1,6 @@
-// K1 dense count, K2 dense states and K6 dense count_many for sm_90a: one
-// thread per stream (K6: per batch column), each running the per-thread
-// scan of ac_scan.cuh.
+// K1 dense count, K2 dense states (stream, one-thread and time-major modes)
+// and K6 dense count_many for sm_90a: one thread per stream (K6: per batch
+// column), each running the per-thread scan of ac_scan.cuh.
 //
 // K1 replaces ops/scan_pallas.py:make_pallas_blocked_count (the JAX
 // package's only Pallas kernel) and ops/scan_xla.py:make_blocked_count_stream
@@ -40,6 +40,12 @@ __global__ void dense_count_many_kernel(AcScanArgs a) {
   if (col < a.B) ac_dense_count_many_column<T>(a, col);
 }
 
+template <typename T>
+__global__ void dense_states_tm_kernel(AcScanArgs a) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < a.n_docs) ac_dense_states_tm_column<T>(a, j);
+}
+
 }  // namespace
 
 extern "C" int ac_dense_count(const AcScanArgs* a, void* stream) {
@@ -69,6 +75,17 @@ extern "C" int ac_dense_count_many(const AcScanArgs* a, void* stream) {
     dense_count_many_kernel<uint8_t><<<grid, kThreads, 0, st>>>(*a);
   else
     dense_count_many_kernel<int32_t><<<grid, kThreads, 0, st>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// K2 over a time-major [L, n_docs] batch (ops/scan_xla.py:make_blocked_scan).
+extern "C" int ac_dense_states_tm(const AcScanArgs* a, void* stream) {
+  const dim3 grid((a->n_docs + kThreads - 1) / kThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (a->ext_u8)
+    dense_states_tm_kernel<uint8_t><<<grid, kThreads, 0, st>>>(*a);
+  else
+    dense_states_tm_kernel<int32_t><<<grid, kThreads, 0, st>>>(*a);
   return (int)cudaGetLastError();
 }
 

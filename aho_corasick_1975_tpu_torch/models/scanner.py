@@ -10,9 +10,16 @@ argument) through hand-written kernels:
 * ``count``: K3, the packed k-gram count (ops/multistep.py), or K1, the
   1-char dense count (ops/scan_dense.py) where no packed table exists;
 * ``find_matches``: K4, the k-gram emit scan, then the plain-PyTorch
-  refinement of live grams (ops/hits.py); without a packed table, K2
-  states decoded on the host;
-* ``scan_states``: K2;
+  refinement of live grams (ops/hits.py); without a packed table, K8, the
+  1-char bounded hits, under ``max_hits``, else K2 states decoded on the
+  host;
+* ``prefilter="on"|"auto"``, the sparse prefilter (ops/sparse.py): a
+  filter marks the blocks that hold a keyword letter, on the host over
+  raw symbols or ids or on the device over a tensor, and only their halo
+  windows are scanned: ``count`` through K7, the window count, uploading
+  only the live windows where they are under half the stream, and
+  ``find_matches`` through K8's window form;
+* ``scan_states``: K2; ``scan_states_sequential``: K2 in one thread;
 * ``count_many``: one document per column of a time-major [L, B] batch,
   split into blocks: K5, the packed count of the batch, or K6, its dense
   count;
@@ -28,8 +35,8 @@ clamps; so is a 2-D integer tensor given to ``count_many``. ``encode``
 takes host signs only and raises ``TypeError`` for a tensor, as the JAX
 package's does for a ``jax.Array``.
 
-Not ported yet (ROADMAP): the prefilter, the MXU and hybrid engines,
-calibration, and upload overlap.
+Not ported yet (ROADMAP): the MXU and hybrid engines, calibration, and
+upload overlap.
 """
 
 from __future__ import annotations
@@ -43,10 +50,12 @@ import numpy as np
 import torch
 
 from .._host import MatchSet, decode_matches_arrays, expand_hits_arrays
-from ..ops.hits import hits_extract, hits_extract_dense, stepped_emit
+from ..ops import sparse
+from ..ops.hits import (dense_hits, hits_extract, hits_extract_dense,
+                        max_hits_error, stepped_emit, window_hits)
 from ..ops.multistep import pack, stepped_count, stepped_count_many
 from ..ops.scan_dense import (dense_count, dense_count_many, dense_states,
-                              lookup)
+                              lookup, sequential_states)
 from .snapshot import DeviceSnapshot
 
 
@@ -181,18 +190,20 @@ class DenseScanner:
 
         ``engine``: "auto" and "gather" both scan through the packed
         k-gram gather; "mxu" and "hybrid" are not ported (ROADMAP A.9),
-        nor are ``prefilter`` "auto"/"on" (A.7) and ``calibrate`` (A.9)."""
+        nor is ``calibrate`` (A.9).
+
+        ``prefilter``: "off", "on" (count and retrieve through the sparse
+        prefilter) or "auto" (the prefilter, unless over half the blocks
+        are live: then the dense kernels)."""
         if engine in ("mxu", "hybrid") or calibrate:
             raise NotImplementedError(
                 "the MXU and hybrid engines and calibration are not ported "
                 "yet (ROADMAP A.9)")
         if engine not in ("auto", "gather"):
             raise ValueError(f"unknown engine {engine!r}")
-        if prefilter in ("auto", "on"):
-            raise NotImplementedError(
-                "the sparse prefilter is not ported yet (ROADMAP A.7)")
-        if prefilter != "off":
+        if prefilter not in ("off", "auto", "on"):
             raise ValueError(f"unknown prefilter {prefilter!r}")
+        self._prefilter = prefilter
         self.machine = machine
         self.device = torch.device(device)
         self._auto_streams = n_streams == "auto"
@@ -410,17 +421,187 @@ class DenseScanner:
         t0 = time.perf_counter()
         with self._dispatch:
             raw = self._raw_stream(signs)
-            n = None
-            if raw is not None and len(raw[0]) >= self._pipeline_min:
-                n = self._count_raw_pipelined(raw[0], raw[1], head)
-            if n is None:
-                halo, unit, count = self._count_kernel()
-                ext, lut, head_ids, B, L, _ = self._stage(signs, raw, head,
-                                                          halo, unit)
-                self._guard_acc(L)
-                # int64 grand total: per-stream int32 totals can pass 2^31
-                n = int(count(B, L, ext, lut, head_ids).sum(dtype=torch.int64))
+            if self._prefilter != "off":
+                n = self._count_prefilter(signs, raw, head)
+            else:
+                n = self._count_dense(signs, raw, head)
         self._record("count", len(signs), time.perf_counter() - t0)
+        return n
+
+    def _count_dense(self, signs, raw, head) -> int:
+        """Count through the dense kernels over the whole stream: K3 or
+        K1, raw inputs of two chunks or more in pipelined chunks."""
+        if raw is not None and len(raw[0]) >= self._pipeline_min:
+            n = self._count_raw_pipelined(raw[0], raw[1], head)
+            if n is not None:
+                return n
+        halo, unit, count = self._count_kernel()
+        ext, lut, head_ids, B, L, _ = self._stage(signs, raw, head, halo,
+                                                  unit)
+        self._guard_acc(L)
+        # int64 grand total: per-stream int32 totals can pass 2^31
+        return int(count(B, L, ext, lut, head_ids).sum(dtype=torch.int64))
+
+    # -- sparse prefilter: count ---------------------------------------------
+
+    def _sparse_geometry(self):
+        """(k, halo, L_blk) of the prefilter's count: the packed k-gram
+        windows where a packed table exists, else 1-char windows."""
+        st = self._stepped
+        k = st.k if st is not None else 1
+        return k, self._halo_sym if st is not None else self.halo, 128 * k
+
+    def _count_prefilter(self, signs, raw, head) -> int:
+        """The prefilter's count routing (``models/scanner.py:573-648``):
+        a tensor takes the device block filter; raw symbols the raw
+        filter and elision, whose "dense" verdict goes straight to the
+        dense raw kernels; otherwise the ids encoded on the host take the
+        host filter. Each declines (None) to the dense kernels."""
+        if _is_tensor(signs):
+            n = self._sparse_count_device(signs, head)
+            return self._count_dense(signs, None, head) if n is None else n
+        if raw is not None:
+            n = self._sparse_count_raw(raw, head)
+            if n == "dense":
+                return self._count_dense(signs, raw, head)
+            if n is not None:
+                return n
+        ids = self.encode(signs)
+        if not len(ids):
+            return 0
+        n = self._sparse_count(ids, head)
+        return self._count_dense(ids, None, head) if n is None else n
+
+    def _window_count(self, src, idx=None) -> int:
+        """K7 over live-block windows (``ops/sparse.py``): the stepped
+        body with a packed table, else the dense one; the int64 total."""
+        st, snap = self._stepped, self._snap
+        k, halo, L_blk = self._sparse_geometry()
+        if st is not None:
+            per = sparse.sparse_count_stepped(
+                snap.packed, st.V, k, st.count_bits, self._halo_steps, L_blk,
+                src, idx)
+        else:
+            per = sparse.sparse_count(snap.dflat, snap.nb_out, self.V, halo,
+                                      L_blk, src, idx)
+        return int(per.sum(dtype=torch.int64))
+
+    def _sparse_filter_device(self, ids: torch.Tensor, head, halo: int,
+                              L_blk: int):
+        """The device block filter over a letter-id tensor: (ext, idx [cap]
+        int32, n_live, nB_real), idx None when no block is live. ext
+        [halo + (nB+1)*L_blk] int32 is built on the device (head, ids, OOV
+        pad to a pow2 nB of blocks and one spare all-OOV block). One
+        4-byte synchronisation."""
+        self._check_ids(ids)
+        T = ids.numel()
+        nB_real = -(-T // L_blk)
+        nB = 1 << (nB_real - 1).bit_length()
+        ext = torch.cat([
+            self._snap.place(self._head_ids(head, halo)),
+            ids.to(device=self.device, dtype=torch.int32),
+            torch.zeros((nB + 1) * L_blk - T, dtype=torch.int32,
+                        device=self.device)])
+        order, n_live = sparse.block_filter(ext, nB, L_blk, halo)
+        self.stats["sparse_live_frac"] = n_live / max(nB_real, 1)
+        if n_live == 0:
+            return ext, None, 0, nB_real
+        cap = min(nB, max(8, 1 << (n_live - 1).bit_length()))
+        return ext, sparse.dev_idx(order, n_live, nB, cap), n_live, nB_real
+
+    def _declines(self, n_live: int, nB_real: int) -> bool:
+        """The "auto" gate: over half the blocks live."""
+        return self._prefilter == "auto" and n_live * 2 > nB_real
+
+    def _sparse_count_device(self, ids: torch.Tensor, head) -> Optional[int]:
+        """Filter-then-verify over a letter-id tensor
+        (``models/scanner.py:823-872``): the block filter and K7 run on
+        the device over the resident order, no host pass and no index
+        upload. None when the halo is wider than a block or the "auto"
+        gate declines."""
+        _, halo, L_blk = self._sparse_geometry()
+        if halo > L_blk:
+            return None
+        ext, idx, n_live, nB_real = self._sparse_filter_device(ids, head,
+                                                               halo, L_blk)
+        if n_live == 0:
+            return 0
+        if self._declines(n_live, nB_real):
+            return None
+        self._guard_acc(halo + L_blk)
+        return self._window_count(ext, idx)
+
+    def _sparse_count(self, ids: np.ndarray, head) -> Optional[int]:
+        """Filter-then-verify over host ids (``models/scanner.py:934-1000``):
+        the host marks live blocks; under half the stream in live windows,
+        only those upload (``_elided_count``), else the stream uploads with
+        its live-block index list. None when not applicable or the "auto"
+        gate declines."""
+        _, halo, L_blk = self._sparse_geometry()
+        if halo > L_blk:
+            return None
+        T = len(ids)
+        nB_real = -(-T // L_blk)
+        live = sparse.live_blocks(ids, L_blk)
+        n_live = int(live.sum())
+        self.stats["sparse_live_frac"] = n_live / nB_real
+        if n_live == 0:
+            return 0  # all OOV: nothing can match, no launch
+        if self._declines(n_live, nB_real):
+            return None
+        if n_live * (halo + L_blk) * 2 < max(T, 1):
+            return self._elided_count(ids, None, T, live, n_live, head,
+                                      nB_real)
+        self._guard_acc(halo + L_blk)
+        return self._window_count(*self._indexed_windows(ids, live, n_live,
+                                                         head, halo, L_blk))
+
+    def _indexed_windows(self, ids: np.ndarray, live, n_live: int, head,
+                         halo: int, L_blk: int):
+        """Upload host ids for the index-list form (``ops/sparse.py``):
+        (ext [halo + (nB+1)*L_blk] int32 = head, ids, OOV pad to a pow2 nB
+        of blocks and one spare all-OOV block; idx [cap] int32, the live
+        blocks, then pad slots at the spare block)."""
+        T = len(ids)
+        nB = 1 << (len(live) - 1).bit_length()
+        buf = np.zeros(halo + (nB + 1) * L_blk, np.int32)
+        buf[:halo] = self._head_ids(head, halo)
+        buf[halo:halo + T] = ids
+        idx = np.full(max(8, 1 << (n_live - 1).bit_length()), nB, np.int32)
+        idx[:n_live] = np.flatnonzero(live)
+        return self._snap.place(buf), self._snap.place(idx)
+
+    def _sparse_count_raw(self, raw, head):
+        """Filter and elision over raw symbols before any encode
+        (``models/scanner.py:1011-1040``): an int count, "dense" (the
+        "auto" gate found the corpus match-dense) or None (the id path
+        decides)."""
+        arr, (_, n_lut, _, lut_host) = raw
+        _, halo, L_blk = self._sparse_geometry()
+        verdict, live, n_live, nB_real = sparse.raw_elision_plan(
+            arr, lut_host, n_lut, self._prefilter, halo, L_blk)
+        if live is not None:
+            self.stats["sparse_live_frac"] = n_live / max(nB_real, 1)
+        if verdict == "zero":
+            return 0
+        if verdict == "dense":
+            return "dense"
+        if verdict == "na":
+            return None
+        return self._elided_count(arr, (lut_host, n_lut), len(arr), live,
+                                  n_live, head, nB_real)
+
+    def _elided_count(self, arr, lut, T: int, live, n_live: int, head,
+                      nB_real: int) -> int:
+        """Host dead-block elision (``models/scanner.py:1042-1068``): only
+        the live blocks' windows upload, wire bytes the live fraction of
+        the corpus, and K7 counts them."""
+        _, halo, L_blk = self._sparse_geometry()
+        tm, _ = sparse.elide_windows(arr, lut, T, live, n_live, head, halo,
+                                     L_blk, nB_real)
+        self._guard_acc(halo + L_blk)
+        n = self._window_count(self._snap.place(tm))
+        self.stats["sparse_elided_upload_bytes"] = int(tm.nbytes)
         return n
 
     def _count_kernel(self):
@@ -622,12 +803,16 @@ class DenseScanner:
 
         With a packed k-gram table (the default) retrieval is two-phase:
         K4 emits per-gram words and counts the live grams, which size the
-        refinement's buffers, so no ``max_hits`` is needed. ``max_hits``
-        bounds the result and raises if more positions match."""
+        refinement's buffers, so no ``max_hits`` is needed. A prefilter
+        scanner retrieves through K8 over the live-block windows. Without
+        a packed table, ``max_hits`` takes K8 over the whole stream.
+        ``max_hits`` bounds the result and raises if more positions
+        match."""
         # Under the lock from the scan to the decode: refresh() swaps the
         # tables both read.
         with self._dispatch:
-            if max_hits is not None or self._stepped is not None:
+            if (max_hits is not None or self._stepped is not None
+                    or self._prefilter != "off"):
                 return self._find_matches_device(signs, offset, head,
                                                  max_hits)
             states = self.scan_states(signs, head=head)
@@ -635,34 +820,50 @@ class DenseScanner:
                 states, self.tables, offset)
             return MatchSet(self.machine, self.tables, ends, end_states, idx)
 
+    def _empty_matches(self) -> MatchSet:
+        return MatchSet(self.machine, self.tables, np.zeros(0, np.int64),
+                        np.zeros(0, np.int32), np.zeros(0, np.int32))
+
     def _find_matches_device(self, signs, offset, head, max_hits):
         if len(signs) == 0:
-            return MatchSet(self.machine, self.tables,
-                            np.zeros(0, np.int64), np.zeros(0, np.int32),
-                            np.zeros(0, np.int32))
+            return self._empty_matches()
         t0 = time.perf_counter()
         raw = self._raw_stream(signs)
-        auto = max_hits is None
-        if not auto:
+        if max_hits is not None:
             max_hits = int(max_hits)
+        if self._prefilter != "off":
+            if _is_tensor(signs):
+                out = self._sparse_hits_device(signs, offset, head, max_hits)
+            else:
+                out = self._sparse_hits(signs, offset, head, max_hits, raw)
+            if out is not None:
+                self._record("find_matches_sparse", len(signs),
+                             time.perf_counter() - t0)
+                return out
+        auto = max_hits is None
         _guard_pos32(len(raw[0]) if raw is not None else len(signs))
         st, snap = self._stepped, self._snap
         with self._dispatch:
             if st is None:
-                # No packed table: K2 states decoded on the host, bounded
-                # by max_hits as the JAX package's fused hits kernel is.
-                states = self.scan_states(signs, head=head)
-                n_hit_pos = int(np.count_nonzero(
-                    self.tables.nb_outputs[states]))
-                if n_hit_pos > max_hits:
-                    raise ValueError(
-                        f"{n_hit_pos} matching positions exceed "
-                        f"max_hits={max_hits}; raise max_hits or chunk the "
-                        "stream with a session")
-                ends, end_states, idx = decode_matches_arrays(
-                    states, self.tables, offset)
-                return MatchSet(self.machine, self.tables, ends, end_states,
-                                idx)
+                if auto:
+                    # the full decode of K2's states (the prefilter
+                    # declined and no packed table exists)
+                    states = self.scan_states(signs, head=head)
+                    ends, end_states, idx = decode_matches_arrays(
+                        states, self.tables, offset)
+                    return MatchSet(self.machine, self.tables, ends,
+                                    end_states, idx)
+                # K8 over the whole stream: exactly the hit positions
+                ext, lut, head_ids, B, L, T = self._stage(signs, raw, head,
+                                                          self.halo, 128)
+                self._guard_acc(L)
+                positions, sts, _, _ = dense_hits(
+                    snap.dflat, snap.nb_out, self.V, self.halo, B, L, ext,
+                    lut, head_ids, max_hits=max_hits)
+                out = self._hits_matchset(positions, sts, T, offset)
+                self._record("find_matches_device", T,
+                             time.perf_counter() - t0)
+                return out
             ext, lut, head_ids, B, L, T = self._stage(
                 signs, raw, head, self._halo_sym, 128 * st.k)
             # per-stream int32 n_hits must not wrap: the count's bound
@@ -711,14 +912,105 @@ class DenseScanner:
         keep = (positions >= 0) & (positions < T)
         positions, sts = positions[keep], sts[keep]
         if not auto and n_hit_pos > max_hits:
-            raise ValueError(
-                f"{n_hit_pos} matching positions exceed max_hits={max_hits}; "
-                "raise max_hits or chunk the stream with a session")
+            raise max_hits_error(n_hit_pos, max_hits)
         order = np.argsort(positions, kind="stable")
         ends, end_states, idx = expand_hits_arrays(
             positions[order], sts[order], self.tables, offset)
         self._record("find_matches_device", T, time.perf_counter() - t0)
         return MatchSet(self.machine, self.tables, ends, end_states, idx)
+
+    def _hits_matchset(self, positions: torch.Tensor, states: torch.Tensor,
+                       T: int, offset: int) -> MatchSet:
+        """MatchSet of K8's hits (stream order), those at positions past
+        the stream's T symbols dropped."""
+        positions = positions.cpu().numpy()
+        keep = positions < T
+        ends, end_states, idx = expand_hits_arrays(
+            positions[keep], states.cpu().numpy()[keep], self.tables, offset)
+        return MatchSet(self.machine, self.tables, ends, end_states, idx)
+
+    # -- sparse prefilter: retrieval -----------------------------------------
+
+    def _sparse_hits(self, signs, offset, head, max_hits, raw):
+        """Filter-then-extract retrieval from host input
+        (``models/scanner.py:1530-1631``): raw symbols first try the raw
+        filter and elision (``_elided_hits``); otherwise the host ids'
+        live blocks are scanned from the uploaded stream through their
+        index list, by K8's window form with 1-char windows. None when not
+        applicable or the "auto" gate declines (the dense retrieval
+        answers)."""
+        halo, L_blk = self.halo, 128
+        if halo > L_blk:
+            return None
+        if raw is not None:
+            arr, (_, n_lut, _, lut_host) = raw
+            verdict, live, n_live, nB_real = sparse.raw_elision_plan(
+                arr, lut_host, n_lut, self._prefilter, halo, L_blk)
+            if live is not None:
+                self.stats["sparse_live_frac"] = n_live / max(nB_real, 1)
+            if verdict == "zero":
+                return self._empty_matches()
+            if verdict == "dense":
+                return None
+            if verdict == "elide":
+                return self._elided_hits(arr, (lut_host, n_lut), len(arr),
+                                         live, n_live, offset, head,
+                                         nB_real, max_hits)
+        ids = self.encode(signs)
+        T = len(ids)
+        _guard_pos32(T)
+        nB_real = -(-T // L_blk)
+        live = sparse.live_blocks(ids, L_blk)
+        n_live = int(live.sum())
+        self.stats["sparse_live_frac"] = n_live / nB_real
+        if n_live == 0:
+            return self._empty_matches()
+        if self._declines(n_live, nB_real):
+            return None
+        return self._window_matches(
+            *self._indexed_windows(ids, live, n_live, head, halo, L_blk), T,
+            offset, max_hits)
+
+    def _window_matches(self, src, idx, T: int, offset: int, max_hits):
+        """K8 over 1-char live-block windows, and their MatchSet."""
+        self._guard_acc(self.halo + 128)
+        positions, sts, _, _ = window_hits(
+            self._snap.dflat, self._snap.nb_out, self.V, self.halo, 128, src,
+            idx, max_hits=max_hits)
+        return self._hits_matchset(positions, sts, T, offset)
+
+    def _sparse_hits_device(self, ids: torch.Tensor, offset, head, max_hits):
+        """Filter-then-extract retrieval of a letter-id tensor
+        (``models/scanner.py:1633-1699``): the block filter on the device,
+        one 4-byte synchronisation, and K8 over the resident order; no
+        corpus upload. None when not applicable or the "auto" gate
+        declines."""
+        halo, L_blk = self.halo, 128
+        if halo > L_blk:
+            return None
+        T = ids.numel()
+        _guard_pos32(T)
+        ext, idx, n_live, nB_real = self._sparse_filter_device(ids, head,
+                                                               halo, L_blk)
+        if n_live == 0:
+            return self._empty_matches()
+        if self._declines(n_live, nB_real):
+            return None
+        return self._window_matches(ext, idx, T, offset, max_hits)
+
+    def _elided_hits(self, arr, lut, T: int, live, n_live: int, offset,
+                     head, nB_real: int, max_hits):
+        """Bounded hits over host-elided live windows
+        (``models/scanner.py:1701-1738``): only the live windows upload,
+        positions come back through their block indices."""
+        _guard_pos32(T)
+        tm, idx = sparse.elide_windows(arr, lut, T, live, n_live, head,
+                                       self.halo, 128, nB_real)
+        out = self._window_matches(self._snap.place(tm),
+                                   self._snap.place(idx.astype(np.int32)),
+                                   T, offset, max_hits)
+        self.stats["sparse_elided_upload_bytes"] = int(tm.nbytes)
+        return out
 
     def _pk1(self):
         """(packed k=1 table (next_state << cb1) | nb on the device, cb1)
@@ -745,6 +1037,17 @@ class DenseScanner:
     def session(self) -> "StreamSession":
         """Open a chunked streaming session (exact across chunk edges)."""
         return StreamSession(self)
+
+    def scan_states_sequential(self, signs) -> np.ndarray:
+        """states[t] from one sequential scan of the whole stream from the
+        root, the literal recurrence (K2 in one thread): the conformance
+        oracle of the blocked scans."""
+        ids = self.encode(signs)
+        if len(ids) == 0:
+            return np.zeros(0, dtype=np.int32)
+        with self._dispatch:
+            return sequential_states(self._snap.dflat, self.V,
+                                     self._snap.place(ids)).cpu().numpy()
 
     def _record(self, op: str, n_symbols: int, seconds: float) -> None:
         self.stats["last_op"] = op

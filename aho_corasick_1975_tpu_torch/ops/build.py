@@ -1,7 +1,8 @@
 """Build and bind the hand-written kernels of ``csrc/``.
 
-The CUDA sources compile with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, and load with ctypes. The library's
+The CUDA sources compile with ``nvcc`` for ``sm_90a``, one process per
+source started together, and link into a shared library with a plain C
+interface, at first use; it loads with ctypes. The library's
 name carries a hash of its sources and command, so an edited source builds
 anew; concurrent processes build under a file lock and publish the result
 with an atomic rename. ``host_library()`` builds the same per-stream scans
@@ -31,15 +32,20 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 _HEADERS = ("ac_scan.cuh",)
-_CUDA_SOURCES = ("dense_scan.cu", "stepped_scan.cu")
+_CUDA_SOURCES = ("dense_scan.cu", "stepped_scan.cu", "sparse_scan.cu")
 _HOST_SOURCES = ("ac_scan_host.cpp",)
 ENTRY_POINTS = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
                 "ac_stepped_emit", "ac_stepped_count_many",
-                "ac_dense_count_many")
+                "ac_dense_count_many", "ac_dense_states_tm",
+                "ac_sparse_count",
+                "ac_sparse_count_stepped", "ac_dense_hits", "ac_window_hits")
 
-# Launches per entry point since the last reset_launches(); only launch()
-# adds to it.
+# Launches per entry point since the last reset_launches(), and per
+# "entry/form" where a wrapper names the input form it launched on (K7, K8:
+# index list or elided windows, ids or raw; K2: "seq", one thread); only
+# launch() adds to them.
 launches: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
+form_launches: Dict[str, int] = {}
 # Seconds and compiler output of the last build this process ran (None
 # when the library was already built).
 last_build: Dict[str, object] = {"seconds": None, "log": ""}
@@ -61,12 +67,18 @@ class AcScanArgs(ctypes.Structure):
         ("n_lut", ctypes.c_int32), ("k", ctypes.c_int32),
         ("count_bits", ctypes.c_int32),
         ("doc_len", ctypes.c_int64), ("n_docs", ctypes.c_int32),
+        ("idx", ctypes.c_void_p),
+        ("col_stride", ctypes.c_int64), ("row_stride", ctypes.c_int64),
+        ("gather", ctypes.c_int32),
+        ("hit_pos", ctypes.c_void_p), ("hit_state", ctypes.c_void_p),
+        ("hit_off", ctypes.c_void_p),
     ]
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    form_launches.clear()
 
 
 def _nvcc() -> str:
@@ -83,15 +95,18 @@ def _nvcc() -> str:
     return path
 
 
-def _build(name: str, sources, command) -> str:
-    """Compile ``sources`` (in csrc/) with ``command(out_path, paths)`` into
-    BUILD_DIR at most once across processes; return the library's path."""
+def _build(name: str, sources, stages) -> str:
+    """Compile ``sources`` (in csrc/) into BUILD_DIR at most once across
+    processes; return the library's path. ``stages(out_path, paths)`` gives
+    a list of stages, each a list of commands that run in parallel."""
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
     digest = hashlib.sha1()
     for p in sorted(paths + [os.path.join(CSRC_DIR, h) for h in _HEADERS]):
         with open(p, "rb") as f:
             digest.update(f.read())
-    digest.update(" ".join(command("out.so", paths)[1:]).encode())
+    for stage in stages("out.so", paths):
+        for cmd in stage:
+            digest.update(" ".join(cmd[1:]).encode())
     so = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
@@ -102,18 +117,23 @@ def _build(name: str, sources, command) -> str:
             return so
         tmp = f"{so}.tmp{os.getpid()}"
         t0 = time.perf_counter()
+        log = []
         try:
-            proc = subprocess.run(command(tmp, paths), capture_output=True,
-                                  text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"building {name} failed:\n"
-                                   f"{proc.stdout}{proc.stderr}")
+            for stage in stages(tmp, paths):
+                procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
+                         for cmd in stage]
+                log += [p.communicate()[0] for p in procs]
+                if any(p.returncode for p in procs):
+                    raise RuntimeError(f"building {name} failed:\n"
+                                       + "".join(log))
             os.replace(tmp, so)
         finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+            for f in os.listdir(BUILD_DIR):
+                if f.startswith(os.path.basename(tmp)):
+                    os.remove(os.path.join(BUILD_DIR, f))
         last_build["seconds"] = time.perf_counter() - t0
-        last_build["log"] = proc.stdout + proc.stderr
+        last_build["log"] = "".join(log)
     return so
 
 
@@ -136,24 +156,29 @@ def _load(kind: str, build) -> ctypes.CDLL:
 
 
 def cuda_library() -> ctypes.CDLL:
-    """The sm_90a kernels, built with nvcc at first use."""
-    def command(out, paths):
-        return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-Xptxas", "-v", "-I", CSRC_DIR, "-o", out, *paths]
+    """The sm_90a kernels, built with nvcc at first use: one nvcc per
+    source, all at once, then one link."""
+    def stages(out, paths):
+        nvcc = _nvcc()
+        arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+        objs = [f"{out}.{i}.o" for i in range(len(paths))]
+        return [[[nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                  "-Xptxas", "-v", "-I", CSRC_DIR, "-c", "-o", obj, src]
+                 for obj, src in zip(objs, paths)],
+                [[nvcc, *arch, "-shared", "-o", out, *objs]]]
     return _load("cuda", lambda: _build("ac_kernels", _CUDA_SOURCES,
-                                        command))
+                                        stages))
 
 
 def host_library() -> ctypes.CDLL:
     """The same per-stream scans built with g++ (csrc/ac_scan_host.cpp),
     one stream after another: what the CPU tests run in place of the
     card."""
-    def command(out, paths):
-        return ["g++", "-std=c++17", "-O2", "-shared", "-fPIC",
-                "-I", CSRC_DIR, "-o", out, *paths]
+    def stages(out, paths):
+        return [[["g++", "-std=c++17", "-O2", "-shared", "-fPIC",
+                  "-I", CSRC_DIR, "-o", out, *paths]]]
     return _load("host", lambda: _build("ac_scan_host", _HOST_SOURCES,
-                                        command))
+                                        stages))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -170,9 +195,11 @@ def scan_args(**fields) -> AcScanArgs:
     return args
 
 
-def launch(name: str, device: torch.device, **fields) -> None:
+def launch(name: str, device: torch.device, form: Optional[str] = None,
+           **fields) -> None:
     """Launch entry point ``name`` of the CUDA library on the current
-    stream of ``device``; raise on a launch error, count the launch."""
+    stream of ``device``; raise on a launch error, count the launch (and
+    under ``name/form`` when a form is given)."""
     lib = cuda_library()
     args = scan_args(**fields)
     with torch.cuda.device(device):
@@ -182,3 +209,6 @@ def launch(name: str, device: torch.device, **fields) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({lib.ac_error_string(err).decode()})")
     launches[name] += 1
+    if form is not None:
+        key = f"{name}/{form}"
+        form_launches[key] = form_launches.get(key, 0) + 1

@@ -1,4 +1,5 @@
-"""Two-phase match retrieval over the packed k-gram table.
+"""Match retrieval: two-phase over the packed k-gram table, and K8, the
+1-char bounded hits.
 
 Phase A is K4 (csrc/stepped_scan.cu), the count recurrence of K3 writing
 one word per gram, ``(pre_state << count_bits) | gram_count``, beside its
@@ -13,17 +14,30 @@ scatter, and stays plain PyTorch here (``_compact``, ``hits_extract`` and
 The port's emit layout is stream-major, ``[B, L/k]`` body grams only (the
 JAX package keeps ``[halo_steps + L/k, B]``), so its flat order is stream
 order.
+
+K8 (csrc/sparse_scan.cu) is the retrieval of scanners without a packed
+table and of the sparse prefilter: the 1-char recurrence, a position
+hitting where ``nb_out[state] > 0`` past the halo. ``dense_hits`` runs it
+over the streams of ``ops/scan_dense.py`` (``ops/hits.py:make_blocked_hits``
+/ ``_stream`` / ``_raw``), ``window_hits`` over the live-block windows of
+``ops/sparse.py`` (``_window_hits_core``: ``make_sparse_hits[_dev]``,
+``make_elided_hits``). The reference compacts a hit mask into a buffer of
+``max_hits`` slots, which its prefilter sizes to ``pow2(n_live * L_blk)``
+(ROADMAP C4). K8 counts each column's hits in a first pass, then writes
+them at their columns' offsets (an exclusive cumsum) in a second, so its
+outputs hold exactly the hit positions: 8 bytes each.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from . import build
 from .multistep import check_stepped, combine_grams
-from .scan_dense import window
+from .scan_dense import check_stream, window
+from .sparse import check_windows, window_fields, window_gather
 
 
 def stepped_emit_plain(packed, V: int, k: int, count_bits: int,
@@ -134,3 +148,113 @@ def hits_extract_dense(V: int, k: int, count_bits: int, cb1: int,
     states = torch.where(positions >= 0, flat[positions.clamp(min=0)] >> 1,
                          0)
     return positions, states.to(torch.int32), n_hit_pos
+
+
+def max_hits_error(n_hit_pos: int, max_hits: int) -> ValueError:
+    return ValueError(
+        f"{n_hit_pos} matching positions exceed max_hits={max_hits}; raise "
+        "max_hits or chunk the stream with a session")
+
+
+def _hits_plain(dflat, nb_out, V: int, halo: int, win: torch.Tensor,
+                pos0: torch.Tensor):
+    """Plain K8 over [halo + L, n] letter ids whose column c starts at
+    stream position pos0[c]: (positions int32, states int32, n_hits,
+    n_hit_pos), stream order."""
+    s = torch.zeros(win.shape[1], dtype=torch.int64, device=win.device)
+    rows = []
+    for t in range(win.shape[0]):
+        s = dflat[s * V + win[t]].long()
+        if t >= halo:
+            rows.append(s)
+    L = win.shape[0] - halo
+    states = (torch.stack(rows, dim=1) if rows else torch.zeros(
+        (win.shape[1], 0), dtype=torch.int64, device=win.device))
+    counts = nb_out[states]                          # [n, L], stream order
+    hit = counts > 0
+    pos = pos0.long()[:, None] + torch.arange(L, device=win.device)[None, :]
+    return (pos[hit].to(torch.int32), states[hit].to(torch.int32),
+            int(counts.sum(dtype=torch.int64)), int(hit.sum()))
+
+
+def _bounded(out, max_hits: Optional[int]):
+    if max_hits is not None and out[3] > max_hits:
+        raise max_hits_error(out[3], max_hits)
+    return out
+
+
+def _hits_two_pass(name: str, dev, n_cols: int, max_hits: Optional[int],
+                   form: str, **fields):
+    """Run K8 entry point ``name`` twice over n_cols columns: pass 1
+    counts, pass 2 writes exactly the hits (raising past ``max_hits``
+    before it)."""
+    n_hits_c = torch.empty(n_cols, dtype=torch.int32, device=dev)
+    n_pos_c = torch.empty(n_cols, dtype=torch.int32, device=dev)
+    build.launch(name, dev, form, n_hits=n_hits_c, n_live=n_pos_c, **fields)
+    n_hits, n_hit_pos = torch.stack([n_hits_c.sum(dtype=torch.int64),
+                                     n_pos_c.sum(dtype=torch.int64)]).tolist()
+    if max_hits is not None and n_hit_pos > max_hits:
+        raise max_hits_error(n_hit_pos, max_hits)
+    positions = torch.empty(n_hit_pos, dtype=torch.int32, device=dev)
+    states = torch.empty(n_hit_pos, dtype=torch.int32, device=dev)
+    if n_hit_pos:
+        offsets = torch.cumsum(n_pos_c, 0, dtype=torch.int64) - n_pos_c
+        build.launch(name, dev, form, hit_pos=positions, hit_state=states,
+                     hit_off=offsets, **fields)
+    return positions, states, n_hits, n_hit_pos
+
+
+def dense_hits_plain(dflat, nb_out, V: int, halo: int, B: int, L: int, ext,
+                     lut=None, head_ids=None):
+    """Plain K8 stream form: (positions int32, states int32, n_hits,
+    n_hit_pos); positions b*L + t in stream order."""
+    return _hits_plain(dflat, nb_out, V, halo,
+                       window(B, L, halo, ext, lut, head_ids),
+                       torch.arange(B, device=ext.device) * L)
+
+
+def dense_hits(dflat, nb_out, V: int, halo: int, B: int, L: int, ext,
+               lut=None, head_ids=None, max_hits: Optional[int] = None):
+    """K8 stream form over the streams of ``ops/scan_dense.py``: the hit
+    positions (b*L + t, stream order; the caller trims those past the
+    stream) and their states, int32 tensors of exactly n_hit_pos entries,
+    with n_hits (matches) and n_hit_pos. Raises ValueError past
+    ``max_hits``."""
+    dev = check_stream(B, L, halo, ext, lut, head_ids, dflat, nb_out)
+    if dev.type == "cpu":
+        return _bounded(dense_hits_plain(dflat, nb_out, V, halo, B, L, ext,
+                                         lut, head_ids), max_hits)
+    return _hits_two_pass(
+        "ac_dense_hits", dev, B, max_hits, "raw" if lut is not None
+        else "ids", table=dflat, nb_out=nb_out, ext=ext, lut=lut,
+        head_ids=head_ids, L=L, B=B, V=V, halo=halo,
+        ext_u8=int(ext.dtype == torch.uint8),
+        n_lut=0 if lut is None else lut.numel())
+
+
+def window_hits_plain(dflat, nb_out, V: int, halo: int, L_blk: int, src,
+                      idx):
+    """Plain K8 window form: hits of the windows of ``src`` (index list or
+    elided windows, ``ops/sparse.py``) at positions idx[c]*L_blk + t."""
+    return _hits_plain(dflat, nb_out, V, halo,
+                       window_gather(src, idx, L_blk, halo),
+                       idx.long() * L_blk)
+
+
+def window_hits(dflat, nb_out, V: int, halo: int, L_blk: int, src, idx,
+                max_hits: Optional[int] = None):
+    """K8 window form: as ``dense_hits``, over live-block windows; idx
+    [n] int32 gives each window's block (ascending, so the output is in
+    stream order). Pad windows hold no hit."""
+    if idx is None or idx.dim() != 1 or idx.dtype != torch.int32 or (
+            src.dim() == 2 and idx.numel() != src.shape[1]):
+        raise ValueError("window hits need idx, int32, one per window")
+    dev = check_windows(L_blk, halo, src, idx, dflat, nb_out)
+    if dev.type == "cpu":
+        return _bounded(window_hits_plain(dflat, nb_out, V, halo, L_blk, src,
+                                          idx), max_hits)
+    fields = window_fields(L_blk, src, idx)
+    form = fields.pop("form")
+    return _hits_two_pass("ac_window_hits", dev, fields["B"], max_hits, form,
+                          table=dflat, nb_out=nb_out, L=L_blk, V=V,
+                          halo=halo, **fields)

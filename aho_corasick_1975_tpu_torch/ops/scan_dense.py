@@ -5,7 +5,9 @@ scans over the fail-collapsed table, each as a CUDA kernel
 Counterparts: K1 is ``ops/scan_pallas.py:make_pallas_blocked_count``, the
 JAX package's only Pallas kernel, whose function is
 ``ops/scan_xla.py:blocked_count_core`` (``make_blocked_count_stream`` /
-``_raw``); K2 is ``ops/scan_xla.py:make_blocked_scan_stream`` / ``_raw``;
+``_raw``); K2 is ``ops/scan_xla.py:make_blocked_scan_stream`` / ``_raw``,
+and in two more modes ``make_sequential_scan`` (``sequential_states``, one
+thread) and ``make_blocked_scan`` (``blocked_states``, a time-major batch);
 K6 is ``ops/scan_xla.py:_count_many_body`` (``make_blocked_count_many``).
 
 Every scan here reads a contiguous stream buffer ``ext`` of
@@ -213,4 +215,50 @@ def dense_count_many(dflat, nb_out, V: int, halo: int, c: int, Lp: int, tm,
                  ext_u8=int(tm.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), doc_len=L,
                  n_docs=B)
+    return out
+
+
+def sequential_states_plain(dflat, V: int, ids) -> torch.Tensor:
+    """Plain K2, one stream from the root: int32 state after each id."""
+    return dense_states_plain(dflat, V, 0, 1, ids.numel(), ids)
+
+
+def sequential_states(dflat, V: int, ids) -> torch.Tensor:
+    """K2 in one thread: int32 state after each of the int32 letter ids
+    [T], the literal recurrence (``scan_states_sequential``): K2 with
+    B = 1 and no halo, counted as its form "seq"."""
+    T = ids.numel()
+    dev = check_stream(1, T, 0, ids, None, None, dflat)
+    if dev.type == "cpu":
+        return sequential_states_plain(dflat, V, ids)
+    out = torch.empty(T, dtype=torch.int32, device=dev)
+    if T:
+        build.launch("ac_dense_states", dev, form="seq", table=dflat,
+                     ext=ids, out=out, L=T, B=1, V=V, halo=0)
+    return out
+
+
+def blocked_states_plain(dflat, V: int, tm) -> torch.Tensor:
+    """Plain K2 time-major: int32 states [L, B] of the columns of tm."""
+    s = torch.zeros(tm.shape[1], dtype=torch.int64, device=tm.device)
+    out = torch.empty(tm.shape, dtype=torch.int32, device=tm.device)
+    for t in range(tm.shape[0]):
+        s = dflat[s * V + tm[t].long()].long()
+        out[t] = s
+    return out
+
+
+def blocked_states(dflat, V: int, tm) -> torch.Tensor:
+    """K2 over a time-major [L, B] batch of int32 letter ids, every column
+    from the root: int32 states [L, B]."""
+    if tm.dim() != 2:
+        raise ValueError(f"tm must be [L, B] (got shape {tuple(tm.shape)})")
+    dev = _check_inputs(tm, None, (dflat,))
+    if dev.type == "cpu":
+        return blocked_states_plain(dflat, V, tm)
+    L, B = tm.shape
+    out = torch.empty((L, B), dtype=torch.int32, device=dev)
+    if out.numel():
+        build.launch("ac_dense_states_tm", dev, table=dflat, ext=tm, out=out,
+                     L=L, B=B, V=V, halo=0, doc_len=L, n_docs=B)
     return out

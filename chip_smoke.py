@@ -29,13 +29,31 @@ card, importing nothing of JAX:
 8. refresh: benchmarks/bench_refresh.py's shape (10,000 random 7-letter
    keywords, k = 2, a 1,000,000-letter text): six rounds of 10 online
    keywords and then 940 at once, each followed by count() and
-   find_matches() equal to a fresh scanner's and to the host scan.
+   find_matches() equal to a fresh scanner's and to the host scan;
+9. sparse: the prefilter. (a) benchmarks/bench_sparse_e2e.py's signature
+   hunt: 8 byte keywords planted at density 1e-3 in 256 MiB of 0x00,
+   prefilter="on": count() (raw elision, K7), find_matches() bounded and
+   not (elided K8 windows) against the host scan and a prefilter="off"
+   scanner, with end-to-end times, the upload of the same bytes and the
+   device's busy share, and a step_k=1 scanner's count() of the bytes and
+   of a letter-id tensor (K7's dense body, elided and over the index
+   list); (b) benchmarks/bench_sparse.py's 64 Mi resident
+   ids at densities 1e-2, 1e-3, 1e-4, as host int32 arrays (host filter)
+   and CUDA tensors (device block filter), auto k and step_k=1, and
+   scan_states_sequential and the time-major K2 (no scanner calls it);
+   (c) the "auto" gate declining on the slice corpus (K3 and K4 run, K7
+   does not) and find_matches(max_hits) of a step_k=1 scanner through
+   K8's stream form; (d) K7, K8 and the K2 modes against their plain
+   versions at those shapes; each K7 and K8 form is held at least once on
+   the hunt's windows, whose plain answer must be non-zero. (The resident
+   ids, as bench_sparse.py builds them, hold no match.)
 
-Each of phases 4 and 6-8 runs with the launch counters set to 0 just
-before it and read just after, and fails unless every kernel of its path
-was launched. Prints the kernels' JSON line, the card's name and power
-limit, and last the line {"ok": true, "device": {...}}. Any failure exits
-non-zero, and so does a machine without CUDA.
+Each of phases 4, 6-8 and 9's (a)-(b) and (c) runs with the launch
+counters set to 0 just before it and read just after, and fails unless
+every kernel of its path (and every K7 and K8 input form) was launched.
+Prints the kernels' JSON line, the card's name and power limit, and last
+the line {"ok": true, "device": {...}}. Any failure exits non-zero, and so
+does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -57,9 +75,20 @@ N_STREAMS = 16384
 KERNEL_L = 4224     # find_matches' per-stream length at 64 MiB
 CM_KEYWORDS, CM_DOCS, CM_DOC_LEN = 10_000, 256, 400_000   # BASELINE config 3
 MAX_CHUNK = 12 << 20
+SPARSE_KEYWORDS = [b"needle", b"haystack", b"signature", b"marker",
+                   b"beacon", b"sentinel", b"flagged", b"tracer"]
+SPARSE_BYTES, SPARSE_DENSITY = 256 << 20, 1e-3   # bench_sparse_e2e.py
+RESIDENT_WORDS = ["needle", "haystack", "signature", "marker", "beacon",
+                  "sentinel", "flagged", "tracer"]  # bench_sparse.py
+RESIDENT_IDS = 64 << 20
+RESIDENT_DENSITIES = (1e-2, 1e-3, 1e-4)
+SEQ_SYMBOLS = 1 << 15   # scan_states_sequential: one thread
+TM_SIDE = 4096          # the time-major K2 batch: [TM_SIDE, TM_SIDE] ids
 GOLDEN = "To ushers: he found his pencil, but she could not find hers."
 GOLDEN_LINE = " 6:he 5:she 6:hers 12:he 21:his 38:he 37:she 56:he 56:hers"
-KERNELS = {   # entry point -> (name, source, TPU-side function it replaces)
+# entry point, or "entry/form" for a form counted in build.form_launches
+# -> (name, source, TPU-side function it replaces)
+KERNELS = {
     "ac_dense_count": (
         "K1 dense_count", "aho_corasick_1975_tpu_torch/csrc/dense_scan.cu",
         "aho_corasick_1975_tpu/ops/scan_pallas.py:51"),
@@ -82,7 +111,35 @@ KERNELS = {   # entry point -> (name, source, TPU-side function it replaces)
         "K6 dense_count_many",
         "aho_corasick_1975_tpu_torch/csrc/dense_scan.cu",
         "aho_corasick_1975_tpu/ops/scan_xla.py:248"),
+    "ac_dense_states/seq": (   # K2 with B = 1, counted as a form
+        "K2 sequential_states (one thread)",
+        "aho_corasick_1975_tpu_torch/csrc/dense_scan.cu",
+        "aho_corasick_1975_tpu/ops/scan_xla.py:33"),
+    "ac_dense_states_tm": (
+        "K2 blocked_states (time-major)",
+        "aho_corasick_1975_tpu_torch/csrc/dense_scan.cu",
+        "aho_corasick_1975_tpu/ops/scan_xla.py:51"),
+    "ac_sparse_count": (
+        "K7 sparse_count", "aho_corasick_1975_tpu_torch/csrc/sparse_scan.cu",
+        "aho_corasick_1975_tpu/ops/sparse.py:170"),
+    "ac_sparse_count_stepped": (
+        "K7 sparse_count_stepped",
+        "aho_corasick_1975_tpu_torch/csrc/sparse_scan.cu",
+        "aho_corasick_1975_tpu/ops/sparse.py:374"),
+    "ac_dense_hits": (
+        "K8 dense_hits (stream form)",
+        "aho_corasick_1975_tpu_torch/csrc/sparse_scan.cu",
+        "aho_corasick_1975_tpu/ops/hits.py:46"),
+    "ac_window_hits": (
+        "K8 window_hits (window form)",
+        "aho_corasick_1975_tpu_torch/csrc/sparse_scan.cu",
+        "aho_corasick_1975_tpu/ops/sparse.py:200"),
 }
+# K7 and K8 input forms every sparse run must launch (build.form_launches)
+SPARSE_FORMS = ("ac_sparse_count/idx", "ac_sparse_count/elided",
+                "ac_sparse_count_stepped/idx",
+                "ac_sparse_count_stepped/elided", "ac_window_hits/idx",
+                "ac_window_hits/elided")
 
 
 def check(cond: bool, what: str) -> None:
@@ -185,10 +242,13 @@ def phase_kernels(sc, text: bytes) -> dict:
     return results
 
 
-def compare(name, kernel, plain, args, ins, shape: str) -> dict:
+def compare(name, kernel, plain, args, ins, shape: str,
+            hits: bool = False) -> dict:
     """Each input of ``ins`` through the kernel and its plain version:
     exact equality, then the kernel's mean time over 10 runs and the plain
-    version's over 2 (CUDA events)."""
+    version's over 2 (CUDA events). With ``hits``, the plain version's
+    output must hold a match (a non-zero count), so that a kernel writing
+    zeros cannot pass."""
     res = {}
     for kind, extra in ins.items():
         got = kernel(*args, *extra)
@@ -196,24 +256,29 @@ def compare(name, kernel, plain, args, ins, shape: str) -> dict:
         want = plain(*args, *extra)
         err = max_abs_err(got, want)
         check(err == 0, f"{name} ({kind}) equals its plain version")
+        total = int((want[-1] if isinstance(want, tuple) else want)
+                    .long().sum())
+        check(not hits or total > 0, f"{name} ({kind}) is checked on "
+              f"windows that hold matches (plain total {total})")
         ms = cuda_ms(lambda: kernel(*args, *extra), 10)
         plain_ms = cuda_ms(lambda: plain(*args, *extra), 2)
         res[kind] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         print(f"kernel {name} {kind} {shape}: {ms:.4f} ms, plain "
-              f"{plain_ms:.2f} ms, max_abs_err {err}", flush=True)
+              f"{plain_ms:.2f} ms, max_abs_err {err}, plain total {total}",
+              flush=True)
     return res
 
 
 def driven(build, entries, what: str, fn):
     """fn() with the launch counters set to 0 just before it and read just
-    after; fails unless every kernel of ``entries`` was launched. Returns
-    (fn's result, the launches)."""
+    after; fails unless every kernel (or "entry/form") of ``entries`` was
+    launched. Returns (fn's result, the launches and form launches)."""
     build.reset_launches()
     out = fn()
-    launches = dict(build.launches)
+    launches = {**build.launches, **build.form_launches}
     print(f"launches in the {what} run: {launches}", flush=True)
     for entry in entries:
-        check(launches[entry] >= 1, f"{entry} ran in the {what} run")
+        check(launches.get(entry, 0) >= 1, f"{entry} ran in the {what} run")
     return out, launches
 
 
@@ -329,10 +394,10 @@ def phase_count_many(build, m, docs) -> dict:
               f"count_many {leg} equals the host oracle per document")
     mib = CM_DOCS * CM_DOC_LEN / 2 ** 20
     L = next(sc._length_buckets(np.array([CM_DOC_LEN]), 128))[0]
-    stage_s, _ = best_s(lambda: batch_tm(docs, L, np.uint8))
+    stage_s, _ = best_s(lambda: batch_tm(docs, L, np.uint8), 1)
     parts = []
     for leg, (scanner, batch, _) in legs.items():
-        t, _ = best_s(lambda: scanner.count_many(batch))
+        t, _ = best_s(lambda: scanner.count_many(batch), 1)
         parts.append(f"{leg} {t * 1e3:.1f} ms = {mib / t:.1f} MiB/s")
     print(f"count_many config 3 ({CM_DOCS} x {CM_DOC_LEN} bytes, "
           f"{m.n_states} states, k={sc.step_k}, {int(oracle.sum())} "
@@ -459,6 +524,396 @@ def phase_refresh(act, build) -> None:
     driven(build, ("ac_stepped_count", "ac_stepped_emit"), "refresh", run)
 
 
+def hunt_corpus() -> bytes:
+    """benchmarks/bench_sparse_e2e.py's corpus: SPARSE_BYTES of 0x00 (OOV)
+    with the keywords planted at SPARSE_DENSITY (default_rng(7))."""
+    rng = np.random.default_rng(7)
+    corpus = np.zeros(SPARSE_BYTES, np.uint8)
+    n_plants = int(SPARSE_BYTES * SPARSE_DENSITY / 8)
+    for start in rng.integers(0, SPARSE_BYTES - 16, n_plants):
+        kw = SPARSE_KEYWORDS[int(start) % len(SPARSE_KEYWORDS)]
+        corpus[start:start + len(kw)] = np.frombuffer(kw, np.uint8)
+    return corpus.tobytes()
+
+
+def resident_ids(density: float, n_live_ids: int) -> np.ndarray:
+    """benchmarks/bench_sparse.py:build_corpus: RESIDENT_IDS int32 ids,
+    OOV but for 8-symbol runs of letter ids at ``density``."""
+    rng = np.random.default_rng(7)
+    ids = np.zeros(RESIDENT_IDS, np.int32)
+    starts = rng.integers(0, RESIDENT_IDS - 16,
+                          int(RESIDENT_IDS * density / 8))
+    pos = (starts[:, None] + np.arange(8)[None, :]).reshape(-1)
+    ids[pos] = rng.integers(1, n_live_ids + 1, pos.shape[0]).astype(np.int32)
+    return ids
+
+
+def took(build, fn):
+    """(fn()'s result, the kernels and K7/K8 input forms it launched, its
+    wall seconds)."""
+    before = {**build.launches, **build.form_launches}
+    t0 = time.perf_counter()
+    out = fn()
+    seconds = time.perf_counter() - t0
+    after = {**build.launches, **build.form_launches}
+    ran = [k for k, v in after.items() if v > before.get(k, 0)]
+    return out, ",".join(sorted(ran)) or "no kernel", seconds
+
+
+def device_busy(fn) -> str:
+    """torch.profiler over one fn(): device busy ms (the self device time
+    of the device's own events, the profiler table's "Self CUDA time
+    total"), wall ms, idle share and the top device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
+                    for e in events[:5])
+    return (f"device busy {busy:.2f} ms of {wall:.1f} ms wall (idle share "
+            f"{1 - busy / wall:.3f}); top: {top}")
+
+
+def host_profile(fn, n: int = 6) -> str:
+    """cProfile over one fn(): the n functions with the most own time."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)[:n]
+    return "; ".join(
+        f"{os.path.basename(f)}:{line} {name} {st[2] * 1e3:.1f} ms"
+        for (f, line, name), st in top)
+
+
+def phase_sparse(act, build):
+    """(a) the signature hunt and (b) the resident ids, driven with the
+    counters at 0: every K7 and K8 window form and both K2 modes must
+    launch. Returns the scanners and inputs phase (d) reuses, and the
+    launches."""
+    from aho_corasick_1975_tpu_torch.ops import scan_dense
+    t0 = time.perf_counter()
+    m = act.Machine()
+    for kw in SPARSE_KEYWORDS:
+        m.insert_keyword(kw)
+    text = hunt_corpus()
+    sc = m.scanner(n_streams=4096, prefilter="on")
+    sc1 = m.scanner(n_streams=4096, prefilter="on", step_k=1)   # K7 dense
+    off = m.scanner(n_streams=4096)
+    hunt_ids = sc._get_lut("byte")[3][np.frombuffer(text, np.uint8)]
+    mr = act.Machine()
+    for w in RESIDENT_WORDS:
+        mr.insert_keyword(w)
+    n_live_ids = len(set("".join(RESIDENT_WORDS)))
+    scb = mr.scanner(n_streams=4096, prefilter="on")
+    scb1 = mr.scanner(n_streams=4096, prefilter="on", step_k=1)
+    corpora = {d: resident_ids(d, n_live_ids) for d in RESIDENT_DENSITIES}
+    print(f"sparse set-up {time.perf_counter() - t0:.1f} s: hunt {len(text)} "
+          f"bytes, {m.n_states} states, V={sc.V}, k={sc.step_k}, halo "
+          f"{sc.halo}, geometry (k, halo, L_blk) {sc._sparse_geometry()}; "
+          f"resident {RESIDENT_IDS} ids, {mr.n_states} states, V={scb.V}, "
+          f"k={scb.step_k} {scb._sparse_geometry()}, step_k=1 "
+          f"{scb1._sparse_geometry()}", flush=True)
+
+    def run():
+        hunt_t = torch.from_numpy(hunt_ids).to("cuda")
+        hunt = {"count": took(build, lambda: sc.count(text)),
+                "count stats": dict(sc.stats),
+                "bounded": took(build, lambda: sc.find_matches(
+                    text, max_hits=1 << 17)),
+                "auto": took(build, lambda: sc.find_matches(text)),
+                "tensor count": took(build, lambda: sc.count(hunt_t)),
+                "tensor find": took(build, lambda: sc.find_matches(hunt_t)),
+                "k1 count": took(build, lambda: sc1.count(text)),
+                "k1 tensor count": took(build, lambda: sc1.count(hunt_t))}
+        resident = {}
+        for d, ids in corpora.items():
+            tensor = torch.from_numpy(ids).to("cuda")
+            for name, s in (("auto k", scb), ("step_k=1", scb1)):
+                for kind, signs in (("host ids", ids), ("tensor", tensor)):
+                    c = took(build, lambda: s.count(signs))
+                    frac = s.stats["sparse_live_frac"]
+                    f = took(build, lambda: s.find_matches(signs))
+                    resident[d, name, kind] = (c, f, frac)
+        seq_ids = corpora[1e-2][:SEQ_SYMBOLS]
+        seq = (scb1.scan_states_sequential(seq_ids),
+               scb1.scan_states(seq_ids))
+        # K2 time-major has no caller in either scanner: its op, over a
+        # [TM_SIDE, TM_SIDE] batch of the resident ids
+        tm = torch.from_numpy(corpora[1e-2][:TM_SIDE ** 2]).to("cuda")
+        states_tm = scan_dense.blocked_states(scb1._snap.dflat, scb1.V,
+                                              tm.view(TM_SIDE, TM_SIDE))
+        return hunt, resident, seq, states_tm.shape
+
+    (hunt, resident, seq, tm_shape), launches = driven(
+        build, ("ac_sparse_count", "ac_sparse_count_stepped",
+                "ac_window_hits", "ac_dense_states/seq",
+                "ac_dense_states_tm") + SPARSE_FORMS, "sparse", run)
+    check(tm_shape == (TM_SIDE, TM_SIDE), "time-major K2 states shape")
+    check(np.array_equal(*seq), "scan_states_sequential equals scan_states")
+
+    # (a) the signature hunt
+    t0 = time.perf_counter()
+    oracle = m.match_stream(m.initiate(), text, parallel=False)
+    oracle_s = time.perf_counter() - t0
+    (n, path_c, count_s), (ms_b, path_b, bound_s), (ms, path_f, find_s) = (
+        hunt["count"], hunt["bounded"], hunt["auto"])
+    (n_t, path_tc, tcount_s), (ms_t, path_tf, tfind_s) = (
+        hunt["tensor count"], hunt["tensor find"])
+    (n1, path_1, k1_s), (n1_t, path_1t, k1t_s) = (hunt["k1 count"],
+                                                  hunt["k1 tensor count"])
+    n_off = off.count(text)
+    check(n == n_t == n1 == n1_t == oracle == n_off,
+          f"sparse count {n} (tensor {n_t}; step_k=1 {n1}, tensor {n1_t}) "
+          f"equals the host oracle {oracle} and prefilter=off {n_off}")
+    check("ac_sparse_count/elided" in path_1.split(",")
+          and "ac_sparse_count/idx" in path_1t.split(","),
+          f"step_k=1 hunt counts ran K7 dense elided [{path_1}] and over "
+          f"the index list [{path_1t}]")
+    check(len(ms) == len(ms_b) == n and np.array_equal(ms.ends, ms_b.ends)
+          and np.array_equal(ms.ends, ms_t.ends)
+          and np.array_equal(ms.end_states, ms_t.end_states),
+          "find_matches (auto, bounded, tensor) hold every match")
+    idx = np.random.default_rng(2).choice(len(ms), min(1000, len(ms)),
+                                          replace=False)
+    for i in idx.tolist():
+        kw = bytes(ms.match_for(int(ms.end_states[i])).letters)
+        check(text[int(ms.starts[i]):int(ms.ends[i]) + 1] == kw,
+              f"hunt match {i} spells its keyword")
+    elided, frac = (hunt["count stats"]["sparse_elided_upload_bytes"],
+                    hunt["count stats"]["sparse_live_frac"])
+    hits_elided, hits_frac = (sc.stats["sparse_elided_upload_bytes"],
+                              sc.stats["sparse_live_frac"])
+    sparse_s, _ = best_s(lambda: sc.count(text))
+    off_s, _ = best_s(lambda: off.count(text))
+    bound_best, _ = best_s(lambda: sc.find_matches(text, max_hits=1 << 17)
+                           .starts, 1)
+    find_best, _ = best_s(lambda: sc.find_matches(text).starts, 1)
+    raw = np.frombuffer(text, np.uint8).copy()
+
+    def upload():
+        torch.from_numpy(raw).to("cuda")
+        torch.cuda.synchronize()
+    upload_s, _ = best_s(upload, 2)
+    mib = len(text) / 2 ** 20
+    print(f"sparse (a) hunt: {n} matches == host oracle ({oracle_s:.2f} s) "
+          f"== prefilter=off; count: live_frac {frac}, elided upload "
+          f"{elided} bytes; retrieval (L_blk 128): live_frac {hits_frac}, "
+          f"elided upload {hits_elided} bytes; count() [{path_c}] first "
+          f"{count_s:.4f} s, best "
+          f"{sparse_s:.4f} s = {mib / sparse_s:.1f} MiB/s; prefilter=off "
+          f"count() {off_s:.4f} s = {mib / off_s:.1f} MiB/s; pageable upload "
+          f"of the same bytes {upload_s:.4f} s = {mib / upload_s:.1f} MiB/s; "
+          f"find_matches(max_hits=1<<17) [{path_b}] first {bound_s:.4f} s, "
+          f"best {bound_best:.4f} s; find_matches() [{path_f}] first "
+          f"{find_s:.4f} s, best {find_best:.4f} s; letter-id tensor: "
+          f"count() [{path_tc}] {tcount_s:.4f} s, find_matches() "
+          f"[{path_tf}] {tfind_s:.4f} s; step_k=1 count() [{path_1}] "
+          f"{k1_s:.4f} s, tensor [{path_1t}] {k1t_s:.4f} s", flush=True)
+    print(f"sparse (a) count() profile: {device_busy(lambda: sc.count(text))}",
+          flush=True)
+    print(f"sparse (a) count() host profile: "
+          f"{host_profile(lambda: sc.count(text))}", flush=True)
+    print(f"sparse (a) find_matches() host profile: "
+          f"{host_profile(lambda: sc.find_matches(text))}", flush=True)
+    print(f"sparse (a) prefilter=off count() profile: "
+          f"{device_busy(lambda: off.count(text))}", flush=True)
+
+    # (b) resident ids
+    offb = mr.scanner(n_streams=4096)
+    for d, ids in corpora.items():
+        want = mr._b.match_bulk(0, ids)[1]
+        tensor = torch.from_numpy(ids).to("cuda")
+        dense_s, n_dense = best_s(lambda: offb.count(tensor))
+        sparse_s, _ = best_s(lambda: scb.count(tensor))
+        print(f"sparse (b) density {d} resident tensor count(): "
+              f"prefilter=on {sparse_s * 1e3:.2f} ms, prefilter=off (K3 over "
+              f"the whole stream) {dense_s * 1e3:.2f} ms", flush=True)
+        ends0 = None
+        for (dd, name, kind), ((c, pc, cs), (f, pf, fs), frac) in \
+                resident.items():
+            if dd != d:
+                continue
+            check(c == want == n_dense, f"{d} {name} {kind}: count {c} "
+                  f"equals the host oracle {want} and prefilter=off "
+                  f"{n_dense}")
+            check(len(f) == c, f"{d} {name} {kind}: find_matches length")
+            if ends0 is None:
+                ends0 = f.ends
+            check(np.array_equal(f.ends, ends0),
+                  f"{d} {name} {kind}: match ends agree")
+            print(f"sparse (b) density {d} {name} {kind}: {c} matches == "
+                  f"host oracle, live_frac {frac:.5f}; count [{pc}] "
+                  f"{cs * 1e3:.1f} ms; find_matches [{pf}] {fs * 1e3:.1f} ms",
+                  flush=True)
+    tensor = torch.from_numpy(corpora[1e-3]).to("cuda")
+    print(f"sparse (b) density 0.001 tensor count() profile: "
+          f"{device_busy(lambda: scb.count(tensor))}", flush=True)
+    return dict(sc=sc, text=text, hunt_ids=hunt_ids, scb=scb, scb1=scb1,
+                corpora=corpora, tensor=tensor), launches
+
+
+def phase_gate(build, machine, text: bytes, n: int, ends) -> dict:
+    """(c) prefilter="auto" on the match-dense slice corpus declines:
+    count() and find_matches() run K3 and K4, never K7 or K8's window
+    form; a step_k=1 "auto" scanner's find_matches(max_hits) runs K8's
+    stream form on raw bytes and on a letter-id tensor."""
+    sca = machine.scanner(n_streams=N_STREAMS, prefilter="auto")
+    sca1 = machine.scanner(n_streams=N_STREAMS, prefilter="auto", step_k=1)
+    lut_host = sca1._get_lut("byte")[3]
+    t_ids = torch.from_numpy(lut_host[np.frombuffer(text, np.uint8)]).to(
+        "cuda")
+
+    def run():
+        return (took(build, lambda: sca.count(text)),
+                took(build, lambda: sca.find_matches(text)),
+                took(build, lambda: sca1.find_matches(text, max_hits=n)),
+                took(build, lambda: sca1.find_matches(t_ids, max_hits=n)))
+
+    (c, f, f1, f2), launches = driven(
+        build, ("ac_stepped_count", "ac_stepped_emit", "ac_dense_hits"),
+        "auto gate", run)
+    for entry in ("ac_sparse_count", "ac_sparse_count_stepped",
+                  "ac_window_hits"):
+        check(launches[entry] == 0, f"{entry} did not run behind the gate")
+    for form in ("ac_dense_hits/raw", "ac_dense_hits/ids"):
+        check(build.form_launches.get(form, 0) >= 1, f"{form} ran")
+    check(c[0] == n, f"auto-gate count {c[0]} equals {n}")
+    for res in (f, f1, f2):
+        check(np.array_equal(res[0].ends, ends), "auto-gate match ends")
+    print(f"sparse (c) auto gate on the slice (live_frac "
+          f"{sca.stats['sparse_live_frac']:.4f}): count [{c[1]}] "
+          f"{c[2] * 1e3:.1f} ms; find_matches [{f[1]}] {f[2] * 1e3:.1f} ms; "
+          f"step_k=1 find_matches(max_hits) raw [{f1[1]}] "
+          f"{f1[2] * 1e3:.1f} ms, tensor [{f2[1]}] {f2[2] * 1e3:.1f} ms",
+          flush=True)
+    return dict(sca1=sca1, t_ids=t_ids, launches=launches)
+
+
+def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
+    """(d) K7, K8 and the K2 modes against their plain versions at the
+    sparse phase's shapes, exact; the kernel's mean over 10 runs."""
+    from aho_corasick_1975_tpu_torch.ops import hits, scan_dense, sparse
+    sc, scb, scb1 = state["sc"], state["scb"], state["scb1"]
+    sca1, t_ids = gate["sca1"], gate["t_ids"]
+    res = {}
+
+    def resident_windows(s, tensor, halo, L_blk):
+        ext, idx, _, _ = s._sparse_filter_device(tensor, None, halo, L_blk)
+        return ext, idx
+
+    def elided(s, arr, lut, halo, L_blk):
+        if lut is None:
+            live = sparse.live_blocks(arr, L_blk)
+        else:
+            live = sparse.raw_live_blocks(arr, lut[0], lut[1], L_blk)[0]
+        tm, idx = sparse.elide_windows(arr, lut, len(arr), live,
+                                       int(live.sum()), None, halo, L_blk,
+                                       len(live))
+        return s._snap.place(tm), s._snap.place(idx.astype(np.int32))
+
+    raw = np.frombuffer(state["text"], np.uint8)
+    hunt_t = torch.from_numpy(state["hunt_ids"]).to("cuda")
+    ent = sc._get_lut("byte")
+    hunt_lut = (ent[3], ent[1])
+
+    def stepped_args(s):
+        k, _, L_blk = s._sparse_geometry()
+        return (s._snap.packed, s._stepped.V, k, s._stepped.count_bits,
+                s._halo_steps, L_blk)
+
+    # K7 stepped: the hunt's k-gram windows hold its matches
+    k, halo, L_blk = sc._sparse_geometry()
+    hunt_tm, _ = elided(sc, raw, hunt_lut, halo, L_blk)
+    hunt_ext_k, hunt_idx_k = resident_windows(sc, hunt_t, halo, L_blk)
+    res["ac_sparse_count_stepped"] = compare(
+        "ac_sparse_count_stepped", sparse.sparse_count_stepped,
+        sparse.sparse_count_stepped_plain, stepped_args(sc),
+        {"elided (a)": (hunt_tm, None),
+         "idx (a) tensor": (hunt_ext_k, hunt_idx_k)},
+        f"windows {tuple(hunt_tm.shape)}, cap={hunt_idx_k.numel()} k={k}",
+        hits=True)
+    kb, halob, L_b = scb._sparse_geometry()
+    ext_b, idx_b = resident_windows(scb, state["tensor"], halob, L_b)
+    res["ac_sparse_count_stepped"].update(compare(
+        "ac_sparse_count_stepped", sparse.sparse_count_stepped,
+        sparse.sparse_count_stepped_plain, stepped_args(scb),
+        {"idx (b) 1e-3": (ext_b, idx_b)}, f"cap={idx_b.numel()} k={kb}"))
+
+    # K7 dense and K8 windows: the hunt's 1-char windows hold its matches
+    hunt_hits_tm, hunt_hits_idx = elided(sc, raw, hunt_lut, sc.halo, 128)
+    hunt_ext, hunt_idx = resident_windows(sc, hunt_t, sc.halo, 128)
+    hunt_args = (sc._snap.dflat, sc._snap.nb_out, sc.V, sc.halo, 128)
+    hunt_shape = (f"windows {tuple(hunt_hits_tm.shape)}, "
+                  f"cap={hunt_idx.numel()}")
+    res["ac_sparse_count"] = compare(
+        "ac_sparse_count", sparse.sparse_count, sparse.sparse_count_plain,
+        hunt_args, {"elided (a)": (hunt_hits_tm, None),
+                    "idx (a) tensor": (hunt_ext, hunt_idx)},
+        hunt_shape, hits=True)
+    snap1 = scb1._snap
+    ext1, idx1 = resident_windows(scb1, state["tensor"], scb1.halo, 128)
+    tm1, tm1_idx = elided(scb1, state["corpora"][1e-3], None, scb1.halo, 128)
+    dense_args = (snap1.dflat, snap1.nb_out, scb1.V, scb1.halo, 128)
+    res["ac_sparse_count"].update(compare(
+        "ac_sparse_count", sparse.sparse_count, sparse.sparse_count_plain,
+        dense_args, {"idx (b) 1e-3": (ext1, idx1),
+                     "elided (b) 1e-3": (tm1, None)},
+        f"cap={idx1.numel()} / windows {tuple(tm1.shape)}"))
+
+    def hits_of(fn):
+        def run(*a):
+            pos, sts, n_hits, n_pos = fn(*a)
+            return pos, sts, torch.tensor([n_hits, n_pos])
+        return run
+
+    res["ac_window_hits"] = compare(
+        "ac_window_hits", hits_of(hits.window_hits),
+        hits_of(hits.window_hits_plain), hunt_args,
+        {"elided (a)": (hunt_hits_tm, hunt_hits_idx),
+         "idx (a) tensor": (hunt_ext, hunt_idx)}, hunt_shape, hits=True)
+    res["ac_window_hits"].update(compare(
+        "ac_window_hits", hits_of(hits.window_hits),
+        hits_of(hits.window_hits_plain), dense_args,
+        {"idx (b) 1e-3": (ext1, idx1), "elided (b) 1e-3": (tm1, tm1_idx)},
+        f"cap={idx1.numel()}"))
+    slice_raw = np.frombuffer(text, np.uint8)
+    ext_raw, head_ids, B, L, T = sca1._stream_ext_raw(slice_raw, None,
+                                                      sca1.halo, 128)
+    ext_ids = sca1._ext_device(t_ids, None, sca1.halo, 128)[0]
+    lut = sca1._get_lut("byte")[0]
+    s1 = sca1._snap
+    res["ac_dense_hits"] = compare(
+        "ac_dense_hits", hits_of(hits.dense_hits),
+        hits_of(hits.dense_hits_plain),
+        (s1.dflat, s1.nb_out, sca1.V, sca1.halo, B, L),
+        {"raw_u8": (ext_raw, lut, head_ids), "ids_i32": (ext_ids, None, None)},
+        f"B={B} L={L} (the slice, step_k=1)", hits=True)
+    res["ac_dense_states/seq"] = compare(
+        "ac_dense_states/seq", scan_dense.sequential_states,
+        scan_dense.sequential_states_plain, (s1.dflat, sca1.V),
+        {"ids_i32": (t_ids[:SEQ_SYMBOLS].contiguous(),)}, f"T={SEQ_SYMBOLS}")
+    tm = ext_ids[sca1.halo:].view(B, L).t().contiguous()
+    res["ac_dense_states_tm"] = compare(
+        "ac_dense_states_tm", scan_dense.blocked_states,
+        scan_dense.blocked_states_plain, (s1.dflat, sca1.V),
+        {"ids_i32": (tm,)}, f"[L, B] = [{L}, {B}]")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -577,12 +1032,23 @@ def main() -> int:
     # 8. refresh at bench_refresh.py's shape
     phase_refresh(act, build)
 
+    # 9. the sparse prefilter: (a)-(b), (c) the auto gate, (d) kernels
+    state, sparse_launches = phase_sparse(act, build)
+    launches.update({e: sparse_launches.get(e, 0) for e in (
+        "ac_sparse_count", "ac_sparse_count_stepped", "ac_window_hits",
+        "ac_dense_states/seq", "ac_dense_states_tm")})
+    gate = phase_gate(build, machine, text, n, ms.ends)
+    launches["ac_dense_hits"] = gate["launches"]["ac_dense_hits"]
+    kern.update(phase_sparse_kernels(state, gate, text))
+
+    def first(entry, key):
+        return next(iter(kern[entry].values()))[key]
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[entry],
          "max_abs_err": max(r["max_abs_err"] for r in kern[entry].values()),
-         "ms": kern[entry]["raw_u8"]["ms"],
-         "plain_ms": kern[entry]["raw_u8"]["plain_ms"]}
+         "ms": first(entry, "ms"), "plain_ms": first(entry, "plain_ms")}
         for entry, (name, src, rep) in KERNELS.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The CUDA kernels' per-thread code, run on the CPU.
 
-csrc/ac_scan.cuh holds everything one CUDA thread of K1-K6 computes. The
+csrc/ac_scan.cuh holds everything one CUDA thread of K1-K8 computes. The
 host shim csrc/ac_scan_host.cpp compiles it with g++ behind the kernels'
 own C entry points, so the logic the H100 runs is checked here against the
 plain PyTorch versions, with exact equality: k in {1, 2, 3}, a halo longer
@@ -8,6 +8,11 @@ than a stream, raw uint8 and int32 inputs with non-zero head_ids. The
 count_many bodies (K5, K6) are also held, column by column, against the
 JAX package's count over ``split_docs_layout`` and, document by document,
 against its ``make_stepped_count_many`` / ``make_blocked_count_many``.
+The prefilter's bodies, K7 (window counts over an index list and over
+host-elided windows) and K8 (the bounded hits of streams and windows, both
+passes into buffers of exactly the hit count), and K2's one-thread and
+time-major modes are held against the JAX package's ``ops/sparse.py``,
+``ops/hits.py`` and ``ops/scan_xla.py`` functions.
 """
 
 import ctypes
@@ -19,9 +24,12 @@ import pytest
 import torch
 
 import torch_cases as tc
+from aho_corasick_1975_tpu.ops import hits as jhits
 from aho_corasick_1975_tpu.ops import multistep as jms
 from aho_corasick_1975_tpu.ops import scan_xla as jxla
-from aho_corasick_1975_tpu_torch.ops import build, hits, multistep, scan_dense
+from aho_corasick_1975_tpu.ops import sparse as jsp
+from aho_corasick_1975_tpu_torch.ops import (build, hits, multistep,
+                                             scan_dense, sparse)
 
 B = tc.B
 SHAPES = {"halo": (5, 24), "long_halo": (9, 4)}
@@ -177,3 +185,144 @@ def test_dense_count_many_kernel(lib, kind, c):
     np.testing.assert_array_equal(out.numpy(), per_col)
     np.testing.assert_array_equal(
         out.view(c, -1).sum(dim=0, dtype=torch.int64).numpy(), per_doc)
+
+
+# -- K7, K8 and the K2 modes --------------------------------------------------
+
+def _win_fields(s, form, L_blk):
+    """Launch fields of one window source of tc.sparse's case s."""
+    if form == "idx":
+        src, idx = _t(s["ext"]), _t(s["idx"])
+    else:
+        src, idx = _t(s["tm"]), _t(s["tm_idx"])
+    fields = sparse.window_fields(L_blk, src, idx)
+    fields.pop("form")
+    return src, idx, fields
+
+
+@pytest.mark.parametrize("form", ["idx", "elided"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_sparse_count_kernels(lib, k, form):
+    """K7's bodies (stepped; dense at k = 1) over both window sources,
+    against the JAX sparse count and the JAX count of the elided
+    windows."""
+    tab = tc.tables(k)
+    V, cb, L_blk = tab["V"], tab["count_bits"], tc.L_BLK[k]
+    hs = -(-5 // k)
+    s = tc.sparse(tab, hs * k, L_blk)
+    src, idx, fields = _win_fields(s, form, L_blk)
+    out = torch.full((fields["B"],), -7, dtype=torch.int32)
+    _run(lib, "ac_sparse_count_stepped", table=_t(tab["packed"]), out=out,
+         L=L_blk, Vk=V ** k, V=V, halo=hs * k, k=k, count_bits=cb, **fields)
+    if form == "idx":
+        want = jsp.make_sparse_count_stepped(V, k, V ** k, cb, hs, L_blk,
+                                             s["nB"], len(s["idx"]))(
+            jnp.asarray(tab["packed"]), jnp.asarray(s["ext"]),
+            jnp.asarray(s["idx"]))
+    else:
+        want = jms.make_stepped_count(V, k, V ** k, cb, hs)(
+            jnp.asarray(tab["packed"]), jnp.asarray(s["tm"]))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+    assert int(out.sum()) > 0
+    if k > 1:
+        return
+    halo = hs
+    dense = torch.full((fields["B"],), -7, dtype=torch.int32)
+    _run(lib, "ac_sparse_count", table=_t(tab["dflat"]),
+         nb_out=_t(tab["nb_out"]), out=dense, L=L_blk, V=V, halo=halo,
+         **fields)
+    jt = (jnp.asarray(tab["dflat"]), jnp.asarray(tab["nb_out"]))
+    if form == "idx":
+        want = jsp.make_sparse_count(V, halo, L_blk, s["nB"], 8)(
+            *jt, jnp.asarray(s["ext"]), jnp.asarray(s["idx"]))
+    else:
+        want = jxla.make_blocked_count(V, halo)(*jt, jnp.asarray(s["tm"]))
+    np.testing.assert_array_equal(dense.numpy(), np.asarray(want))
+    assert torch.equal(dense, sparse.sparse_count_plain(
+        _t(tab["dflat"]), _t(tab["nb_out"]), V, halo, L_blk, src,
+        idx if form == "idx" else None))
+
+
+def _hits_two_pass(lib, name, n_cols, **fields):
+    """Both K8 passes through the g++ build: pass 1's per-column counts,
+    then pass 2 into buffers of exactly n_hit_pos entries plus a sentinel
+    slot that must stay untouched."""
+    n_hits = torch.full((n_cols,), -7, dtype=torch.int32)
+    n_pos = torch.full((n_cols,), -7, dtype=torch.int32)
+    _run(lib, name, n_hits=n_hits, n_live=n_pos, **fields)
+    total = int(n_pos.sum())
+    pos = torch.full((total + 1,), -7, dtype=torch.int32)
+    st = torch.full((total + 1,), -7, dtype=torch.int32)
+    off = torch.cumsum(n_pos, 0, dtype=torch.int64) - n_pos
+    _run(lib, name, hit_pos=pos, hit_state=st, hit_off=off, **fields)
+    assert int(pos[-1]) == int(st[-1]) == -7
+    return pos[:-1], st[:-1], int(n_hits.sum(dtype=torch.int64)), total
+
+
+@pytest.mark.parametrize("form", ["idx", "elided", "elided_raw"])
+def test_window_hits_kernel(lib, form):
+    """K8's window body against make_sparse_hits / make_elided_hits."""
+    tab = tc.tables(1)
+    V, L_blk, halo = tab["V"], 16, 5
+    s = tc.sparse(tab, halo, L_blk, "raw_u8" if form == "elided_raw"
+                  else "ids")
+    src, idx, fields = _win_fields(s, "idx" if form == "idx" else "elided",
+                                   L_blk)
+    jt = (jnp.asarray(tab["dflat"]), jnp.asarray(tab["nb_out"]))
+    got = _hits_two_pass(lib, "ac_window_hits", fields.pop("B"),
+                         table=_t(tab["dflat"]), nb_out=_t(tab["nb_out"]),
+                         L=L_blk, B=idx.numel(), V=V, halo=halo, **fields)
+    if form == "idx":
+        want = jsp.make_sparse_hits(V, halo, L_blk, s["nB"], 8, 512)(
+            *jt, jnp.asarray(s["ext"]), jnp.asarray(s["idx"]))
+    else:
+        want = jsp.make_elided_hits(V, halo, L_blk, 512)(
+            *jt, jnp.asarray(s["tm"]), jnp.asarray(s["tm_idx"]))
+    tc.same_hits(got, want)
+    plain = hits.window_hits_plain(_t(tab["dflat"]), _t(tab["nb_out"]), V,
+                                   halo, L_blk, src, idx)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("kind", tc.KINDS)
+def test_dense_hits_kernel(lib, kind, shape):
+    """K8's stream body (ids, raw bytes, raw int32 past the LUT's end)
+    against make_blocked_hits_stream / _raw."""
+    tab = tc.tables(1)
+    halo, L = SHAPES[shape]
+    s = tc.stream(tab, kind, halo, L)
+    V = tab["V"]
+    got = _hits_two_pass(lib, "ac_dense_hits", B, table=_t(tab["dflat"]),
+                         nb_out=_t(tab["nb_out"]), **_common(s, halo, L, V))
+    jt = (jnp.asarray(tab["dflat"]), jnp.asarray(tab["nb_out"]))
+    if s["lut"] is None:
+        want = jhits.make_blocked_hits_stream(V, halo, 4096, B, L)(
+            *jt, jnp.asarray(s["ext"]))
+    else:
+        want = jhits.make_blocked_hits_raw(V, halo, 4096, B, L)(
+            *jt, jnp.asarray(s["lut"]), jnp.asarray(s["ext"]),
+            jnp.asarray(s["head_ids"]))
+    tc.same_hits(got, want)
+
+
+def test_k2_mode_kernels(lib):
+    """K2 in one thread (make_sequential_scan) and over a time-major
+    batch (make_blocked_scan)."""
+    tab = tc.tables(1)
+    V, dflat = tab["V"], _t(tab["dflat"])
+    ids = tc.stream(tab, "ids", 0, 40)["ext"]
+    out = torch.full((len(ids),), -7, dtype=torch.int32)
+    _run(lib, "ac_dense_states", table=dflat, ext=_t(ids), out=out,
+         L=len(ids), B=1, V=V, halo=0)
+    _, want = jxla.make_sequential_scan(V)(jnp.asarray(tab["dflat"]),
+                                          jnp.asarray(ids), jnp.int32(0))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+    tm = tc.batch(tab, "ids", 37, n_docs=5)["tm"]
+    out = torch.full(tm.shape, -7, dtype=torch.int32)
+    _run(lib, "ac_dense_states_tm", table=dflat, ext=_t(tm), out=out,
+         L=tm.shape[0], B=tm.shape[1], V=V, halo=0, doc_len=tm.shape[0],
+         n_docs=tm.shape[1])
+    np.testing.assert_array_equal(out.numpy(), np.asarray(
+        jxla.make_blocked_scan(V)(jnp.asarray(tab["dflat"]),
+                                  jnp.asarray(tm))))

@@ -3,7 +3,9 @@
 A fresh interpreter blocks every ``jax``/``jaxlib`` import with a meta-path
 finder, imports ``aho_corasick_1975_tpu_torch`` and runs on the CPU the
 golden flow, then a ByteMachine through save_machine/load_machine, a
-session, count_many (raw bytes and a resident tensor) and refresh().
+session, count_many (raw bytes and a resident tensor), refresh(), and a
+prefilter scanner's count and find_matches (raw bytes, host ids and a
+tensor) and scan_states_sequential.
 """
 
 import os
@@ -63,6 +65,17 @@ SCRIPT = textwrap.dedent("""
     bm.insert_keyword(b"us")
     assert sc.refresh() is True
     assert sc.count(data) == 10
+    sparse_text = bytes(5000) + data + bytes(3000)
+    for step_k in ("auto", 1):
+        sp = bm.scanner(device="cpu", n_streams=4, prefilter="on",
+                        step_k=step_k)
+        ids = sp.encode(sparse_text)
+        for signs in (sparse_text, ids, torch.from_numpy(ids)):
+            assert sp.count(signs) == 10
+            assert len(sp.find_matches(signs)) == 10
+            assert sp.stats["last_op"] == "find_matches_sparse"
+        assert len(sp.find_matches(sparse_text, max_hits=16)) == 10
+        assert sp.scan_states_sequential(data).shape == (len(data),)
     loaded = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib",
                                            "aho_corasick_1975_tpu"))

@@ -223,7 +223,6 @@ def test_tables_carried_from_jax_equal_own():
 def test_unported_options_raise():
     m = _machine()
     for kw in (dict(engine="mxu"), dict(engine="hybrid"),
-               dict(prefilter="on"), dict(prefilter="auto"),
                dict(calibrate=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DenseScanner(m, device="cpu", **kw)

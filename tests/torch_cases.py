@@ -1,7 +1,7 @@
 """Seeded inputs shared by the port's op tests (tests/test_torch_ops.py,
 tests/test_torch_kernel_body.py): automaton tables from the port's own
-snapshot, and stream buffers and count_many batches made with numpy, at
-small sizes."""
+snapshot, and stream buffers, count_many batches and the prefilter's
+mostly-OOV streams made with numpy, at small sizes."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import numpy as np
 from aho_corasick_1975_tpu_torch import Machine
 from aho_corasick_1975_tpu_torch.models.snapshot import DeviceSnapshot
 from aho_corasick_1975_tpu_torch.ops.multistep import build_stepped, pack
+from aho_corasick_1975_tpu_torch.ops.sparse import elide_windows
 
 KINDS = ("ids", "raw_u8", "raw_i32")
 B = 8
@@ -75,3 +76,57 @@ def batch(tab: dict, kind: str, L: int, n_docs: int = 4, seed: int = 2
         tm = rng.choice(np.array([97, 98, 99, 100, 0, 120, 255, 256, 4000],
                                  np.int32), (L, n_docs))
     return dict(tm=tm, lut=tab["byte_lut"])
+
+
+# Window blocks of the prefilter's op tests per k (multiples of k), and
+# the live blocks of its streams: block 0 (so the head is read),
+# neighbours (a halo from a live block) and the last real block.
+L_BLK = {1: 16, 2: 16, 3: 24}
+LIVE = (0, 3, 4, 9, 11)
+N_BLOCKS = 12
+
+
+def sparse(tab: dict, halo: int, L_blk: int, kind: str = "ids",
+           seed: int = 3) -> dict:
+    """A mostly-OOV stream of N_BLOCKS blocks of L_blk for the window
+    scans, keyword letters only in the blocks LIVE, in both window
+    sources: ext [halo + (nB+1)*L_blk] int32 ids (non-zero head ids in
+    front, one all-OOV spare block at the end) with idx [cap] int32 (the
+    live blocks, then pad slots at the spare block nB), and the
+    host-elided windows tm [halo + L_blk, cap] of the same stream with
+    their int32 block indices tm_idx. ``kind`` "raw_u8" elides from raw
+    bytes through the byte LUT."""
+    rng = np.random.default_rng(seed)
+    nB, T = N_BLOCKS, N_BLOCKS * L_blk
+    head = rng.integers(1, tab["V"], halo).astype(np.int32)
+    raw = np.zeros(T, np.uint8)
+    for b in LIVE:
+        seg = rng.choice(np.frombuffer(b"abcdabcdxy\0", np.uint8), L_blk)
+        raw[b * L_blk:(b + 1) * L_blk] = seg * (rng.random(L_blk) < 0.7)
+    ids = tab["byte_lut"][raw]
+    ext = np.zeros(halo + (nB + 1) * L_blk, np.int32)
+    ext[:halo] = head
+    ext[halo:halo + T] = ids
+    live = np.zeros(nB, bool)
+    live[list(LIVE)] = True
+    idx = np.full(8, nB, np.int32)
+    idx[:len(LIVE)] = LIVE
+    arr, lut = (ids, None) if kind == "ids" else (raw, (tab["byte_lut"], 256))
+    tm, tm_idx = elide_windows(arr, lut, T, live, len(LIVE), head, halo,
+                               L_blk, nB)
+    return dict(ext=ext, idx=idx, nB=nB, T=T, ids=ids, raw=raw, head=head,
+                live=live, tm=tm, tm_idx=tm_idx.astype(np.int32))
+
+
+def same_hits(got, want) -> None:
+    """K8's exact-size outputs (positions, states, n_hits, n_hit_pos)
+    against the JAX package's -1 padded max_hits buffers (positions,
+    states, n_hits, n_hit_pos)."""
+    positions, states, n_hits, n_hit_pos = got
+    j_pos, j_st = np.asarray(want[0]), np.asarray(want[1])
+    valid = j_pos >= 0
+    assert str(positions.dtype) == str(states.dtype) == "torch.int32"
+    assert positions.numel() == n_hit_pos == int(want[3]) == valid.sum() > 0
+    np.testing.assert_array_equal(positions.numpy(), j_pos[valid])
+    np.testing.assert_array_equal(states.numpy(), j_st[valid])
+    assert n_hits == int(want[2])
