@@ -1,7 +1,9 @@
 // Per-stream automaton scans shared by the CUDA kernels (dense_scan.cu,
-// stepped_scan.cu, sparse_scan.cu) and the g++ host shim (ac_scan_host.cpp)
-// that the CPU tests run: one function per kernel, computing everything one
-// stream (one CUDA thread) does.
+// stepped_scan.cu, sparse_scan.cu, mxu_scan.cu) and the g++ host shim
+// (ac_scan_host.cpp) that the CPU tests run: one function per kernel,
+// computing everything one stream (one CUDA thread) does; for the MXU
+// engine (K10, K11's MMA half), everything one warp of 16 streams does,
+// with the tensor-core instruction emulated lane by lane on the host.
 //
 // Layout: B streams of L symbols each over a contiguous ext buffer of
 // halo + B*L symbols. Window row t of stream b (t in [0, halo + L)) is
@@ -71,6 +73,14 @@ struct AcScanArgs {
   int32_t* hit_pos;         // positions
   int32_t* hit_state;       // states after the symbol at each position
   const int64_t* hit_off;   // [B] first slot of each column
+  // K9: cnt_k [cap*V^k], the k-gram counts beside table = delta_k.
+  const int32_t* table2;
+  // K10, K11's MMA half: planes int8 [S_pad, n_planes*V], row-major
+  // (ops/scan_mxu.py:build_planes), and the count bits of their words.
+  const int8_t* planes;
+  int32_t S_pad, n_planes, count_bits_m;
+  int32_t B1;               // K11: columns [0, B1) gather, [B1, B) MMA
+  int32_t layout;           // K9, K10: 0 stream, 1 batch (tm), 2 windows
 };
 
 // Letter id of one symbol: raw symbols translate through the LUT with the
@@ -276,39 +286,92 @@ AC_HD void ac_window_hits_column(const AcScanArgs& a, int64_t column) {
                      (int64_t)a.idx[column] * a.L);
 }
 
-// K3 (ops/multistep.py:stepped_count_core) and K5
-// (ops/multistep.py:_stepped_count_many_body): one gather of the packed
-// (next_state << count_bits) | gram_count table per k symbols. The table
-// index is 64-bit: s*V^k can pass 2^31 where JAX's int32 would wrap.
-template <typename Syms>
-AC_HD int32_t ac_stepped_count_body(const AcScanArgs& a, const Syms& sym) {
-  const uint32_t mask = (1u << a.count_bits) - 1u;
+// The k-gram tables of the stepped count: one packed word
+// (next_state << count_bits) | gram_count per (state, gram), or, where
+// (state, count) need more than 31 bits, two tables delta_k and cnt_k.
+struct AcPackedTable {
+  const int32_t* word;
+  int32_t count_bits;
+
+  AC_HD int32_t next(int64_t i, uint32_t* count) const {
+    const int32_t v = word[i];
+    *count = (uint32_t)v & ((1u << count_bits) - 1u);
+    return v >> count_bits;
+  }
+};
+
+struct AcTwoTables {
+  const int32_t* delta_k;
+  const int32_t* cnt_k;
+
+  AC_HD int32_t next(int64_t i, uint32_t* count) const {
+    *count = (uint32_t)cnt_k[i];
+    return delta_k[i];
+  }
+};
+
+AC_HD AcPackedTable ac_packed(const AcScanArgs& a) {
+  AcPackedTable t;
+  t.word = a.table;
+  t.count_bits = a.count_bits;
+  return t;
+}
+
+AC_HD AcTwoTables ac_two_tables(const AcScanArgs& a) {
+  AcTwoTables t;
+  t.delta_k = a.table;
+  t.cnt_k = a.table2;
+  return t;
+}
+
+// K3 (ops/multistep.py:stepped_count_core), K5
+// (ops/multistep.py:_stepped_count_many_body) and K9
+// (make_stepped_count_unpacked[_stream]): one table step per k symbols,
+// counted past the halo grams. The table index is 64-bit: s*V^k can pass
+// 2^31 where JAX's int32 would wrap.
+template <typename Syms, typename Table>
+AC_HD int32_t ac_stepped_count_body(const AcScanArgs& a, const Syms& sym,
+                                    const Table& table) {
   const int64_t halo_steps = a.halo / a.k, n_steps = halo_steps + a.L / a.k;
   int32_t s = 0;
   uint32_t tot = 0;
   for (int64_t j = 0; j < n_steps; ++j) {
-    const int32_t v = a.table[(int64_t)s * a.Vk + ac_gram(sym, j * a.k, a.V, a.k)];
-    s = v >> a.count_bits;
-    if (j >= halo_steps) tot += (uint32_t)v & mask;
+    uint32_t c;
+    s = table.next((int64_t)s * a.Vk + ac_gram(sym, j * a.k, a.V, a.k), &c);
+    if (j >= halo_steps) tot += c;
   }
   return (int32_t)tot;
 }
 
 template <typename T>
 AC_HD void ac_stepped_count_stream(const AcScanArgs& a, int64_t b) {
-  a.out[b] = ac_stepped_count_body(a, ac_syms<T>(a, b));
+  a.out[b] = ac_stepped_count_body(a, ac_syms<T>(a, b), ac_packed(a));
 }
 
 template <typename T>
 AC_HD void ac_stepped_count_many_column(const AcScanArgs& a, int64_t column) {
-  a.out[column] = ac_stepped_count_body(a, ac_batch_syms<T>(a, column));
+  a.out[column] = ac_stepped_count_body(a, ac_batch_syms<T>(a, column),
+                                        ac_packed(a));
+}
+
+// K9 stream form (ids or raw) and batch form (count_many's [L, B] ids,
+// every column from the root).
+template <typename T>
+AC_HD void ac_stepped_count_2t_stream(const AcScanArgs& a, int64_t b) {
+  a.out[b] = ac_stepped_count_body(a, ac_syms<T>(a, b), ac_two_tables(a));
+}
+
+AC_HD void ac_stepped_count_2t_column(const AcScanArgs& a, int64_t column) {
+  a.out[column] = ac_stepped_count_body(a, ac_batch_syms<int32_t>(a, column),
+                                        ac_two_tables(a));
 }
 
 // K7 stepped (ops/sparse.py:make_sparse_count_stepped / _dev, and the
 // elided stepped count): K3's recurrence over one live-block window.
 AC_HD void ac_sparse_count_stepped_column(const AcScanArgs& a,
                                           int64_t column) {
-  a.out[column] = ac_stepped_count_body(a, ac_win_syms(a, column));
+  a.out[column] = ac_stepped_count_body(a, ac_win_syms(a, column),
+                                        ac_packed(a));
 }
 
 // K4 (ops/hits.py:_stepped_emit_scan): the K3 recurrence, writing per body
@@ -336,4 +399,267 @@ AC_HD void ac_stepped_emit_stream(const AcScanArgs& a, int64_t b) {
   }
   a.n_hits[b] = (int32_t)hits;
   a.n_live[b] = live;
+}
+
+// ---------------------------------------------------------------------------
+// K10 (ops/scan_mxu.py:mxu_count_core) and K11's MMA half
+// (ops/scan_hybrid.py:hybrid_count_core): the automaton step as an int8
+// tensor-core product. Row r of a warp's 16-row tile is stream (or batch
+// column, or window) col0 + r; A is the one-hot of the 16 current states,
+// B a 32-state by 8-column tile of the digit planes, and D = A x B holds,
+// in row r, the planes' row of state s_r. The step then selects, for each
+// plane p, column p*V + c_r of row r (the select-reduce of
+// mxu_count_core), e = sum_p digit_p << 7p, counts e & mask past the halo
+// and moves to e >> count_bits_m.
+//
+// A one-hot row is zero outside the 32-state tile that holds its state,
+// so a step multiplies only the tiles that hold one of the 16 states, and
+// of each only the 8-column tiles that hold a wanted column: the product
+// the engine computes, without its all-zero tiles. Every choice of tile is
+// made identically by all 32 lanes from the warp's shared state, so the
+// warp stays converged through mma.sync.
+
+// Fragment index functions of mma.sync.aligned.m16n8k32.row.col.s32.s8.
+// s8.s32 (PTX ISA, "Matrix Fragments for mma.m16n8k32"): for lane l, with
+// groupID g = l >> 2 and threadID_in_group q = l & 3, element i of its A
+// fragment (16 int8 in 4 registers, byte i & 3 of register i >> 2), of its
+// B fragment (8 int8 in 2 registers) and of its C/D fragment (4 int32).
+AC_HD int ac_frag_a_row(int lane, int i) {
+  return (lane >> 2) + 8 * ((i >> 2) & 1);
+}
+AC_HD int ac_frag_a_col(int lane, int i) {
+  return 4 * (lane & 3) + (i & 3) + 16 * (i >> 3);
+}
+AC_HD int ac_frag_b_row(int lane, int i) {
+  return 4 * (lane & 3) + (i & 3) + 16 * (i >> 2);
+}
+AC_HD int ac_frag_b_col(int lane, int i) {
+  (void)i;
+  return lane >> 2;
+}
+AC_HD int ac_frag_c_row(int lane, int i) {
+  return (lane >> 2) + 8 * (i >> 1);
+}
+AC_HD int ac_frag_c_col(int lane, int i) {
+  return 2 * (lane & 3) + (i & 1);
+}
+
+// A warp's state, in shared memory on the card.
+struct AcMxuWarp {
+  int32_t s[16];      // state of row r's stream; -1: the row has none
+  int32_t sym[16];    // row r's letter id at this step
+  int32_t e[16][4];   // digit p of row r's word, taken from D
+};
+
+// Per-lane code runs once per lane on the card and for all 32 lanes in
+// turn on the host; per-row code (r < 16) on lane r on the card and for
+// every row on the host. Each lane's fragments live in slot
+// AC_SLOT(lane) of a small array, the rows' own values in AC_SLOT(r).
+#if defined(__CUDA_ARCH__)
+#define AC_LANE_SLOTS 1
+#define AC_ROW_SLOTS 1
+#define AC_SLOT(i) 0
+#define AC_FOR_LANES(l, lane) for (int l = (lane); l == (lane); l += 64)
+#define AC_FOR_ROWS(r, lane) \
+  for (int r = (lane); r < 16 && r == (lane); r += 64)
+#define AC_SYNCWARP() __syncwarp()
+#else
+#define AC_LANE_SLOTS 32
+#define AC_ROW_SLOTS 16
+#define AC_SLOT(i) (i)
+#define AC_FOR_LANES(l, lane) for (int l = 0; l < 32; ++l)
+#define AC_FOR_ROWS(r, lane) for (int r = 0; r < 16; ++r)
+#define AC_SYNCWARP()
+#endif
+
+// Lane l's A fragment for the states k0 .. k0+31: 1 where its row's state
+// is its column's.
+AC_HD void ac_mxu_frag_a(const AcMxuWarp& w, int lane, int32_t k0,
+                         uint32_t a[4]) {
+  for (int reg = 0; reg < 4; ++reg) {
+    uint32_t v = 0;
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * reg + j;
+      const int32_t hit = w.s[ac_frag_a_row(lane, i)] == k0 + ac_frag_a_col(lane, i);
+      v |= (uint32_t)hit << (8 * j);
+    }
+    a[reg] = v;
+  }
+}
+
+// Lane l's B fragment: planes[k0 + k][n0 + n], 0 past the planes' columns.
+AC_HD void ac_mxu_frag_b(const AcScanArgs& a, int lane, int32_t k0,
+                         int32_t n0, uint32_t b[2]) {
+  const int64_t n_cols = (int64_t)a.n_planes * a.V;
+  const int64_t n = n0 + ac_frag_b_col(lane, 0);
+  for (int reg = 0; reg < 2; ++reg) {
+    uint32_t v = 0;
+    for (int j = 0; j < 4; ++j) {
+      const int64_t k = k0 + ac_frag_b_row(lane, 4 * reg + j);
+      const uint32_t d = n < n_cols ? (uint8_t)a.planes[k * n_cols + n] : 0u;
+      v |= d << (8 * j);
+    }
+    b[reg] = v;
+  }
+}
+
+// Lane l's share of the select: of its D elements, those in a row of
+// `rows` whose column is the row's wanted column of plane p.
+AC_HD void ac_mxu_take(AcMxuWarp& w, const AcScanArgs& a, int lane,
+                       int32_t n0, int p, uint32_t rows, const int32_t d[4]) {
+  for (int i = 0; i < 4; ++i) {
+    const int r = ac_frag_c_row(lane, i);
+    if (((rows >> r) & 1u) && n0 + ac_frag_c_col(lane, i) == p * a.V + w.sym[r])
+      w.e[r][p] = d[i];
+  }
+}
+
+#if defined(__CUDA_ARCH__)
+__device__ __forceinline__ void ac_warp_mma(const uint32_t a[1][4],
+                                            const uint32_t b[1][2],
+                                            int32_t d[1][4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=r"(d[0][0]), "=r"(d[0][1]), "=r"(d[0][2]), "=r"(d[0][3])
+      : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+        "r"(b[0][0]), "r"(b[0][1]), "r"(0), "r"(0), "r"(0), "r"(0));
+}
+#else
+// The warp's mma.sync on the host: assemble A [16 x 32] and B [32 x 8]
+// from the 32 lanes' fragments by the index functions above, multiply in
+// int32, and hand each lane its D elements.
+inline void ac_warp_mma(const uint32_t a[32][4], const uint32_t b[32][2],
+                        int32_t d[32][4]) {
+  int32_t A[16][32], B[32][8];
+  for (int l = 0; l < 32; ++l) {
+    for (int i = 0; i < 16; ++i)
+      A[ac_frag_a_row(l, i)][ac_frag_a_col(l, i)] =
+          (int8_t)(a[l][i >> 2] >> (8 * (i & 3)));
+    for (int i = 0; i < 8; ++i)
+      B[ac_frag_b_row(l, i)][ac_frag_b_col(l, i)] =
+          (int8_t)(b[l][i >> 2] >> (8 * (i & 3)));
+  }
+  for (int l = 0; l < 32; ++l)
+    for (int i = 0; i < 4; ++i) {
+      int32_t acc = 0;
+      for (int k = 0; k < 32; ++k)
+        acc += A[ac_frag_c_row(l, i)][k] * B[k][ac_frag_c_col(l, i)];
+      d[l][i] = acc;
+    }
+}
+#endif
+
+// One tile product: the one-hot of the states in k0 .. k0+31 times the
+// planes' columns n0 .. n0+7, and the select of plane p's wanted columns
+// for the rows `rows`.
+AC_HD void ac_mxu_tile(const AcScanArgs& a, AcMxuWarp& w, int lane,
+                       int32_t k0, int32_t n0, int p, uint32_t rows) {
+  (void)lane;  // the host runs every lane
+  uint32_t fa[AC_LANE_SLOTS][4], fb[AC_LANE_SLOTS][2];
+  int32_t fd[AC_LANE_SLOTS][4];
+  AC_FOR_LANES(l, lane) {
+    ac_mxu_frag_a(w, l, k0, fa[AC_SLOT(l)]);
+    ac_mxu_frag_b(a, l, k0, n0, fb[AC_SLOT(l)]);
+  }
+  ac_warp_mma(fa, fb, fd);
+  AC_FOR_LANES(l, lane) ac_mxu_take(w, a, l, n0, p, rows, fd[AC_SLOT(l)]);
+}
+
+// The symbol accessors of the three layouts, as types.
+template <typename T>
+struct AcStreamLayout {
+  typedef AcSyms<T> Syms;
+  AC_HD static Syms make(const AcScanArgs& a, int64_t c) {
+    return ac_syms<T>(a, c);
+  }
+};
+
+template <typename T>
+struct AcBatchLayout {
+  typedef AcBatchSyms<T> Syms;
+  AC_HD static Syms make(const AcScanArgs& a, int64_t c) {
+    return ac_batch_syms<T>(a, c);
+  }
+};
+
+struct AcWinLayout {
+  typedef AcWinSyms Syms;
+  AC_HD static Syms make(const AcScanArgs& a, int64_t c) {
+    return ac_win_syms(a, c);
+  }
+};
+
+// Smallest of f(r) >> shift over the rows of `rows`, and the rows that
+// share it.
+AC_HD int32_t ac_min_tile(const int32_t* v, int32_t add, int shift,
+                          uint32_t rows, uint32_t* same) {
+  int32_t best = 0x7fffffff;
+  for (int r = 0; r < 16; ++r)
+    if ((rows >> r) & 1u) {
+      const int32_t t = (v[r] + add) >> shift;
+      best = t < best ? t : best;
+    }
+  uint32_t m = 0;
+  for (int r = 0; r < 16; ++r)
+    if (((rows >> r) & 1u) && ((v[r] + add) >> shift) == best) m |= 1u << r;
+  *same = m;
+  return best;
+}
+
+// The MXU count of the 16 columns col0 .. col0+15 (those below a.B):
+// a.halo warm-up rows, then a.L counted rows; out[col] is the column's
+// int32 total.
+template <typename Layout>
+AC_HD void ac_mxu_warp(const AcScanArgs& a, AcMxuWarp& w, int lane,
+                       int64_t col0) {
+  (void)lane;  // the host runs every row
+  typename Layout::Syms syms[AC_ROW_SLOTS];
+  uint32_t tot[AC_ROW_SLOTS];
+  AC_FOR_ROWS(r, lane) {
+    const bool live = col0 + r < a.B;
+    w.s[r] = live ? 0 : -1;
+    tot[AC_SLOT(r)] = 0;
+    if (live) syms[AC_SLOT(r)] = Layout::make(a, col0 + r);
+  }
+  AC_SYNCWARP();
+  uint32_t live = 0;
+  for (int r = 0; r < 16; ++r) live |= (uint32_t)(w.s[r] >= 0) << r;
+  const uint32_t mask = (1u << a.count_bits_m) - 1u;
+  for (int64_t t = 0; t < a.halo + a.L; ++t) {
+    AC_FOR_ROWS(r, lane) {
+      if ((live >> r) & 1u) w.sym[r] = syms[AC_SLOT(r)](t);
+    }
+    AC_SYNCWARP();
+    uint32_t pending = live;
+    while (pending) {
+      uint32_t in_tile;
+      const int32_t kt = ac_min_tile(w.s, 0, 5, pending, &in_tile);
+      pending &= ~in_tile;
+      for (int p = 0; p < a.n_planes; ++p) {
+        uint32_t todo = in_tile;
+        while (todo) {
+          uint32_t rows;
+          const int32_t nt = ac_min_tile(w.sym, p * a.V, 3, todo, &rows);
+          todo &= ~rows;
+          ac_mxu_tile(a, w, lane, kt * 32, nt * 8, p, rows);
+        }
+      }
+    }
+    AC_SYNCWARP();
+    AC_FOR_ROWS(r, lane) {
+      if ((live >> r) & 1u) {
+        uint32_t e = 0;
+        for (int p = 0; p < a.n_planes; ++p)
+          e += (uint32_t)w.e[r][p] << (7 * p);
+        if (t >= a.halo) tot[AC_SLOT(r)] += e & mask;
+        w.s[r] = (int32_t)(e >> a.count_bits_m);
+      }
+    }
+    AC_SYNCWARP();
+  }
+  AC_FOR_ROWS(r, lane) {
+    if ((live >> r) & 1u) a.out[col0 + r] = (int32_t)tot[AC_SLOT(r)];
+  }
 }

@@ -1,8 +1,9 @@
 // Host build of the per-thread scans in ac_scan.cuh, with the same C entry
 // points as the CUDA kernels: each loops over the streams (or batch
-// columns, or windows) one by one. Built
-// with g++ by the CPU tests, so that the logic the H100 kernels run is
-// tested where there is no GPU; the scanner never loads it.
+// columns, or windows) one by one, and the MXU kernels over their warps,
+// each warp's 32 lanes in turn with the tensor-core instruction emulated.
+// Built with g++ by the CPU tests, so that the logic the H100 kernels run
+// is tested where there is no GPU; the scanner never loads it.
 #include "ac_scan.cuh"
 
 namespace {
@@ -18,6 +19,14 @@ template <void (*U8)(const AcScanArgs&, int64_t),
           void (*I32)(const AcScanArgs&, int64_t)>
 int run(const AcScanArgs* a) {
   return run<U8, I32>(a, a->B);
+}
+
+template <typename Layout>
+void mxu_warps(const AcScanArgs& a, int64_t col0, int64_t end) {
+  for (int64_t c = col0; c < end; c += 16) {
+    AcMxuWarp w;
+    ac_mxu_warp<Layout>(a, w, 0, c);
+  }
 }
 
 }  // namespace
@@ -70,6 +79,37 @@ int ac_dense_count_many(const AcScanArgs* a, void*) {
 int ac_stepped_count_many(const AcScanArgs* a, void*) {
   return run<ac_stepped_count_many_column<uint8_t>,
              ac_stepped_count_many_column<int32_t>>(a);
+}
+
+int ac_stepped_count_2t(const AcScanArgs* a, void*) {
+  if (a->layout == 1)
+    return run<ac_stepped_count_2t_column, ac_stepped_count_2t_column>(a);
+  return run<ac_stepped_count_2t_stream<uint8_t>,
+             ac_stepped_count_2t_stream<int32_t>>(a);
+}
+
+int ac_mxu_count(const AcScanArgs* a, void*) {
+  if (a->layout == 2)
+    mxu_warps<AcWinLayout>(*a, 0, a->B);
+  else if (a->layout == 1 && a->ext_u8)
+    mxu_warps<AcBatchLayout<uint8_t>>(*a, 0, a->B);
+  else if (a->layout == 1)
+    mxu_warps<AcBatchLayout<int32_t>>(*a, 0, a->B);
+  else if (a->ext_u8)
+    mxu_warps<AcStreamLayout<uint8_t>>(*a, 0, a->B);
+  else
+    mxu_warps<AcStreamLayout<int32_t>>(*a, 0, a->B);
+  return 0;
+}
+
+int ac_hybrid_count(const AcScanArgs* a, void*) {
+  run<ac_stepped_count_stream<uint8_t>, ac_stepped_count_stream<int32_t>>(
+      a, a->B1);
+  if (a->ext_u8)
+    mxu_warps<AcStreamLayout<uint8_t>>(*a, a->B1, a->B);
+  else
+    mxu_warps<AcStreamLayout<int32_t>>(*a, a->B1, a->B);
+  return 0;
 }
 
 const char* ac_error_string(int) { return "host build"; }

@@ -7,8 +7,13 @@ version until ``refresh()`` brings it up to the machine's in place, and
 scans B parallel streams with halo overlap (ops/blocking.py's exactness
 argument) through hand-written kernels:
 
-* ``count``: K3, the packed k-gram count (ops/multistep.py), or K1, the
-  1-char dense count (ops/scan_dense.py) where no packed table exists;
+* ``count``: K3, the packed k-gram count (ops/multistep.py); K9, the
+  two-table k-gram count, where (state, count) need more than 31 bits;
+  K1, the 1-char dense count (ops/scan_dense.py), where no k-gram table
+  exists; with ``engine="mxu"`` K10, the MXU engine's int8 tensor-core
+  lookup (ops/scan_mxu.py), and with ``engine="hybrid"`` K11, which runs
+  K3's and K10's recurrences on two parts of the streams in one launch
+  (ops/scan_hybrid.py);
 * ``find_matches``: K4, the k-gram emit scan, then the plain-PyTorch
   refinement of live grams (ops/hits.py); without a packed table, K8, the
   1-char bounded hits, under ``max_hits``, else K2 states decoded on the
@@ -21,8 +26,8 @@ argument) through hand-written kernels:
   ``find_matches`` through K8's window form;
 * ``scan_states``: K2; ``scan_states_sequential``: K2 in one thread;
 * ``count_many``: one document per column of a time-major [L, B] batch,
-  split into blocks: K5, the packed count of the batch, or K6, its dense
-  count;
+  split into blocks: K5, the packed count of the batch, K9's batch form on
+  the two tables, K10's with ``engine="mxu"``, or K6, its dense count;
 * ``session()``: a ``StreamSession``, chunked scanning exact across chunk
   edges, over count and find_matches.
 
@@ -35,8 +40,12 @@ clamps; so is a 2-D integer tensor given to ``count_many``. ``encode``
 takes host signs only and raises ``TypeError`` for a tensor, as the JAX
 package's does for a ``jax.Array``.
 
-Not ported yet (ROADMAP): the MXU and hybrid engines, calibration, and
-upload overlap.
+``calibrate=True`` with ``engine="auto"`` measures the engines' production
+``count()`` on the scanner's device and binds the fastest
+(ops/autotune.py). Retrieval (``find_matches``, ``scan_states``) ignores
+the engine.
+
+Not ported yet (ROADMAP): upload overlap.
 """
 
 from __future__ import annotations
@@ -49,13 +58,15 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from .._host import MatchSet, decode_matches_arrays, expand_hits_arrays
-from ..ops import sparse
+from ..ops.decode import decode_matches_arrays, expand_hits_arrays
+from ..ops import autotune, scan_hybrid, scan_mxu, sparse
 from ..ops.hits import (dense_hits, hits_extract, hits_extract_dense,
                         max_hits_error, stepped_emit, window_hits)
-from ..ops.multistep import pack, stepped_count, stepped_count_many
+from ..ops.multistep import (pack, stepped_count, stepped_count_2t,
+                             stepped_count_many, stepped_count_many_2t)
 from ..ops.scan_dense import (dense_count, dense_count_many, dense_states,
                               lookup, sequential_states)
+from .results import MatchSet
 from .snapshot import DeviceSnapshot
 
 
@@ -188,19 +199,27 @@ class DenseScanner:
         and ``snapshot`` (prebuilt tables on that device, e.g. from
         utils/convert.py, in place of ``tables``/``step_k``).
 
-        ``engine``: "auto" and "gather" both scan through the packed
-        k-gram gather; "mxu" and "hybrid" are not ported (ROADMAP A.9),
-        nor is ``calibrate`` (A.9).
+        ``engine``: "gather" (the k-gram table, or the 1-char tables
+        where none exists), "mxu" (K10, the one-hot digit-plane product;
+        raises ``ValueError`` when the automaton has more than
+        ``scan_mxu.MAX_MXU_STATES`` padded states), "hybrid" (K11: most
+        streams through the packed table, ``scan_hybrid.mxu_cols`` of
+        them through the planes; raises when the automaton has more than
+        ``scan_hybrid.MAX_HYBRID_STATES`` padded states or no packed
+        table), or "auto". The JAX package's "auto" picks by crossovers
+        measured on a TPU v5e; the port carries none over, so without
+        ``calibrate`` "auto" is "gather", on the card as on the CPU.
+        ``calibrate``: with "auto", time the available engines' production
+        ``count()`` once on this device and bind the fastest; the choice
+        is cached per device and automaton geometry (ops/autotune.py).
+        An engine that does not fit after a ``refresh()`` raises there.
 
         ``prefilter``: "off", "on" (count and retrieve through the sparse
         prefilter) or "auto" (the prefilter, unless over half the blocks
         are live: then the dense kernels)."""
-        if engine in ("mxu", "hybrid") or calibrate:
-            raise NotImplementedError(
-                "the MXU and hybrid engines and calibration are not ported "
-                "yet (ROADMAP A.9)")
-        if engine not in ("auto", "gather"):
+        if engine not in ("auto", "gather", "mxu", "hybrid"):
             raise ValueError(f"unknown engine {engine!r}")
+        self._engine = engine
         if prefilter not in ("off", "auto", "on"):
             raise ValueError(f"unknown prefilter {prefilter!r}")
         self._prefilter = prefilter
@@ -229,6 +248,41 @@ class DenseScanner:
         self._lut_cache: dict = {}
         self._pk1_cache = None
         self._bind()
+        if calibrate and engine == "auto":
+            self._calibrate_engine()
+
+    def _calibrate_engine(self, force: bool = False) -> None:
+        """Bind the engine measured fastest on this device
+        (ops/autotune.py): the probe runs where more than one engine
+        fits, else gather is bound; the choice is cached per geometry.
+        Holds the dispatch lock, so no scan on another thread sees a
+        half-rebound scanner."""
+        with self._dispatch:
+            tabs = self.tables
+            candidates = ["gather"]
+            if scan_mxu.build_planes(tabs.delta, tabs.nb_outputs) is not None:
+                candidates.append("mxu")
+            if self._snap.packed is not None and scan_mxu.build_planes(
+                    tabs.delta, tabs.nb_outputs,
+                    max_states=scan_hybrid.MAX_HYBRID_STATES) is not None:
+                candidates.append("hybrid")
+            choice = "gather"
+            if len(candidates) > 1:
+                key = autotune.geometry_key(tabs.n_states, self.V,
+                                            self.step_k, self.device)
+                choice = None if force else autotune.cached_choice(key)
+                if choice not in candidates:
+                    choice = autotune.probe(self, candidates)
+                    autotune.store_choice(key, choice)
+            self._engine = choice
+            self._bind()
+
+    def recalibrate(self) -> str:
+        """Measure the engines again now, ignoring the cached choice, and
+        bind the winner; safe against scans on other threads. Returns the
+        engine's name."""
+        self._calibrate_engine(force=True)
+        return self._engine
 
     @property
     def tables(self):
@@ -252,12 +306,37 @@ class DenseScanner:
 
     def _bind(self) -> None:
         """Derive what depends on the snapshot and the halo: the halo in
-        gram steps, and the raw-encode LUTs, whose exactness rests on the
-        tables (raw_lut_entry). ``__init__`` and ``refresh()`` call it."""
+        gram steps, the raw-encode LUTs, whose exactness rests on the
+        tables (raw_lut_entry), and the engine's digit planes, rebuilt
+        from the tables (``_mxu`` and ``_hybrid``: (planes int8 tensor
+        [S_pad, n_planes*V], count_bits, n_planes, S_pad), as in the JAX
+        scanner). ``__init__``, ``refresh()`` and calibration call it."""
         st = self._stepped
         self._halo_steps = -(-self.halo // st.k) if st is not None else 0
         self._halo_sym = self._halo_steps * st.k if st is not None else 0
         self._lut_cache.clear()
+        self._mxu = self._hybrid = None
+        tabs = self.tables
+        if self._engine == "mxu":
+            built = scan_mxu.build_planes(tabs.delta, tabs.nb_outputs)
+            if built is None:
+                raise ValueError(
+                    "automaton too large for the MXU engine (padded states "
+                    "or digit planes over the ops/scan_mxu.py limits); use "
+                    "engine='gather'")
+            self._mxu = (self._snap.place(built[0]),) + built[1:]
+        elif self._engine == "hybrid":
+            built = None
+            if self._snap.packed is not None:
+                built = scan_mxu.build_planes(
+                    tabs.delta, tabs.nb_outputs,
+                    max_states=scan_hybrid.MAX_HYBRID_STATES)
+            if built is None:
+                raise ValueError(
+                    "automaton too large for the hybrid engine (padded "
+                    "states over ops/scan_hybrid.MAX_HYBRID_STATES, or no "
+                    "packed stepped table); use engine='gather'")
+            self._hybrid = (self._snap.place(built[0]),) + built[1:]
 
     # -- incremental snapshot refresh ----------------------------------------
 
@@ -429,8 +508,13 @@ class DenseScanner:
         return n
 
     def _count_dense(self, signs, raw, head) -> int:
-        """Count through the dense kernels over the whole stream: K3 or
-        K1, raw inputs of two chunks or more in pipelined chunks."""
+        """Count through the engine's kernel over the whole stream
+        (``_count_kernel``), raw inputs of two chunks or more in pipelined
+        chunks. The two-table count takes host-encoded ids, as the JAX
+        scanner's (``models/scanner.py:699,909``); the MXU engine reads
+        the planes, never the k-gram tables, and keeps its raw forms."""
+        if raw is not None and self._two_table and self._mxu is None:
+            raw = None
         if raw is not None and len(raw[0]) >= self._pipeline_min:
             n = self._count_raw_pipelined(raw[0], raw[1], head)
             if n is not None:
@@ -444,12 +528,25 @@ class DenseScanner:
 
     # -- sparse prefilter: count ---------------------------------------------
 
+    @property
+    def _two_table(self) -> bool:
+        """The k-gram tables are the two-table form (K9)."""
+        return self._snap.delta_k is not None
+
+    @property
+    def _packed_windows(self) -> bool:
+        """The prefilter counts k-gram windows through the packed table:
+        one exists and the engine is not "mxu" (the JAX scanner's
+        ``use_stepped``, ``models/scanner.py:832-836``)."""
+        return self._mxu is None and self._snap.packed is not None
+
     def _sparse_geometry(self):
-        """(k, halo, L_blk) of the prefilter's count: the packed k-gram
-        windows where a packed table exists, else 1-char windows."""
-        st = self._stepped
-        k = st.k if st is not None else 1
-        return k, self._halo_sym if st is not None else self.halo, 128 * k
+        """(k, halo, L_blk) of the prefilter's count: k-gram windows with
+        ``_packed_windows``, else 1-char windows."""
+        if self._packed_windows:
+            k = self._stepped.k
+            return k, self._halo_sym, 128 * k
+        return 1, self.halo, 128
 
     def _count_prefilter(self, signs, raw, head) -> int:
         """The prefilter's count routing (``models/scanner.py:573-648``):
@@ -473,11 +570,16 @@ class DenseScanner:
         return self._count_dense(ids, None, head) if n is None else n
 
     def _window_count(self, src, idx=None) -> int:
-        """K7 over live-block windows (``ops/sparse.py``): the stepped
-        body with a packed table, else the dense one; the int64 total."""
+        """The count of live-block windows (``ops/sparse.py``): K10 with
+        ``engine="mxu"``, else K7, its stepped body with a packed table,
+        else its dense one; the int64 total."""
         st, snap = self._stepped, self._snap
         k, halo, L_blk = self._sparse_geometry()
-        if st is not None:
+        if self._mxu is not None:
+            planes, cbits, n_planes, _ = self._mxu
+            per = sparse.sparse_count_mxu(planes, self.V, cbits, n_planes,
+                                          halo, L_blk, src, idx)
+        elif self._packed_windows:
             per = sparse.sparse_count_stepped(
                 snap.packed, st.V, k, st.count_bits, self._halo_steps, L_blk,
                 src, idx)
@@ -606,21 +708,48 @@ class DenseScanner:
 
     def _count_kernel(self):
         """(halo, unit, count(B, L, ext, lut=None, head_ids=None) ->
-        per-stream int32 totals [B]): K3 with a packed table, else K1."""
+        per-stream int32 totals [B]), the engine's stream count (the JAX
+        scanner's ``_count_dispatch``, ``models/scanner.py:744-786``): K10
+        for "mxu", K11 for "hybrid", else K3 with a packed table, K9 with
+        the two tables, K1 with neither."""
         st, snap = self._stepped, self._snap
-        if st is not None:
+        if self._mxu is not None:
+            planes, cbits, n_planes, _ = self._mxu
+            return self.halo, 128, functools.partial(
+                scan_mxu.mxu_count, planes, self.V, cbits, n_planes,
+                self.halo)
+        if self._hybrid is not None:
+            return self._halo_sym, 128 * st.k, self._hybrid_count
+        if snap.packed is not None:
             return self._halo_sym, 128 * st.k, functools.partial(
                 stepped_count, snap.packed, st.V, st.k, st.count_bits,
+                self._halo_steps)
+        if self._two_table:
+            return self._halo_sym, 128 * st.k, functools.partial(
+                stepped_count_2t, snap.delta_k, snap.cnt_k, st.V, st.k,
                 self._halo_steps)
         return self.halo, 128, functools.partial(
             dense_count, snap.dflat, snap.nb_out, self.V, self.halo)
 
+    def _hybrid_count(self, B: int, L: int, ext, lut=None, head_ids=None):
+        """K11 over B streams: the last ``scan_hybrid.mxu_cols(B, S_pad)``
+        of them through the planes, all of them where that passes B (the
+        JAX scanner's slices ``[:, :B - B2]`` and ``[:, B - B2:]`` do the
+        same)."""
+        st = self._stepped
+        planes, cbm, n_planes, S_pad = self._hybrid
+        B2 = min(scan_hybrid.mxu_cols(B, S_pad), B)
+        return scan_hybrid.hybrid_count(
+            self._snap.packed, planes, st.V, st.k, st.count_bits,
+            self._halo_steps, n_planes, cbm, B - B2, B, L, ext, lut,
+            head_ids)
+
     def _count_raw_pipelined(self, raw, ent, head) -> Optional[int]:
-        """Raw count of a large host input in independent chunks, each
-        with its halo encoded from the raw input through the host LUT.
-        Chunks are staged and launched one after another with one
-        synchronisation at the end. None when the input is under two
-        chunks."""
+        """Raw count of a large host input in independent chunks through
+        the engine's stream count, each chunk with its halo encoded from
+        the raw input through the host LUT. Chunks are staged and launched
+        one after another with one synchronisation at the end. None when
+        the input is under two chunks."""
         lut_dev, n_lut, _, lut_host = ent
         halo, unit, count = self._count_kernel()
         T = len(raw)
@@ -686,7 +815,7 @@ class DenseScanner:
         out = np.zeros(n, dtype=np.int64)
         with self._dispatch:
             unit = 128 * (self._stepped.k if self._stepped is not None
-                          else 1)
+                          and self._mxu is None else 1)
             raws = self._raw_docs(docs)
             if raws is not None:
                 docs_arrs, ent = raws
@@ -703,8 +832,10 @@ class DenseScanner:
 
     def _raw_docs(self, docs):
         """(raw symbol arrays, LUT entry) when every document takes the
-        same raw LUT, else None (host encode)."""
-        if not self._device_encode:
+        same raw LUT, else None (host encode, also the two-table count's
+        input, as in the JAX scanner)."""
+        if not self._device_encode or (self._mxu is None
+                                       and self._two_table):
             return None
         out, ent0 = [], None
         for d in docs:
@@ -776,18 +907,29 @@ class DenseScanner:
 
     def _count_many_kernel(self, tm: torch.Tensor, L: int, B: int,
                            ent=None) -> np.ndarray:
-        """Count a [L, B] batch on the device: K5 with a packed table and
-        L % k == 0, else K6 (which also stands in for the reference's
-        unpacked two-table count, not ported). Documents split into c > 1
+        """Count a [L, B] batch on the device (``models/scanner.py:
+        1215-1250``): K10 with ``engine="mxu"``; K5 with a packed table and
+        L % k == 0; K9 with the two tables, ids and L % k == 0 (no split
+        or halo, as the reference); else K6. Documents split into c > 1
         blocks warm up from a halo of their own; c == 1 takes none, as in
         the reference. Returns int64 counts [B]."""
         st, snap = self._stepped, self._snap
         lut = None if ent is None else ent[0]
-        if st is not None and L % st.k == 0:
+        if self._mxu is not None:
+            planes, cbits, n_planes, _ = self._mxu
+            c, Lp = self._split_for(L, B, 128)
+            per = scan_mxu.mxu_count_many(
+                planes, self.V, cbits, n_planes, self.halo if c > 1 else 0,
+                c, Lp, tm, lut)
+        elif snap.packed is not None and L % st.k == 0:
             c, Lp = self._split_for(L, B, 128 * st.k)
             per = stepped_count_many(
                 snap.packed, st.V, st.k, st.count_bits,
                 self._halo_steps if c > 1 else 0, c, Lp, tm, lut)
+        elif self._two_table and lut is None and L % st.k == 0:
+            c = 1
+            per = stepped_count_many_2t(snap.delta_k, snap.cnt_k, st.V, st.k,
+                                        tm)
         else:
             c, Lp = self._split_for(L, B, 128)
             per = dense_count_many(snap.dflat, snap.nb_out, self.V,
@@ -811,7 +953,7 @@ class DenseScanner:
         # Under the lock from the scan to the decode: refresh() swaps the
         # tables both read.
         with self._dispatch:
-            if (max_hits is not None or self._stepped is not None
+            if (max_hits is not None or self._snap.packed is not None
                     or self._prefilter != "off"):
                 return self._find_matches_device(signs, offset, head,
                                                  max_hits)
@@ -844,7 +986,7 @@ class DenseScanner:
         _guard_pos32(len(raw[0]) if raw is not None else len(signs))
         st, snap = self._stepped, self._snap
         with self._dispatch:
-            if st is None:
+            if snap.packed is None:
                 if auto:
                     # the full decode of K2's states (the prefilter
                     # declined and no packed table exists)
@@ -1019,7 +1161,7 @@ class DenseScanner:
         per table version, so a refresh invalidates it. None when it does
         not fit 31 bits."""
         st = self._stepped
-        if st is not None and st.k == 1:
+        if st is not None and st.k == 1 and self._snap.packed is not None:
             return self._snap.packed, st.count_bits
         ver = self.tables.version
         if self._pk1_cache is not None and self._pk1_cache[0] == ver:

@@ -1,16 +1,13 @@
 """Capacity-padded device snapshot of the dense automaton tables.
 
 The port of ``models/snapshot.py:DeviceSnapshot``: the 1-char tables
-``dflat`` [cap*V] and ``nb_out`` [cap] and the packed k-gram table
-[cap*V^k] as int32 tensors on one explicit device. Rows are padded to the
-JAX package's ``round_cap`` state capacity so that both packages hold
-bit-identical tables, and so that ``refresh`` can bring an online insertion
-in without changing a shape.
-
-Where (state, count) need more than 31 bits the k-gram table would take
-the JAX package's two-table unpacked form; the port drops it instead and
-counts through the 1-char tables (the JAX mesh scanner's ``packed_only``
-rule), on a first build and on every rebuild.
+``dflat`` [cap*V] and ``nb_out`` [cap] and the k-gram tables as int32
+tensors on one explicit device: the packed table [cap*V^k], or, where
+(state, count) need more than 31 bits, the two-table form ``delta_k`` and
+``cnt_k`` [cap*V^k] each, as in the JAX package's single-device snapshot.
+Rows are padded to the JAX package's ``round_cap`` state capacity so that
+both packages hold bit-identical tables, and so that ``refresh`` can bring
+an online insertion in without changing a shape.
 
 The device tensors are the only copy the snapshot keeps: the port reads no
 host mirror, so a refresh updates the device tables alone, in place.
@@ -25,9 +22,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._host import round_cap
-from ..ops.multistep import (SteppedTables, build_stepped, choose_k,
-                             stepped_delta_cells)
+from ..core.builder import round_cap
+from ..ops import multistep
+from ..ops.multistep import SteppedTables, choose_k, stepped_delta_cells
 
 
 class DeviceSnapshot:
@@ -58,7 +55,8 @@ class DeviceSnapshot:
 
     def _build(self, tables) -> None:
         """``models/snapshot.py:DeviceSnapshot._build``: the 1-char tables
-        and the choice of k, with ``packed_only``."""
+        and the choice of k; the k-gram tables packed, else in two
+        tables."""
         self.tables = tables
         S = tables.n_states
         self.V = tables.vocab_size
@@ -76,31 +74,48 @@ class DeviceSnapshot:
         self.nb_out = self._table(nb_host)
         self.stepped: Optional[SteppedTables] = None
         self.packed: Optional[torch.Tensor] = None
+        self.delta_k: Optional[torch.Tensor] = None
+        self.cnt_k: Optional[torch.Tensor] = None
         step_k, budget = self._spec
         V = self.V
         auto_k = step_k == "auto"
         self.step_k = choose_k(S, V, budget) if auto_k else max(1, int(step_k))
         if self.step_k == 1:
             # An explicit step_k=1 means the 1-char tables only; "auto"
-            # adds the packed k=1 table when it fits the budget.
+            # adds the packed k=1 table when it fits the budget (never the
+            # unpacked one, which would repeat the 1-char tables).
             if auto_k and self.cap * V * 4 <= budget:
-                self._adopt(build_stepped(tables, 1, cap_rows=self.cap))
+                self._adopt_packed(multistep.build_stepped(
+                    tables, 1, cap_rows=self.cap))
             return
-        st = build_stepped(tables, self.step_k, cap_rows=self.cap)
+        st = multistep.build_stepped(tables, self.step_k, cap_rows=self.cap)
         # the unpacked form needs 8 bytes an entry: lower k until it fits
         while (st is not None and st.packed is None and self.step_k > 1
                and S * (V ** st.k) * 8 > budget):
             self.step_k -= 1
-            st = (build_stepped(tables, self.step_k, cap_rows=self.cap)
+            st = (multistep.build_stepped(tables, self.step_k,
+                                          cap_rows=self.cap)
                   if self.step_k > 1 else None)
         if st is None or self.step_k <= 1:
             self.step_k = max(1, self.step_k)
             if self.step_k == 1 and self.cap * V * 4 <= budget:
-                self._adopt(build_stepped(tables, 1, cap_rows=self.cap))
+                self._adopt_packed(multistep.build_stepped(
+                    tables, 1, cap_rows=self.cap))
             return
-        self._adopt(st)
+        if st.packed is not None:
+            self._adopt_packed(st)
+        else:
+            self.delta_k = self._table(self._at_cap(st.delta_k, st.Vk))
+            self.cnt_k = self._table(self._at_cap(st.cnt_k, st.Vk))
+            self.stepped = dataclasses.replace(st, delta_k=None, cnt_k=None)
 
-    def _adopt(self, st: SteppedTables) -> None:
+    def _at_cap(self, table: np.ndarray, Vk: int) -> np.ndarray:
+        """A k-gram table's [S*V^k] entries in a zeroed [cap*V^k] array."""
+        host = np.zeros(self.cap * Vk, np.int32)
+        host[:table.size] = table
+        return host
+
+    def _adopt_packed(self, st: SteppedTables) -> None:
         """Upload a packed table at capacity; keep its geometry, not its
         host arrays."""
         if st.packed is None:
@@ -109,18 +124,19 @@ class DeviceSnapshot:
                 and st.cap_packed.size == self.cap * st.Vk):
             host = st.cap_packed
         else:
-            host = np.zeros(self.cap * st.Vk, np.int32)
-            host[:st.packed.size] = st.packed
+            host = self._at_cap(st.packed, st.Vk)
         self.packed = self._table(host)
         self.stepped = dataclasses.replace(st, packed=None, cap_packed=None)
 
     @classmethod
     def from_arrays(cls, tables, dflat: np.ndarray, nb_out: np.ndarray,
                     packed: Optional[np.ndarray], k: int, count_bits: int,
-                    device="cuda") -> "DeviceSnapshot":
+                    device="cuda", delta_k: Optional[np.ndarray] = None,
+                    cnt_k: Optional[np.ndarray] = None) -> "DeviceSnapshot":
         """A snapshot of given host arrays (capacity-padded ``dflat``,
-        ``nb_out`` and, if any, the packed k-gram table), e.g. the JAX
-        scanner's own (utils/convert.py). A rebuild on refresh keeps k."""
+        ``nb_out`` and, if any, the packed k-gram table or the two tables
+        ``delta_k`` and ``cnt_k``), e.g. the JAX scanner's own
+        (utils/convert.py). A rebuild on refresh keeps k."""
         snap = cls.__new__(cls)
         snap.device = torch.device(device)
         snap._spec = (k, 128 * 1024 * 1024)
@@ -133,11 +149,15 @@ class DeviceSnapshot:
         snap.dflat = snap._table(dflat)
         snap.nb_out = snap._table(nb_out)
         snap.step_k = k
-        snap.stepped = snap.packed = None
-        if packed is not None:
+        snap.stepped = snap.packed = snap.delta_k = snap.cnt_k = None
+        if packed is not None or delta_k is not None:
             snap.stepped = SteppedTables(k=k, V=snap.V, count_bits=count_bits,
                                          packed=None)
+        if packed is not None:
             snap.packed = snap._table(packed)
+        elif delta_k is not None:
+            snap.delta_k = snap._table(delta_k)
+            snap.cnt_k = snap._table(cnt_k)
         return snap
 
     # -- incremental refresh ---------------------------------------------
@@ -147,9 +167,10 @@ class DeviceSnapshot:
         (``models/snapshot.py:DeviceSnapshot.refresh``).
 
         Returns "noop" (same content), "inplace" (row and cell scatter into
-        the device tables), or "rebuild" (a full rebuild: vocabulary
-        growth, state capacity, packed count width, or a delta past a
-        quarter of the k-gram table). The scatters are enqueued on the
+        the device tables, both k-gram tables in the two-table form), or
+        "rebuild" (a full rebuild: vocabulary growth, state capacity,
+        packed count width, or a delta past a quarter of the k-gram
+        table). The scatters are enqueued on the
         device's current stream; the caller serialises this against scans
         (the scanner's dispatch lock), so a scan on that stream sees either
         the old tables or the new ones."""
@@ -182,19 +203,24 @@ class DeviceSnapshot:
             if n_cells > max(S_new * st.Vk // 4, 1 << 16):
                 self._build(new)
                 return "rebuild"
-            max_cnt = int(cnt.max()) if cnt.size else 0
-            state_bits = max(1, int(S_new - 1).bit_length())
-            if (max_cnt.bit_length() > st.count_bits
-                    or state_bits + st.count_bits > 31):
-                self._build(new)
-                return "rebuild"
-            cell_update = (cells, ((land.astype(np.int64) << st.count_bits)
-                                   | cnt).astype(np.int32))
+            if self.packed is not None:
+                max_cnt = int(cnt.max()) if cnt.size else 0
+                state_bits = max(1, int(S_new - 1).bit_length())
+                if (max_cnt.bit_length() > st.count_bits
+                        or state_bits + st.count_bits > 31):
+                    self._build(new)
+                    return "rebuild"
+                cell_update = [(self.packed, (
+                    (land.astype(np.int64) << st.count_bits)
+                    | cnt).astype(np.int32))]
+            else:
+                cell_update = [(self.delta_k, land),
+                               (self.cnt_k, cnt.astype(np.int32))]
 
         self._scatter(self.dflat, rows1, new.delta[rows1], self.V)
         self._scatter(self.nb_out, rows1, new.nb_outputs[rows1], 1)
-        if cell_update is not None:
-            self._scatter(self.packed, *cell_update, 1)
+        for table, vals in cell_update or ():
+            self._scatter(table, cells, vals, 1)
         self.tables = new
         self.max_nb = int(new.nb_outputs.max()) if S_new else 0
         self.last_refresh = {"rows": int(len(rows1)), "cells": int(n_cells),

@@ -32,18 +32,20 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 _HEADERS = ("ac_scan.cuh",)
-_CUDA_SOURCES = ("dense_scan.cu", "stepped_scan.cu", "sparse_scan.cu")
+_CUDA_SOURCES = ("dense_scan.cu", "stepped_scan.cu", "sparse_scan.cu",
+                 "mxu_scan.cu")
 _HOST_SOURCES = ("ac_scan_host.cpp",)
 ENTRY_POINTS = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
                 "ac_stepped_emit", "ac_stepped_count_many",
                 "ac_dense_count_many", "ac_dense_states_tm",
                 "ac_sparse_count",
-                "ac_sparse_count_stepped", "ac_dense_hits", "ac_window_hits")
+                "ac_sparse_count_stepped", "ac_dense_hits", "ac_window_hits",
+                "ac_stepped_count_2t", "ac_mxu_count", "ac_hybrid_count")
 
 # Launches per entry point since the last reset_launches(), and per
-# "entry/form" where a wrapper names the input form it launched on (K7, K8:
-# index list or elided windows, ids or raw; K2: "seq", one thread); only
-# launch() adds to them.
+# "entry/form" where a wrapper names the input form it launched on (K7, K8,
+# K10: index list or elided windows; K8-K11: ids or raw; K9, K10: the
+# count_many batch; K2: "seq", one thread); only launch() adds to them.
 launches: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 form_launches: Dict[str, int] = {}
 # Seconds and compiler output of the last build this process ran (None
@@ -72,6 +74,10 @@ class AcScanArgs(ctypes.Structure):
         ("gather", ctypes.c_int32),
         ("hit_pos", ctypes.c_void_p), ("hit_state", ctypes.c_void_p),
         ("hit_off", ctypes.c_void_p),
+        ("table2", ctypes.c_void_p), ("planes", ctypes.c_void_p),
+        ("S_pad", ctypes.c_int32), ("n_planes", ctypes.c_int32),
+        ("count_bits_m", ctypes.c_int32), ("B1", ctypes.c_int32),
+        ("layout", ctypes.c_int32),
     ]
 
 
@@ -95,13 +101,13 @@ def _nvcc() -> str:
     return path
 
 
-def _build(name: str, sources, stages) -> str:
-    """Compile ``sources`` (in csrc/) into BUILD_DIR at most once across
-    processes; return the library's path. ``stages(out_path, paths)`` gives
-    a list of stages, each a list of commands that run in parallel."""
-    paths = [os.path.join(CSRC_DIR, s) for s in sources]
+def build_library(name: str, paths, stages, headers=()) -> str:
+    """Compile the source files ``paths`` into BUILD_DIR at most once
+    across processes; return the library's path. ``stages(out_path,
+    paths)`` gives a list of stages, each a list of commands that run in
+    parallel; the name hashes the sources, ``headers`` and the commands."""
     digest = hashlib.sha1()
-    for p in sorted(paths + [os.path.join(CSRC_DIR, h) for h in _HEADERS]):
+    for p in sorted(list(paths) + list(headers)):
         with open(p, "rb") as f:
             digest.update(f.read())
     for stage in stages("out.so", paths):
@@ -137,6 +143,10 @@ def _build(name: str, sources, stages) -> str:
     return so
 
 
+def _csrc(names):
+    return [os.path.join(CSRC_DIR, n) for n in names]
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ENTRY_POINTS:
         fn = getattr(lib, name)
@@ -166,8 +176,8 @@ def cuda_library() -> ctypes.CDLL:
                   "-Xptxas", "-v", "-I", CSRC_DIR, "-c", "-o", obj, src]
                  for obj, src in zip(objs, paths)],
                 [[nvcc, *arch, "-shared", "-o", out, *objs]]]
-    return _load("cuda", lambda: _build("ac_kernels", _CUDA_SOURCES,
-                                        stages))
+    return _load("cuda", lambda: build_library(
+        "ac_kernels", _csrc(_CUDA_SOURCES), stages, _csrc(_HEADERS)))
 
 
 def host_library() -> ctypes.CDLL:
@@ -177,8 +187,8 @@ def host_library() -> ctypes.CDLL:
     def stages(out, paths):
         return [[["g++", "-std=c++17", "-O2", "-shared", "-fPIC",
                   "-I", CSRC_DIR, "-o", out, *paths]]]
-    return _load("host", lambda: _build("ac_scan_host", _HOST_SOURCES,
-                                        stages))
+    return _load("host", lambda: build_library(
+        "ac_scan_host", _csrc(_HOST_SOURCES), stages, _csrc(_HEADERS)))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:

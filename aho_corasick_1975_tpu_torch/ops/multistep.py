@@ -1,34 +1,39 @@
-"""k-char stepped scan tables (host), K3 the packed k-gram count and K5
-its count_many form.
+"""k-char stepped scan tables (host), K3 the packed k-gram count, K5 its
+count_many form and K9 the two-table count.
 
 Host half: ``choose_k``, ``compose_rows``, ``build_stepped`` and
 ``stepped_delta_cells`` are the numpy functions of the JAX package's
 ``ops/multistep.py``, which cannot be imported without JAX. They build the
 packed table ``(next_state << count_bits) | gram_count`` over k-grams, so
 one gather advances k symbols and counts every match inside them (the
-native threaded ``compose_pack`` does the work where it is available), and
-find the cells an online insertion changes (refresh).
+native threaded ``compose_pack`` does the work where it is available), or,
+where (state, count) need more than 31 bits, the two tables ``delta_k``
+and ``cnt_k``; and they find the cells an online insertion changes
+(refresh).
 
 Device half: K3 (csrc/stepped_scan.cu) is the count of
 ``ops/multistep.py:stepped_count_core`` (``make_stepped_count_stream`` /
-``_raw``), and K5 the same count over a split ``[L, B]`` batch
-(``_stepped_count_many_body``), each beside its plain PyTorch version.
-Inputs follow ``ops/scan_dense.py``, with ``halo = halo_steps * k`` and
-``L % k == 0``.
+``_raw``), K5 the same count over a split ``[L, B]`` batch
+(``_stepped_count_many_body``), and K9 the count over the two tables
+(``make_stepped_count_unpacked_stream`` and, for count_many's time-major
+batch, ``make_stepped_count_unpacked``), each beside its plain PyTorch
+version. Inputs follow ``ops/scan_dense.py``, with
+``halo = halo_steps * k`` and ``L % k == 0``.
 """
 
 from __future__ import annotations
 
-import subprocess
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .._host import compose_pack, round_cap
+from ..core.builder import round_cap
+from ..core.native import compose_pack
 from . import build
-from .scan_dense import check_batch, check_stream, split_window, window
+from .scan_dense import (_check_inputs, check_batch, check_stream,
+                         split_window, window)
 
 
 @dataclass
@@ -37,10 +42,13 @@ class SteppedTables:
     V: int                      # base vocab size
     count_bits: int             # 0 when unpacked
     # int32 [S * V^k] as built; None where (state, count) need more than 31
-    # bits — the JAX package's two-table unpacked form, not ported (the
-    # snapshot drops such a table) — and in a snapshot's own record, whose
-    # table is the device copy
+    # bits, and in a snapshot's own record, whose tables are the device
+    # copies
     packed: Optional[np.ndarray]
+    # the two-table form where packed is None: landing states and k-gram
+    # counts, int32 [S * V^k] each
+    delta_k: Optional[np.ndarray] = None
+    cnt_k: Optional[np.ndarray] = None
     # capacity-padded backing buffer of ``packed`` (its first S*V^k
     # entries), set when build_stepped was given cap_rows
     cap_packed: Optional[np.ndarray] = None
@@ -152,9 +160,10 @@ def stepped_delta_cells(old, new, k: int):
 
 def build_stepped(tables, k: int,
                   cap_rows: Optional[int] = None) -> SteppedTables:
-    """Compose delta/nb_outputs over k-grams and pack. ``cap_rows``: also
-    allocate the packed table inside a [cap_rows * V^k] zeroed capacity
-    buffer (returned as ``cap_packed``)."""
+    """Compose delta/nb_outputs over k-grams and pack, or return the two
+    unpacked tables where (state, count) need more than 31 bits.
+    ``cap_rows``: also allocate the packed table inside a
+    [cap_rows * V^k] zeroed capacity buffer (returned as ``cap_packed``)."""
     delta = tables.delta                     # [S, V]
     nb = tables.nb_outputs
     S, V = delta.shape
@@ -177,7 +186,10 @@ def build_stepped(tables, k: int,
         return SteppedTables(k=k, V=V, count_bits=count_bits,
                              packed=pack(delta, nb, k, count_bits, cap_buf),
                              cap_packed=cap_buf)
-    return SteppedTables(k=k, V=V, count_bits=0, packed=None)
+    d, cnt = compose_rows(delta, nb, np.arange(S, dtype=np.int64), k)
+    return SteppedTables(k=k, V=V, count_bits=0, packed=None,
+                         delta_k=d.reshape(-1).astype(np.int32),
+                         cnt_k=cnt.reshape(-1).astype(np.int32))
 
 
 def pack(delta: np.ndarray, nb: np.ndarray, k: int, count_bits: int,
@@ -187,7 +199,7 @@ def pack(delta: np.ndarray, nb: np.ndarray, k: int, count_bits: int,
     built."""
     try:
         return compose_pack(delta, nb, k, count_bits, out=out)
-    except (OSError, subprocess.CalledProcessError):
+    except (OSError, RuntimeError):
         d, cnt = compose_rows(delta, nb, np.arange(len(delta)), k)
         packed = (((d.astype(np.int64) << count_bits) | cnt)
                   .astype(np.int32).reshape(-1))
@@ -224,6 +236,22 @@ def _count_grams(packed, V: int, k: int, count_bits: int, halo_steps: int,
         s = (v >> count_bits).long()
         if j >= halo_steps:
             tot += v & mask
+    return tot
+
+
+def _count_grams_2t(delta_k, cnt_k, V: int, k: int, halo_steps: int,
+                    win: torch.Tensor) -> torch.Tensor:
+    """``_count_grams`` over the two tables
+    (``ops/multistep.py:make_stepped_count_unpacked``)."""
+    grams = combine_grams(win, V, k)
+    Vk = V ** k
+    s = torch.zeros(win.shape[1], dtype=torch.int64, device=win.device)
+    tot = torch.zeros(win.shape[1], dtype=torch.int32, device=win.device)
+    for j in range(grams.shape[0]):
+        i = s * Vk + grams[j]
+        s = delta_k[i].long()
+        if j >= halo_steps:
+            tot += cnt_k[i]
     return tot
 
 
@@ -290,4 +318,57 @@ def stepped_count_many(packed, V: int, k: int, count_bits: int,
                  halo=halo_steps * k, ext_u8=int(tm.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), k=k,
                  count_bits=count_bits, doc_len=L, n_docs=B)
+    return out
+
+
+def stepped_count_2t_plain(delta_k, cnt_k, V: int, k: int, halo_steps: int,
+                           B: int, L: int, ext, lut=None,
+                           head_ids=None) -> torch.Tensor:
+    """Plain K9: per-stream int32 match totals [B] past the halo grams."""
+    return _count_grams_2t(delta_k, cnt_k, V, k, halo_steps,
+                           window(B, L, halo_steps * k, ext, lut, head_ids))
+
+
+def stepped_count_2t(delta_k, cnt_k, V: int, k: int, halo_steps: int, B: int,
+                     L: int, ext, lut=None, head_ids=None) -> torch.Tensor:
+    """K9: per-stream int32 match totals [B] through the two tables; the
+    caller sums them in int64. Forms "ids" and "raw"."""
+    dev = check_stepped(delta_k, k, halo_steps, B, L, ext, lut, head_ids)
+    _check_inputs(ext, lut, (cnt_k,))
+    if dev.type == "cpu":
+        return stepped_count_2t_plain(delta_k, cnt_k, V, k, halo_steps, B, L,
+                                      ext, lut, head_ids)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    build.launch("ac_stepped_count_2t", dev,
+                 form="ids" if lut is None else "raw", table=delta_k,
+                 table2=cnt_k, ext=ext, lut=lut, head_ids=head_ids, out=out,
+                 L=L, Vk=V ** k, B=B, V=V, halo=halo_steps * k,
+                 ext_u8=int(ext.dtype == torch.uint8),
+                 n_lut=0 if lut is None else lut.numel(), k=k)
+    return out
+
+
+def stepped_count_many_2t_plain(delta_k, cnt_k, V: int, k: int,
+                                tm) -> torch.Tensor:
+    """Plain K9 batch form: int32 match totals per column of the
+    time-major batch ``tm`` [L, B], every column from the root."""
+    return _count_grams_2t(delta_k, cnt_k, V, k, 0, tm.long())
+
+
+def stepped_count_many_2t(delta_k, cnt_k, V: int, k: int, tm) -> torch.Tensor:
+    """K9 batch form (count_many on the two tables, as the JAX scanner
+    runs ``make_stepped_count_unpacked`` with no halo and no split): int32
+    match totals [B] of the time-major batch ``tm`` [L, B] of int32 letter
+    ids, L a multiple of k; the caller sums them in int64."""
+    dev = check_stepped_many(delta_k, k, 1, tm.shape[0], tm, None)
+    _check_inputs(tm, None, (cnt_k,))
+    if dev.type == "cpu":
+        return stepped_count_many_2t_plain(delta_k, cnt_k, V, k, tm)
+    L, B = tm.shape
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    if not out.numel():
+        return out
+    build.launch("ac_stepped_count_2t", dev, form="batch", table=delta_k,
+                 table2=cnt_k, ext=tm, out=out, L=L, Vk=V ** k, B=B, V=V,
+                 halo=0, k=k, doc_len=L, n_docs=B, layout=1)
     return out

@@ -25,6 +25,10 @@ Device half:
   ``sparse_count_stepped`` K3's over the windows (``make_sparse_count``,
   ``make_sparse_count_stepped`` and their ``_dev`` forms, and the elided
   counts of ``models/scanner.py:_elided_count_core``).
+* K10's window forms (csrc/mxu_scan.cu, ``ops/scan_mxu.py``):
+  ``sparse_count_mxu`` runs the MXU engine over the windows
+  (``make_sparse_count_mxu[_dev]`` and the elided count's
+  ``scan_mxu.make_mxu_count_halo``).
 
 A window source ``src`` is either the stream ``ext`` [halo + (nB+1)*L_blk]
 int32 ids, head halo in front and one all-OOV spare block at the end,
@@ -43,6 +47,7 @@ import torch
 from . import build
 from .multistep import _count_grams
 from .scan_dense import _check_inputs, _count_window
+from .scan_mxu import check_planes, mxu_count_window, mxu_fields
 
 # -- host half ---------------------------------------------------------------
 
@@ -257,4 +262,33 @@ def sparse_count_stepped(packed, V: int, k: int, count_bits: int,
                      L=L_blk, Vk=V ** k, V=V, halo=halo, k=k,
                      count_bits=count_bits,
                      **window_fields(L_blk, src, idx))
+    return out
+
+
+def sparse_count_mxu_plain(planes, V: int, count_bits: int, n_planes: int,
+                           halo: int, L_blk: int, src,
+                           idx=None) -> torch.Tensor:
+    """Plain K10 window forms: int32 match totals per window (rows past
+    the halo) through the MXU engine."""
+    return mxu_count_window(planes, V, count_bits, n_planes, halo,
+                            window_gather(src, idx, L_blk, halo))
+
+
+def sparse_count_mxu(planes, V: int, count_bits: int, n_planes: int,
+                     halo: int, L_blk: int, src, idx=None) -> torch.Tensor:
+    """K10 window forms: int32 match totals per window [n] through the
+    MXU engine, over the index list ("idx") or host-elided windows
+    ("elided"); the caller sums them in int64."""
+    check_planes(planes, V, n_planes)
+    dev = check_windows(L_blk, halo, src, idx)
+    if planes.device != dev:
+        raise ValueError(f"inputs on {planes.device} and {dev}")
+    if dev.type == "cpu":
+        return sparse_count_mxu_plain(planes, V, count_bits, n_planes, halo,
+                                      L_blk, src, idx)
+    out = torch.empty(_n_windows(src, idx), dtype=torch.int32, device=dev)
+    if out.numel():
+        build.launch("ac_mxu_count", dev, out=out, L=L_blk, halo=halo,
+                     layout=2, **window_fields(L_blk, src, idx),
+                     **mxu_fields(planes, V, count_bits, n_planes))
     return out

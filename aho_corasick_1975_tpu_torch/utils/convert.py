@@ -16,15 +16,17 @@ from ..models.snapshot import DeviceSnapshot
 
 def snapshot_from_jax(jax_scanner, device="cuda") -> DeviceSnapshot:
     """The port's snapshot of a JAX ``DenseScanner``'s tables: capacity-
-    padded ``dflat`` and ``nb_out`` and the packed k-gram table, with its
-    k and count bits. A scanner built on it with the JAX scanner's
-    ``halo`` has the same ``halo_steps``."""
+    padded ``dflat`` and ``nb_out`` and the k-gram tables (packed, or the
+    two-table ``delta_k`` and ``cnt_k``), with k and the count bits. A
+    scanner built on it with the JAX scanner's ``halo`` has the same
+    ``halo_steps``."""
     st = jax_scanner._stepped
-    if st is not None and st.packed is None:
-        raise NotImplementedError(
-            "the unpacked two-table stepped form is not ported")
+    tabs = [np.asarray(t) for t in jax_scanner._st_dev]
+    packed = tabs[0] if st is not None and st.packed is not None else None
+    delta_k, cnt_k = (tabs if st is not None and st.packed is None
+                      else (None, None))
     return DeviceSnapshot.from_arrays(
         jax_scanner.tables, np.asarray(jax_scanner._dflat),
-        np.asarray(jax_scanner._nb_out),
-        None if st is None else np.asarray(jax_scanner._st_dev[0]),
-        jax_scanner.step_k, 0 if st is None else st.count_bits, device)
+        np.asarray(jax_scanner._nb_out), packed, jax_scanner.step_k,
+        0 if st is None else st.count_bits, device, delta_k=delta_k,
+        cnt_k=cnt_k)

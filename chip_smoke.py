@@ -47,13 +47,38 @@ card, importing nothing of JAX:
    versions at those shapes; each K7 and K8 form is held at least once on
    the hunt's windows, whose plain answer must be non-zero. (The resident
    ids, as bench_sparse.py builds them, hold no match.)
+10. two-table: the slice's dictionary with the two-table k-gram form
+   forced (as the tests force it): count() of a letter-id tensor and of
+   the bytes (K9's stream form on host-encoded ids) and count_many of 256
+   documents cut from the slice (its batch form), against the host scan;
+11. hybrid: engine="hybrid" on the slice: count() from bytes (pipelined,
+   K11's raw form) and from a letter-id tensor, a session over the
+   slice's chunks, a refresh() of the next 10 ranked words and a count,
+   against the host scan; B1, B2 and S_pad printed;
+12. mxu: engine="mxu" with the largest prefix of bench.py's ranked words
+   that fits it (S_pad <= 512): count() of the corpus from bytes and as a
+   tensor, count_many of config 3's 256 documents (K10's batch form), and
+   the signature hunt with prefilter="on" from bytes (elided windows) and
+   as a tensor (index list), against the host scan;
+13. calibration: calibrate=True on the slice's and the MXU dictionary's
+   scanners: the probe's times and winner; a second scanner of the same
+   geometry does not probe;
+14. engine kernels: every form of K9, K10 and K11 against its plain
+   version, exact, on data whose plain total is non-zero, with times, and
+   K11's time beside K3's at the same B and L.
 
-Each of phases 4, 6-8 and 9's (a)-(b) and (c) runs with the launch
+Each of phases 4, 6-8, 9's (a)-(b) and (c), and 10-12 runs with the launch
 counters set to 0 just before it and read just after, and fails unless
-every kernel of its path (and every K7 and K8 input form) was launched.
-Prints the kernels' JSON line, the card's name and power limit, and last
-the line {"ok": true, "device": {...}}. Any failure exits non-zero, and so
-does a machine without CUDA.
+every kernel of its path (and every input form named) was launched.
+Every kernel comparison gives its bound: every tensor of the call read
+once and its output written once over 3.35 TB/s (a capacity-padded
+table at its real states' rows, a stream read through an index list at
+its listed windows), against the int8 tensor-core operations the data
+needs at least (K10, K11: one tile product per plane and warp step) over
+1,979 TOPS. Prints the kernels'
+JSON line, the card's name and power limit, and last the line
+{"ok": true, "device": {...}}. Any failure exits non-zero, and so does a
+machine without CUDA.
 """
 
 from __future__ import annotations
@@ -84,6 +109,7 @@ RESIDENT_IDS = 64 << 20
 RESIDENT_DENSITIES = (1e-2, 1e-3, 1e-4)
 SEQ_SYMBOLS = 1 << 15   # scan_states_sequential: one thread
 TM_SIDE = 4096          # the time-major K2 batch: [TM_SIDE, TM_SIDE] ids
+TWO_TABLE_DOC = 12_288  # K9's batch form against its plain version
 GOLDEN = "To ushers: he found his pencil, but she could not find hers."
 GOLDEN_LINE = " 6:he 5:she 6:hers 12:he 21:his 38:he 37:she 56:he 56:hers"
 # entry point, or "entry/form" for a form counted in build.form_launches
@@ -134,6 +160,18 @@ KERNELS = {
         "K8 window_hits (window form)",
         "aho_corasick_1975_tpu_torch/csrc/sparse_scan.cu",
         "aho_corasick_1975_tpu/ops/sparse.py:200"),
+    "ac_stepped_count_2t": (
+        "K9 stepped_count_2t (two-table k-gram count)",
+        "aho_corasick_1975_tpu_torch/csrc/stepped_scan.cu",
+        "aho_corasick_1975_tpu/ops/multistep.py:366"),
+    "ac_mxu_count": (
+        "K10 mxu_count (int8 mma.sync one-hot x digit planes)",
+        "aho_corasick_1975_tpu_torch/csrc/mxu_scan.cu",
+        "aho_corasick_1975_tpu/ops/scan_mxu.py:79"),
+    "ac_hybrid_count": (
+        "K11 hybrid_count (gather and MMA blocks in one launch)",
+        "aho_corasick_1975_tpu_torch/csrc/mxu_scan.cu",
+        "aho_corasick_1975_tpu/ops/scan_hybrid.py:52"),
 }
 # K7 and K8 input forms every sparse run must launch (build.form_launches)
 SPARSE_FORMS = ("ac_sparse_count/idx", "ac_sparse_count/elided",
@@ -162,16 +200,25 @@ def corpus() -> str:
 
 
 def slice_setup(act):
+    """bench.py's machine (its N_KEYWORDS most frequent words as ` word `
+    byte keywords), its corpus tiled to TARGET_BYTES, and every word of
+    the corpus as a keyword, in bench.py's frequency order."""
     norm = corpus()
     freq: dict = {}
     for w in norm.split():
         freq[w] = freq.get(w, 0) + 1
-    words = sorted(freq, key=lambda w: (-freq[w], w))[:N_KEYWORDS]
-    machine = act.Machine()
-    for w in words:
-        machine.insert_keyword(b" " + w.encode() + b" ")
+    ranked = [b" " + w.encode() + b" "
+              for w in sorted(freq, key=lambda w: (-freq[w], w))]
     reps = max(1, TARGET_BYTES // len(norm))
-    return machine, ((norm + " ") * reps).encode()
+    return (keyword_machine(act, ranked[:N_KEYWORDS]),
+            ((norm + " ") * reps).encode(), ranked)
+
+
+def keyword_machine(act, keywords):
+    machine = act.Machine()
+    for w in keywords:
+        machine.insert_keyword(w)
+    return machine
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -189,6 +236,72 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# The card's peaks (H100 SXM data sheet): device
+# memory bytes/s and dense int8 tensor-core operations/s.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+MMA_OPS = 2 * 16 * 32 * 8   # one mma.sync m16n8k32 (multiply-adds x 2)
+
+
+def nbytes(x) -> int:
+    """Bytes of the tensors in x (a tensor, or nested tuples of them)."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(nbytes(y) for y in x)
+    return 0
+
+
+def needs(sc, halo: int = 0, L_blk: int = 0):
+    """The bytes the data needs of tensors a kernel reads only in part:
+    (tensor, bytes) pairs for the scanner's capacity-padded tables (their
+    real states' rows) and, for a window form given an index list, the
+    stream under it (its listed windows of halo + L_blk ids). Returns a
+    function of a compared input's tensors."""
+    snap, S, st = sc._snap, sc.tables.n_states, sc._stepped
+    rows = [(snap.dflat, S * sc.V * 4), (snap.nb_out, S * 4)]
+    for t in (snap.packed, snap.delta_k, snap.cnt_k):
+        if t is not None:
+            rows.append((t, S * st.Vk * 4))
+
+    def pairs(*extra):
+        out = list(rows)
+        if (L_blk and len(extra) > 1 and extra[0].dim() == 1
+                and extra[1] is not None):
+            out.append((extra[0], extra[1].numel() * (halo + L_blk) * 4))
+        return out
+    return pairs
+
+
+def moved_bytes(xs, need) -> int:
+    """Bytes of the tensors in xs, each read or written once, with the
+    tensors of ``need`` counted at their needed bytes."""
+    total = 0
+    for x in xs:
+        if isinstance(x, (tuple, list)):
+            total += moved_bytes(x, need)
+        elif isinstance(x, torch.Tensor):
+            part = [b for t, b in need if t is x]
+            total += part[0] if part else nbytes(x)
+    return total
+
+
+def bound(moved: int, ops: int):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes moved over the memory rate and the int8 tensor
+    operations over their peak."""
+    b_ms = moved / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / INT8_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def mma_ops(n_planes: int, columns: int, rows: int) -> int:
+    """The int8 operations a K10 warp body needs at least: every step of
+    each 16-column warp multiplies, per plane, one 32-state tile of the
+    one-hot states by one 8-column tile of the planes."""
+    return MMA_OPS * n_planes * (-(-columns // 16)) * rows
+
+
 def max_abs_err(a, b) -> int:
     if isinstance(a, tuple):
         return max(max_abs_err(x, y) for x, y in zip(a, b))
@@ -203,24 +316,10 @@ def phase_kernels(sc, text: bytes) -> dict:
     from aho_corasick_1975_tpu_torch.ops import hits, multistep, scan_dense
     st, snap = sc._stepped, sc._snap
     check(st is not None and st.k == 3, "the slice's packed table has k=3")
-    rng = np.random.default_rng(1)
-    lut_host = sc._get_lut("byte")[3]
-    lut = snap.place(lut_host)
     B, L = N_STREAMS, KERNEL_L
     results = {}
-
-    def inputs(halo):
-        raw = np.zeros(halo + B * L, np.uint8)
-        n = min(len(text), B * L)
-        raw[halo:halo + n] = np.frombuffer(text, np.uint8)[:n]
-        head = rng.integers(1, sc.V, halo).astype(np.int32)
-        ids = lut_host[raw].astype(np.int32)
-        ids[:halo] = head
-        return {"raw_u8": (snap.place(raw), lut, snap.place(head)),
-                "ids_i32": (snap.place(ids), None, None)}
-
-    dense_in = inputs(sc.halo)
-    step_in = inputs(sc._halo_sym)
+    dense_in = stream_inputs(sc, text, sc.halo, B, L)
+    step_in = stream_inputs(sc, text, sc._halo_sym, B, L)
     cases = {
         "ac_dense_count": (scan_dense.dense_count, scan_dense.dense_count_plain,
                            (snap.dflat, snap.nb_out, sc.V, sc.halo, B, L),
@@ -238,17 +337,39 @@ def phase_kernels(sc, text: bytes) -> dict:
     }
     for name, (kernel, plain, args, ins) in cases.items():
         results[name] = compare(name, kernel, plain, args, ins,
-                                f"B={B} L={L}")
+                                f"B={B} L={L}", need=needs(sc))
     return results
 
 
+def stream_inputs(sc, text: bytes, halo: int, B: int, L: int,
+                  seed: int = 1) -> dict:
+    """A kernel's stream inputs from the corpus: raw uint8 bytes with the
+    scanner's byte LUT and seeded non-zero head ids, and the same stream as
+    int32 letter ids."""
+    rng = np.random.default_rng(seed)
+    snap = sc._snap
+    lut_host = sc._get_lut("byte")[3]
+    raw = np.zeros(halo + B * L, np.uint8)
+    n = min(len(text), B * L)
+    raw[halo:halo + n] = np.frombuffer(text, np.uint8)[:n]
+    head = rng.integers(1, sc.V, halo).astype(np.int32)
+    ids = lut_host[raw].astype(np.int32)
+    ids[:halo] = head
+    return {"raw_u8": (snap.place(raw), snap.place(lut_host),
+                       snap.place(head)),
+            "ids_i32": (snap.place(ids), None, None)}
+
+
 def compare(name, kernel, plain, args, ins, shape: str,
-            hits: bool = False) -> dict:
+            hits: bool = False, ops=None, need=None) -> dict:
     """Each input of ``ins`` through the kernel and its plain version:
     exact equality, then the kernel's mean time over 10 runs and the plain
-    version's over 2 (CUDA events). With ``hits``, the plain version's
-    output must hold a match (a non-zero count), so that a kernel writing
-    zeros cannot pass."""
+    version's over 2 (CUDA events), and the bound: every tensor of the
+    call read once and its output written once, those of
+    ``need(*extra)`` at the bytes the data needs of them (``needs``), and
+    ``ops(*extra)`` int8 tensor operations (none but for K10, K11).
+    With ``hits``, the plain version's output must hold a match (a
+    non-zero count), so that a kernel writing zeros cannot pass."""
     res = {}
     for kind, extra in ins.items():
         got = kernel(*args, *extra)
@@ -262,10 +383,13 @@ def compare(name, kernel, plain, args, ins, shape: str,
               f"windows that hold matches (plain total {total})")
         ms = cuda_ms(lambda: kernel(*args, *extra), 10)
         plain_ms = cuda_ms(lambda: plain(*args, *extra), 2)
-        res[kind] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        moved = moved_bytes((args, extra, got), need(*extra) if need else ())
+        bound_ms, bound_by = bound(moved, ops(*extra) if ops else 0)
+        res[kind] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"kernel {name} {kind} {shape}: {ms:.4f} ms, plain "
-              f"{plain_ms:.2f} ms, max_abs_err {err}, plain total {total}",
-              flush=True)
+              f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"max_abs_err {err}, plain total {total}", flush=True)
     return res
 
 
@@ -329,12 +453,12 @@ def phase_batch_kernels(sc, docs, sc3, text: bytes) -> dict:
             "ac_stepped_count_many", multistep.stepped_count_many,
             multistep.stepped_count_many_plain,
             (snap.packed, st.V, st.k, st.count_bits, sc._halo_steps, c, Lp),
-            ins, shape + f" k=1 halo={sc._halo_sym}"),
+            ins, shape + f" k=1 halo={sc._halo_sym}", need=needs(sc)),
         "ac_dense_count_many": compare(
             "ac_dense_count_many", scan_dense.dense_count_many,
             scan_dense.dense_count_many_plain,
             (snap.dflat, snap.nb_out, sc.V, sc.halo, c, Lp), ins,
-            shape + f" halo={sc.halo}")}
+            shape + f" halo={sc.halo}", need=needs(sc))}
     st3, snap3 = sc3._stepped, sc3._snap
     L3 = min(len(text) // B, 1 << 18) // st3.k * st3.k
     tm3 = np.frombuffer(text[:B * L3], np.uint8).reshape(B, L3).T.copy()
@@ -346,7 +470,7 @@ def phase_batch_kernels(sc, docs, sc3, text: bytes) -> dict:
                  {"slice_k3_raw_u8": (snap3.place(tm3),
                                       snap3.place(sc3._get_lut("byte")[3]))},
                  f"L={L3} B={B} c={c3} Lp={Lp3} k={st3.k} "
-                 f"halo={sc3._halo_sym}")
+                 f"halo={sc3._halo_sym}", need=needs(sc3))
     res["ac_stepped_count_many"].update(k3)
     return res
 
@@ -407,17 +531,23 @@ def phase_count_many(build, m, docs) -> dict:
     return launches
 
 
-def phase_sessions(act, build, machine, sc, text: bytes, n: int,
-                   ends: np.ndarray, count_s: float) -> None:
-    """The slice corpus in seeded chunks of 1 byte to 12 MiB through
-    feed_count and feed_matches, and a checkpoint resumed on a machine
-    carried through save_machine/load_machine."""
+def session_chunks(text: bytes) -> list:
+    """The corpus cut at seeded points into chunks of 1 byte to
+    MAX_CHUNK."""
     rng = np.random.default_rng(3)
     cuts = [0]
     while cuts[-1] < len(text):
         size = int(np.exp(rng.uniform(0, np.log(MAX_CHUNK))))
         cuts.append(min(len(text), cuts[-1] + max(1, size)))
-    chunks = [text[a:b] for a, b in zip(cuts, cuts[1:])]
+    return [text[a:b] for a, b in zip(cuts, cuts[1:])]
+
+
+def phase_sessions(act, build, machine, sc, text: bytes, n: int,
+                   ends: np.ndarray, count_s: float) -> None:
+    """The slice corpus in seeded chunks of 1 byte to 12 MiB through
+    feed_count and feed_matches, and a checkpoint resumed on a machine
+    carried through save_machine/load_machine."""
+    chunks = session_chunks(text)
     half = len(chunks) // 2
 
     def run():
@@ -763,7 +893,7 @@ def phase_sparse(act, build):
     print(f"sparse (b) density 0.001 tensor count() profile: "
           f"{device_busy(lambda: scb.count(tensor))}", flush=True)
     return dict(sc=sc, text=text, hunt_ids=hunt_ids, scb=scb, scb1=scb1,
-                corpora=corpora, tensor=tensor), launches
+                corpora=corpora, tensor=tensor, hunt_n=n), launches
 
 
 def phase_gate(build, machine, text: bytes, n: int, ends) -> dict:
@@ -845,13 +975,14 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         {"elided (a)": (hunt_tm, None),
          "idx (a) tensor": (hunt_ext_k, hunt_idx_k)},
         f"windows {tuple(hunt_tm.shape)}, cap={hunt_idx_k.numel()} k={k}",
-        hits=True)
+        hits=True, need=needs(sc, halo, L_blk))
     kb, halob, L_b = scb._sparse_geometry()
     ext_b, idx_b = resident_windows(scb, state["tensor"], halob, L_b)
     res["ac_sparse_count_stepped"].update(compare(
         "ac_sparse_count_stepped", sparse.sparse_count_stepped,
         sparse.sparse_count_stepped_plain, stepped_args(scb),
-        {"idx (b) 1e-3": (ext_b, idx_b)}, f"cap={idx_b.numel()} k={kb}"))
+        {"idx (b) 1e-3": (ext_b, idx_b)}, f"cap={idx_b.numel()} k={kb}",
+        need=needs(scb, halob, L_b)))
 
     # K7 dense and K8 windows: the hunt's 1-char windows hold its matches
     hunt_hits_tm, hunt_hits_idx = elided(sc, raw, hunt_lut, sc.halo, 128)
@@ -863,7 +994,7 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         "ac_sparse_count", sparse.sparse_count, sparse.sparse_count_plain,
         hunt_args, {"elided (a)": (hunt_hits_tm, None),
                     "idx (a) tensor": (hunt_ext, hunt_idx)},
-        hunt_shape, hits=True)
+        hunt_shape, hits=True, need=needs(sc, sc.halo, 128))
     snap1 = scb1._snap
     ext1, idx1 = resident_windows(scb1, state["tensor"], scb1.halo, 128)
     tm1, tm1_idx = elided(scb1, state["corpora"][1e-3], None, scb1.halo, 128)
@@ -872,7 +1003,8 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         "ac_sparse_count", sparse.sparse_count, sparse.sparse_count_plain,
         dense_args, {"idx (b) 1e-3": (ext1, idx1),
                      "elided (b) 1e-3": (tm1, None)},
-        f"cap={idx1.numel()} / windows {tuple(tm1.shape)}"))
+        f"cap={idx1.numel()} / windows {tuple(tm1.shape)}",
+        need=needs(scb1, scb1.halo, 128)))
 
     def hits_of(fn):
         def run(*a):
@@ -884,12 +1016,13 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         "ac_window_hits", hits_of(hits.window_hits),
         hits_of(hits.window_hits_plain), hunt_args,
         {"elided (a)": (hunt_hits_tm, hunt_hits_idx),
-         "idx (a) tensor": (hunt_ext, hunt_idx)}, hunt_shape, hits=True)
+         "idx (a) tensor": (hunt_ext, hunt_idx)}, hunt_shape, hits=True,
+        need=needs(sc, sc.halo, 128))
     res["ac_window_hits"].update(compare(
         "ac_window_hits", hits_of(hits.window_hits),
         hits_of(hits.window_hits_plain), dense_args,
         {"idx (b) 1e-3": (ext1, idx1), "elided (b) 1e-3": (tm1, tm1_idx)},
-        f"cap={idx1.numel()}"))
+        f"cap={idx1.numel()}", need=needs(scb1, scb1.halo, 128)))
     slice_raw = np.frombuffer(text, np.uint8)
     ext_raw, head_ids, B, L, T = sca1._stream_ext_raw(slice_raw, None,
                                                       sca1.halo, 128)
@@ -901,16 +1034,318 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         hits_of(hits.dense_hits_plain),
         (s1.dflat, s1.nb_out, sca1.V, sca1.halo, B, L),
         {"raw_u8": (ext_raw, lut, head_ids), "ids_i32": (ext_ids, None, None)},
-        f"B={B} L={L} (the slice, step_k=1)", hits=True)
+        f"B={B} L={L} (the slice, step_k=1)", hits=True, need=needs(sca1))
     res["ac_dense_states/seq"] = compare(
         "ac_dense_states/seq", scan_dense.sequential_states,
         scan_dense.sequential_states_plain, (s1.dflat, sca1.V),
-        {"ids_i32": (t_ids[:SEQ_SYMBOLS].contiguous(),)}, f"T={SEQ_SYMBOLS}")
+        {"ids_i32": (t_ids[:SEQ_SYMBOLS].contiguous(),)}, f"T={SEQ_SYMBOLS}",
+        need=needs(sca1))
     tm = ext_ids[sca1.halo:].view(B, L).t().contiguous()
     res["ac_dense_states_tm"] = compare(
         "ac_dense_states_tm", scan_dense.blocked_states,
         scan_dense.blocked_states_plain, (s1.dflat, sca1.V),
-        {"ids_i32": (tm,)}, f"[L, B] = [{L}, {B}]")
+        {"ids_i32": (tm,)}, f"[L, B] = [{L}, {B}]", need=needs(sca1))
+    return res
+
+
+# -- the engines and the two-table count (K9-K11) ---------------------------
+
+
+def forced_two_table():
+    """Force the two-table k-gram form as tests/test_torch_unpacked.py
+    does: build_stepped returns its packed table as delta_k and cnt_k.
+    Returns the function that undoes it."""
+    from aho_corasick_1975_tpu_torch.ops import multistep
+    orig = multistep.build_stepped
+
+    def unpacked(tables, k, cap_rows=None):
+        st = orig(tables, k)
+        if st.packed is not None:
+            cb = st.count_bits
+            st.delta_k = (st.packed >> cb).astype(np.int32)
+            st.cnt_k = (st.packed & ((1 << cb) - 1)).astype(np.int32)
+            st.packed = st.cap_packed = None
+            st.count_bits = 0
+        return st
+
+    multistep.build_stepped = unpacked
+    return lambda: setattr(multistep, "build_stepped", orig)
+
+
+def oracle_docs(m, docs) -> np.ndarray:
+    return np.asarray([m.match_stream(m.initiate(), d, parallel=False)
+                       for d in docs], np.int64)
+
+
+def phase_two_table(act, build, ranked, text: bytes, n: int, t_ids,
+                    docs):
+    """The slice's dictionary with the two-table form forced: count() of
+    the letter-id tensor (K9's stream form) and of the bytes (encoded on
+    the host, as the reference's raw paths decline the two tables), and
+    count_many of ``docs`` (K9's batch form), against the host oracle."""
+    undo = forced_two_table()
+    try:
+        m = keyword_machine(act, ranked[:N_KEYWORDS])
+        sc = m.scanner(n_streams=N_STREAMS)
+    finally:
+        undo()
+    snap = sc._snap
+    check(snap.packed is None and snap.delta_k is not None,
+          "the slice's scanner holds the two-table form")
+
+    def run():
+        return (took(build, lambda: sc.count(t_ids)),
+                took(build, lambda: sc.count(text)),
+                took(build, lambda: sc.count_many(docs)))
+
+    (ct, cb, cm), launches = driven(
+        build, ("ac_stepped_count_2t/ids", "ac_stepped_count_2t/batch"),
+        "two-table", run)
+    check(ct[0] == cb[0] == n, f"two-table counts {ct[0]}, {cb[0]} equal "
+          f"{n}")
+    want = oracle_docs(m, docs)
+    check(np.array_equal(cm[0], want) and want.sum() > 0,
+          "two-table count_many equals the host oracle per document")
+    print(f"two-table: k={sc.step_k}, delta_k and cnt_k "
+          f"{nbytes((snap.delta_k, snap.cnt_k))} bytes; tensor count() "
+          f"[{ct[1]}] {ct[2] * 1e3:.1f} ms, bytes count() [{cb[1]}] "
+          f"{cb[2] * 1e3:.1f} ms, both {n} == host oracle; count_many of "
+          f"{len(docs)} documents of {len(docs[0])} bytes [{cm[1]}] "
+          f"{cm[2] * 1e3:.1f} ms, {int(want.sum())} matches == host oracle",
+          flush=True)
+    return dict(sc=sc, docs=docs), launches
+
+
+def phase_hybrid(act, build, ranked, text: bytes, n: int, t_ids,
+                 gather_s: float):
+    """engine="hybrid" on the slice: count() of the bytes (pipelined, K11's
+    raw form), of the letter-id tensor (its ids form), a session over the
+    slice's chunks, then a refresh() of the next 10 words of bench.py's
+    ranking and a count, each against the host oracle."""
+    from aho_corasick_1975_tpu_torch.ops import scan_hybrid
+    m = keyword_machine(act, ranked[:N_KEYWORDS])
+    sc = m.scanner(n_streams=N_STREAMS, engine="hybrid")
+    _, cbm, n_planes, S_pad = sc._hybrid
+    B2 = scan_hybrid.mxu_cols(N_STREAMS, S_pad)
+    print(f"hybrid: S_pad={S_pad}, n_planes={n_planes}, count_bits "
+          f"{cbm}; at B={N_STREAMS} B1={N_STREAMS - B2} gather columns, "
+          f"B2={B2} MMA columns", flush=True)
+    chunks = session_chunks(text)
+    extra = ranked[N_KEYWORDS:N_KEYWORDS + 10]
+
+    def run():
+        c = took(build, lambda: sc.count(text))
+        ct = took(build, lambda: sc.count(t_ids))
+        s = sc.session()
+        t0 = time.perf_counter()
+        total = sum(s.feed_count(ch) for ch in chunks)
+        feed_s = time.perf_counter() - t0
+        for w in extra:
+            m.insert_keyword(w)
+        status = sc.refresh()
+        c2 = took(build, lambda: sc.count(text))
+        return c, ct, total, feed_s, status, c2
+
+    (c, ct, total, feed_s, status, c2), launches = driven(
+        build, ("ac_hybrid_count/raw", "ac_hybrid_count/ids"), "hybrid",
+        run)
+    check(c[0] == ct[0] == total == n, f"hybrid counts {c[0]}, {ct[0]}, "
+          f"session {total} equal {n}")
+    oracle = m.match_stream(m.initiate(), text, parallel=False)
+    check(c2[0] == oracle and sc._hybrid is not None,
+          f"hybrid count after refresh {c2[0]} equals the host oracle "
+          f"{oracle}")
+    best, _ = best_s(lambda: sc.count(text))
+    mib = len(text) / 2 ** 20
+    print(f"hybrid: count() [{c[1]}] first {c[2] * 1e3:.1f} ms, best "
+          f"{best * 1e3:.1f} ms = {mib / best:.1f} MiB/s (gather "
+          f"{gather_s * 1e3:.1f} ms); tensor [{ct[1]}] {ct[2] * 1e3:.1f} ms;"
+          f" session of {len(chunks)} chunks {feed_s * 1e3:.1f} ms, {total}"
+          f" == {n}; refresh +10 returned {status}, {m.n_states} states, "
+          f"count [{c2[1]}] {c2[0]} == host oracle", flush=True)
+    return sc, launches
+
+
+def mxu_prefix(act, ranked) -> int:
+    """The largest N whose first N ranked keywords fit the MXU engine
+    (S_pad <= MAX_MXU_STATES)."""
+    from aho_corasick_1975_tpu_torch.ops import scan_mxu
+    lo, hi = 1, len(ranked)
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        t = keyword_machine(act, ranked[:mid]).compile()
+        if scan_mxu.build_planes(t.delta, t.nb_outputs) is not None:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def phase_mxu(act, build, ranked, text: bytes, docs, hunt: bytes,
+              hunt_n: int):
+    """engine="mxu" with the largest prefix of bench.py's ranking that fits
+    it: count() of the corpus from bytes (K10 raw) and as a tensor (ids),
+    count_many of config 3's documents (batch), and the signature hunt
+    with prefilter="on" from bytes (elided windows) and as a tensor (the
+    index list), against the host oracle."""
+    N = mxu_prefix(act, ranked)
+    m = keyword_machine(act, ranked[:N])
+    sc = m.scanner(n_streams=N_STREAMS, engine="mxu")
+    _, cbits, n_planes, S_pad = sc._mxu
+    t_ids = torch.from_numpy(sc._get_lut("byte")[3][
+        np.frombuffer(text, np.uint8)]).to("cuda")
+    mh = keyword_machine(act, SPARSE_KEYWORDS)
+    sh = mh.scanner(n_streams=4096, prefilter="on", engine="mxu")
+    h_ids = torch.from_numpy(sh._get_lut("byte")[3][
+        np.frombuffer(hunt, np.uint8)]).to("cuda")
+    print(f"mxu: N={N} words, {m.n_states} states, S_pad={S_pad}, V={sc.V},"
+          f" n_planes={n_planes}, count_bits {cbits}; hunt {mh.n_states} "
+          f"states, S_pad={sh._mxu[3]}", flush=True)
+
+    def run():
+        return (took(build, lambda: sc.count(text)),
+                took(build, lambda: sc.count(t_ids)),
+                took(build, lambda: sc.count_many(docs)),
+                took(build, lambda: sh.count(hunt)),
+                took(build, lambda: sh.count(h_ids)))
+
+    (c, ct, cm, hb, ht), launches = driven(
+        build, ("ac_mxu_count/raw", "ac_mxu_count/ids", "ac_mxu_count/batch",
+                "ac_mxu_count/elided", "ac_mxu_count/idx"), "mxu", run)
+    oracle = m.match_stream(m.initiate(), text, parallel=False)
+    check(c[0] == ct[0] == oracle > 0, f"mxu counts {c[0]}, {ct[0]} equal "
+          f"the host oracle {oracle}")
+    want = oracle_docs(m, docs)
+    check(np.array_equal(cm[0], want) and want.sum() > 0,
+          "mxu count_many equals the host oracle per document")
+    check(hb[0] == ht[0] == hunt_n, f"mxu hunt counts {hb[0]}, {ht[0]} "
+          f"equal {hunt_n}")
+    best, _ = best_s(lambda: sc.count(text))
+    gather = m.scanner(n_streams=N_STREAMS)
+    gbest, gn = best_s(lambda: gather.count(text))
+    check(gn == oracle, "gather count of the MXU dictionary")
+    mib = len(text) / 2 ** 20
+    print(f"mxu: count() [{c[1]}] first {c[2] * 1e3:.1f} ms, best "
+          f"{best * 1e3:.1f} ms = {mib / best:.1f} MiB/s, gather (k="
+          f"{gather.step_k}) {gbest * 1e3:.1f} ms; {oracle} matches == host "
+          f"oracle; tensor [{ct[1]}] {ct[2] * 1e3:.1f} ms; count_many "
+          f"[{cm[1]}] {cm[2] * 1e3:.1f} ms, {int(want.sum())} matches == "
+          f"host oracle; hunt bytes [{hb[1]}] {hb[2] * 1e3:.1f} ms, tensor "
+          f"[{ht[1]}] {ht[2] * 1e3:.1f} ms, {hunt_n} matches", flush=True)
+    return dict(sc=sc, sh=sh, t_ids=t_ids, h_ids=h_ids, N=N,
+                hunt=hunt), launches
+
+
+def phase_calibration(act, ranked, n_mxu: int) -> None:
+    """calibrate=True on the slice's and the MXU dictionary's scanners: the
+    probe times each engine that fits; a second scanner of the same
+    geometry takes the cached choice without probing."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    os.environ["ACX_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+    try:
+        for label, words in (("slice", ranked[:N_KEYWORDS]),
+                             ("mxu", ranked[:n_mxu])):
+            m = keyword_machine(act, words)
+            t0 = time.perf_counter()
+            sc = m.scanner(n_streams=N_STREAMS, calibrate=True)
+            probe_s = time.perf_counter() - t0
+            check("calibration" in sc.stats, f"{label}: the probe ran")
+            sc2 = m.scanner(n_streams=N_STREAMS, calibrate=True)
+            check("calibration" not in sc2.stats
+                  and sc2._engine == sc._engine,
+                  f"{label}: a second scanner takes the cached choice")
+            print(f"calibration {label}: {m.n_states} states, stats "
+                  f"{sc.stats['calibration']} (s), winner {sc._engine}, "
+                  f"scanner with probe {probe_s:.2f} s; second scanner "
+                  f"{sc2._engine}, no probe", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
+                         kern: dict) -> dict:
+    """K9, K10 and K11 against their plain versions, each form, at the
+    slice's kernel shapes (K9's batch form over shorter documents, which
+    its plain version's per-step loop allows)."""
+    from aho_corasick_1975_tpu_torch.ops import (multistep, scan_hybrid,
+                                                 scan_mxu, sparse)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    B, L = N_STREAMS, KERNEL_L
+    sc2 = two["sc"]
+    docs2 = [d[:TWO_TABLE_DOC] for d in two["docs"]]
+    st, snap = sc2._stepped, sc2._snap
+    args9 = (snap.delta_k, snap.cnt_k, st.V, st.k, sc2._halo_steps, B, L)
+    res["ac_stepped_count_2t"] = compare(
+        "ac_stepped_count_2t", multistep.stepped_count_2t,
+        multistep.stepped_count_2t_plain, args9,
+        stream_inputs(sc2, text, sc2._halo_sym, B, L),
+        f"B={B} L={L} k={st.k}", hits=True, need=needs(sc2))
+    Lb = next(sc2._length_buckets(np.array([len(docs2[0])]), 128 * st.k))[0]
+    tm9 = snap.place(batch_tm(docs2, Lb, np.int32, sc2.encode))
+    res["ac_stepped_count_2t"].update(compare(
+        "ac_stepped_count_2t", multistep.stepped_count_many_2t,
+        multistep.stepped_count_many_2t_plain,
+        (snap.delta_k, snap.cnt_k, st.V, st.k), {"batch": (tm9,)},
+        f"[L, B] = [{Lb}, {len(docs2)}]", hits=True, need=needs(sc2)))
+
+    scm, sh = mxu["sc"], mxu["sh"]
+    planes, cbits, n_planes, _ = scm._mxu
+    Lm = scm._layout(len(text), 128)[1]
+    res["ac_mxu_count"] = compare(
+        "ac_mxu_count", scan_mxu.mxu_count, scan_mxu.mxu_count_plain,
+        (planes, scm.V, cbits, n_planes, scm.halo, B, Lm),
+        stream_inputs(scm, text, scm.halo, B, Lm), f"B={B} L={Lm}",
+        hits=True, ops=lambda *e: mma_ops(n_planes, B, scm.halo + Lm))
+    Lc = next(scm._length_buckets(np.array([CM_DOC_LEN]), 128))[0]
+    c, Lp = scm._split_for(Lc, len(docs), 128)
+    lut = scm._snap.place(scm._get_lut("byte")[3])
+    res["ac_mxu_count"].update(compare(
+        "ac_mxu_count", scan_mxu.mxu_count_many,
+        scan_mxu.mxu_count_many_plain,
+        (planes, scm.V, cbits, n_planes, scm.halo, c, Lp),
+        {"batch raw_u8": (scm._snap.place(batch_tm(docs, Lc, np.uint8)),
+                          lut)},
+        f"L={Lc} B={len(docs)} c={c} Lp={Lp}", hits=True,
+        ops=lambda *e: mma_ops(n_planes, c * len(docs), scm.halo + Lp)))
+    hp, hcb, hnp, _ = sh._mxu
+    ent = sh._get_lut("byte")
+    raw = np.frombuffer(mxu["hunt"], np.uint8)
+    live = sparse.raw_live_blocks(raw, ent[3], ent[1], 128)[0]
+    win, _ = sparse.elide_windows(raw, (ent[3], ent[1]), len(raw), live,
+                                  int(live.sum()), None, sh.halo, 128,
+                                  len(live))
+    ext, idx, _, _ = sh._sparse_filter_device(mxu["h_ids"], None, sh.halo,
+                                              128)
+    res["ac_mxu_count"].update(compare(
+        "ac_mxu_count", sparse.sparse_count_mxu,
+        sparse.sparse_count_mxu_plain,
+        (hp, sh.V, hcb, hnp, sh.halo, 128),
+        {"elided (hunt)": (sh._snap.place(win), None),
+         "idx (hunt tensor)": (ext, idx)},
+        f"hunt windows {tuple(win.shape)}, cap={idx.numel()}", hits=True,
+        need=needs(sh, sh.halo, 128),
+        ops=lambda src, i: mma_ops(
+            hnp, src.shape[1] if i is None else i.numel(), sh.halo + 128)))
+
+    sth = hyb._stepped
+    hplanes, cbm, hn, S_pad = hyb._hybrid
+    B2 = scan_hybrid.mxu_cols(B, S_pad)
+    res["ac_hybrid_count"] = compare(
+        "ac_hybrid_count", scan_hybrid.hybrid_count,
+        scan_hybrid.hybrid_count_plain,
+        (hyb._snap.packed, hplanes, sth.V, sth.k, sth.count_bits,
+         hyb._halo_steps, hn, cbm, B - B2, B, L),
+        stream_inputs(hyb, text, hyb._halo_sym, B, L),
+        f"B={B} (B1={B - B2}, B2={B2}) L={L} k={sth.k}", hits=True,
+        need=needs(hyb),
+        ops=lambda *e: mma_ops(hn, B2, hyb._halo_sym + L))
+    for kind in ("raw_u8", "ids_i32"):
+        print(f"K11 {kind} {res['ac_hybrid_count'][kind]['ms']:.4f} ms "
+              f"beside K3 {kern['ac_stepped_count'][kind]['ms']:.4f} ms at "
+              f"B={B} L={L} (the slice's tables)", flush=True)
     return res
 
 
@@ -954,7 +1389,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions, at the slice's shapes
     t0 = time.perf_counter()
-    machine, text = slice_setup(act)
+    machine, text, ranked = slice_setup(act)
     sc = machine.scanner(n_streams=N_STREAMS)
     sc1 = machine.scanner(n_streams=N_STREAMS, step_k=1)
     tabs = sc.tables
@@ -1023,7 +1458,7 @@ def main() -> int:
     # 6. count_many at config 3
     launches.update({e: v for e, v in phase_count_many(build, m3, docs).items()
                      if e in ("ac_stepped_count_many", "ac_dense_count_many")})
-    del m3, docs
+    del m3
 
     # 7. sessions over the slice corpus
     phase_sessions(act, build, machine, sc, text, n, ms.ends,
@@ -1041,6 +1476,25 @@ def main() -> int:
     launches["ac_dense_hits"] = gate["launches"]["ac_dense_hits"]
     kern.update(phase_sparse_kernels(state, gate, text))
 
+    # 10. the two-table count, forced, on the slice's dictionary
+    L2 = min(len(text) // CM_DOCS, 1 << 18)
+    docs2 = [text[i * L2:(i + 1) * L2] for i in range(CM_DOCS)]
+    two, two_launches = phase_two_table(act, build, ranked, text, n,
+                                        gate["t_ids"], docs2)
+    # 11. the hybrid engine on the slice
+    hyb, hyb_launches = phase_hybrid(act, build, ranked, text, n,
+                                     gate["t_ids"], min(count_times))
+    # 12. the MXU engine: the slice's corpus, config 3, the hunt
+    mxu, mxu_launches = phase_mxu(act, build, ranked, text, docs,
+                                  state["text"], state["hunt_n"])
+    # 13. calibration
+    phase_calibration(act, ranked, mxu["N"])
+    # 14. K9-K11 against their plain versions
+    kern.update(phase_engine_kernels(two, hyb, mxu, text, docs, kern))
+    launches["ac_stepped_count_2t"] = two_launches["ac_stepped_count_2t"]
+    launches["ac_mxu_count"] = mxu_launches["ac_mxu_count"]
+    launches["ac_hybrid_count"] = hyb_launches["ac_hybrid_count"]
+
     def first(entry, key):
         return next(iter(kern[entry].values()))[key]
 
@@ -1048,7 +1502,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[entry],
          "max_abs_err": max(r["max_abs_err"] for r in kern[entry].values()),
-         "ms": first(entry, "ms"), "plain_ms": first(entry, "plain_ms")}
+         "ms": first(entry, "ms"), "plain_ms": first(entry, "plain_ms"),
+         "bound_ms": first(entry, "bound_ms"),
+         "bound_by": first(entry, "bound_by"), "library_ms": None}
         for entry, (name, src, rep) in KERNELS.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

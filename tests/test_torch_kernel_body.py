@@ -12,7 +12,12 @@ The prefilter's bodies, K7 (window counts over an index list and over
 host-elided windows) and K8 (the bounded hits of streams and windows, both
 passes into buffers of exactly the hit count), and K2's one-thread and
 time-major modes are held against the JAX package's ``ops/sparse.py``,
-``ops/hits.py`` and ``ops/scan_xla.py`` functions.
+``ops/hits.py`` and ``ops/scan_xla.py`` functions. K9 (the two-table
+count, stream and batch forms), K10 (the MXU engine's warp body, whose
+``mma.sync`` the g++ build emulates lane by lane from the PTX fragment
+layout, in every form) and K11 (the hybrid launch) are held against the
+JAX package's ``ops/multistep.py``, ``ops/scan_mxu.py``,
+``ops/scan_hybrid.py`` and ``ops/sparse.py`` functions.
 """
 
 import ctypes
@@ -26,10 +31,13 @@ import torch
 import torch_cases as tc
 from aho_corasick_1975_tpu.ops import hits as jhits
 from aho_corasick_1975_tpu.ops import multistep as jms
+from aho_corasick_1975_tpu.ops import scan_hybrid as jhybrid
+from aho_corasick_1975_tpu.ops import scan_mxu as jmxu
 from aho_corasick_1975_tpu.ops import scan_xla as jxla
 from aho_corasick_1975_tpu.ops import sparse as jsp
 from aho_corasick_1975_tpu_torch.ops import (build, hits, multistep,
-                                             scan_dense, sparse)
+                                             scan_dense, scan_hybrid,
+                                             scan_mxu, sparse)
 
 B = tc.B
 SHAPES = {"halo": (5, 24), "long_halo": (9, 4)}
@@ -326,3 +334,193 @@ def test_k2_mode_kernels(lib):
     np.testing.assert_array_equal(out.numpy(), np.asarray(
         jxla.make_blocked_scan(V)(jnp.asarray(tab["dflat"]),
                                   jnp.asarray(tm))))
+
+
+# -- K9, K10, K11 -------------------------------------------------------------
+
+def _two_tables(tab):
+    """The packed table's two-table form, delta_k and cnt_k."""
+    packed, cb = tab["packed"], tab["count_bits"]
+    return ((packed >> cb).astype(np.int32),
+            (packed & ((1 << cb) - 1)).astype(np.int32))
+
+
+def _planes(tab, max_states=None):
+    t = tab["machine"].compile()
+    planes, cb, n_planes, S_pad = scan_mxu.build_planes(
+        t.delta, t.nb_outputs, max_states=max_states)
+    return planes, dict(planes=_t(planes), S_pad=S_pad, n_planes=n_planes,
+                        count_bits_m=cb)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("kind", tc.KINDS)
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_stepped_count_2t_kernel(lib, k, kind, shape):
+    """K9's stream body (ids, raw) against its plain version, K3's count
+    of the same table packed, and the JAX two-table stream count."""
+    tab = tc.tables(k)
+    halo_steps = -(-SHAPES[shape][0] // k)
+    L = 8 * k if shape == "halo" else 2 * k
+    s = tc.stream(tab, kind, halo_steps * k, L)
+    V = tab["V"]
+    dk, ck = _two_tables(tab)
+    out = torch.full((B,), -7, dtype=torch.int32)
+    _run(lib, "ac_stepped_count_2t", table=_t(dk), table2=_t(ck), out=out,
+         Vk=V ** k, k=k, **_common(s, halo_steps * k, L, V))
+    args = (V, k, halo_steps, B, L, _t(s["ext"]), _t(s["lut"]),
+            _t(s["head_ids"]))
+    want = multistep.stepped_count_2t_plain(_t(dk), _t(ck), *args)
+    assert torch.equal(out, want) and int(want.sum()) > 0
+    assert torch.equal(want, multistep.stepped_count_plain(
+        _t(tab["packed"]), V, k, tab["count_bits"], *args[2:]))
+    if kind == "ids":
+        jwant = jms.make_stepped_count_unpacked_stream(
+            V, k, V ** k, halo_steps, B, L)(
+            jnp.asarray(dk), jnp.asarray(ck), jnp.asarray(s["ext"]))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(jwant))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_stepped_count_2t_batch_kernel(lib, k):
+    """K9's batch body: count_many's [L, B] ids from the root, against the
+    JAX package's make_stepped_count_unpacked."""
+    tab = tc.tables(k)
+    V = tab["V"]
+    tm = tc.batch(tab, "ids", 24 * k, n_docs=5)["tm"]
+    dk, ck = _two_tables(tab)
+    out = torch.full((5,), -7, dtype=torch.int32)
+    _run(lib, "ac_stepped_count_2t", table=_t(dk), table2=_t(ck), ext=_t(tm),
+         out=out, L=tm.shape[0], Vk=V ** k, B=5, V=V, halo=0, k=k,
+         doc_len=tm.shape[0], n_docs=5, layout=1)
+    want = multistep.stepped_count_many_2t_plain(_t(dk), _t(ck), V, k, _t(tm))
+    assert torch.equal(out, want) and int(want.sum()) > 0
+    jwant = jms.make_stepped_count_unpacked(V, k, V ** k, 0)(
+        jnp.asarray(dk), jnp.asarray(ck), jnp.asarray(tm))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jwant))
+
+
+@pytest.mark.parametrize("n_streams", [8, 21])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("kind", tc.KINDS)
+def test_mxu_count_kernel(lib, kind, shape, n_streams):
+    """K10's warp body over streams (ids, raw bytes, raw int32 past the
+    LUT's end; 8 streams fill half a warp's 16 rows, 21 a warp and five
+    rows of another) against its plain version and make_mxu_count_stream
+    / _raw."""
+    tab = tc.tables(1)
+    halo, L = SHAPES[shape]
+    V = tab["V"]
+    s = tc.stream(tab, kind, halo, L * n_streams // B + L, seed=n_streams)
+    ext = np.ascontiguousarray(s["ext"][:halo + n_streams * L])
+    s = dict(s, ext=ext)
+    planes, pf = _planes(tab)
+    common = dict(_common(s, halo, L, V), B=n_streams)
+    out = torch.full((n_streams,), -7, dtype=torch.int32)
+    _run(lib, "ac_mxu_count", out=out, **common, **pf)
+    want = scan_mxu.mxu_count_plain(pf["planes"], V, pf["count_bits_m"],
+                                    pf["n_planes"], halo, n_streams, L,
+                                    _t(ext), _t(s["lut"]), _t(s["head_ids"]))
+    assert torch.equal(out, want) and int(want.sum()) > 0
+    assert torch.equal(want, scan_dense.dense_count_plain(
+        _t(tab["dflat"]), _t(tab["nb_out"]), V, halo, n_streams, L, _t(ext),
+        _t(s["lut"]), _t(s["head_ids"])))
+    geo = (V, pf["S_pad"], pf["count_bits_m"], pf["n_planes"], halo,
+           n_streams, L)
+    if s["lut"] is None:
+        jwant = jmxu.make_mxu_count_stream(*geo)(jnp.asarray(planes),
+                                                 jnp.asarray(ext))
+    else:
+        jwant = jmxu.make_mxu_count_raw(*geo)(
+            jnp.asarray(planes), jnp.asarray(s["lut"]), jnp.asarray(ext),
+            jnp.asarray(s["head_ids"]))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jwant))
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("kind", tc.KINDS)
+def test_mxu_count_many_kernel(lib, kind, c):
+    """K10's batch body against mxu_count_core over split_docs_layout and
+    make_mxu_count_many."""
+    tab = tc.tables(1)
+    V = tab["V"]
+    L, Lp = (61, 24) if c == 3 else (24, 24)
+    halo = 5 if c > 1 else 0
+    b = tc.batch(tab, kind, L)
+    planes, pf = _planes(tab)
+    out = torch.full((c * 4,), -7, dtype=torch.int32)
+    _run(lib, "ac_mxu_count", out=out, layout=1,
+         **_many_common(b, c, L, Lp, halo, V), **pf)
+    want = scan_mxu.mxu_count_many_plain(
+        pf["planes"], V, pf["count_bits_m"], pf["n_planes"], halo, c, Lp,
+        _t(b["tm"]), _t(b["lut"]))
+    assert torch.equal(out, want) and int(want.sum()) > 0
+    jp = jnp.asarray(planes)
+    geo = (V, pf["S_pad"], pf["count_bits_m"], pf["n_planes"])
+    per_col, per_doc = _jax_many(
+        b, c, Lp, halo,
+        lambda h, w: jmxu.mxu_count_core(*geo, h, jp, w),
+        lambda raw: jmxu.make_mxu_count_many(*geo, halo, c, Lp, raw), (jp,))
+    np.testing.assert_array_equal(out.numpy(), per_col)
+    np.testing.assert_array_equal(
+        out.view(c, -1).sum(dim=0, dtype=torch.int64).numpy(), per_doc)
+
+
+@pytest.mark.parametrize("form", ["idx", "elided"])
+def test_mxu_window_kernel(lib, form):
+    """K10's window body over the index list and the elided windows,
+    against make_sparse_count_mxu and make_mxu_count_halo."""
+    tab = tc.tables(1)
+    V, L_blk, halo = tab["V"], 16, 5
+    s = tc.sparse(tab, halo, L_blk)
+    src, idx, fields = _win_fields(s, form, L_blk)
+    planes, pf = _planes(tab)
+    out = torch.full((fields["B"],), -7, dtype=torch.int32)
+    _run(lib, "ac_mxu_count", out=out, L=L_blk, V=V, halo=halo, layout=2,
+         **fields, **pf)
+    want = sparse.sparse_count_mxu_plain(
+        pf["planes"], V, pf["count_bits_m"], pf["n_planes"], halo, L_blk,
+        src, idx if form == "idx" else None)
+    assert torch.equal(out, want) and int(want.sum()) > 0
+    geo = (V, pf["S_pad"], pf["count_bits_m"], pf["n_planes"], halo)
+    if form == "idx":
+        jwant = jsp.make_sparse_count_mxu(*geo, L_blk, s["nB"], 8)(
+            jnp.asarray(planes), jnp.asarray(s["ext"]), jnp.asarray(s["idx"]))
+    else:
+        jwant = jmxu.make_mxu_count_halo(*geo)(jnp.asarray(planes),
+                                               jnp.asarray(s["tm"]))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jwant))
+
+
+@pytest.mark.parametrize("B1", [0, 3, 8])
+@pytest.mark.parametrize("kind", tc.KINDS)
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_hybrid_count_kernel(lib, k, kind, B1):
+    """K11: gather columns [0, B1) and MMA columns [B1, B), one halo of
+    halo_steps grams, against its plain version and
+    make_hybrid_count_stream / _raw."""
+    tab = tc.tables(k)
+    V, cb = tab["V"], tab["count_bits"]
+    hs = -(-5 // k)
+    L = 8 * k
+    s = tc.stream(tab, kind, hs * k, L)
+    planes, pf = _planes(tab, scan_hybrid.MAX_HYBRID_STATES)
+    out = torch.full((B,), -7, dtype=torch.int32)
+    _run(lib, "ac_hybrid_count", table=_t(tab["packed"]), out=out, Vk=V ** k,
+         k=k, count_bits=cb, B1=B1, **_common(s, hs * k, L, V), **pf)
+    want = scan_hybrid.hybrid_count_plain(
+        _t(tab["packed"]), pf["planes"], V, k, cb, hs, pf["n_planes"],
+        pf["count_bits_m"], B1, B, L, _t(s["ext"]), _t(s["lut"]),
+        _t(s["head_ids"]))
+    assert torch.equal(out, want) and int(want.sum()) > 0
+    geo = (V, k, V ** k, cb, hs, pf["S_pad"], pf["n_planes"],
+           pf["count_bits_m"], B1, B - B1, L)
+    jp = (jnp.asarray(tab["packed"]), jnp.asarray(planes))
+    if s["lut"] is None:
+        jwant = jhybrid.make_hybrid_count_stream(*geo)(*jp,
+                                                      jnp.asarray(s["ext"]))
+    else:
+        jwant = jhybrid.make_hybrid_count_raw(*geo)(
+            *jp, jnp.asarray(s["lut"]), jnp.asarray(s["ext"]),
+            jnp.asarray(s["head_ids"]))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jwant))

@@ -3,9 +3,13 @@
 A fresh interpreter blocks every ``jax``/``jaxlib`` import with a meta-path
 finder, imports ``aho_corasick_1975_tpu_torch`` and runs on the CPU the
 golden flow, then a ByteMachine through save_machine/load_machine, a
-session, count_many (raw bytes and a resident tensor), refresh(), and a
+session, count_many (raw bytes and a resident tensor), refresh(), a
 prefilter scanner's count and find_matches (raw bytes, host ids and a
-tensor) and scan_states_sequential.
+tensor) and scan_states_sequential, an ``engine="mxu"`` and an
+``engine="hybrid"`` count and a ``calibrate=True`` scanner. Then no module
+of the JAX package may be loaded, by name or by file: the port keeps its
+own copies of the host modules it needs, and its native core builds in
+the port's build directory.
 """
 
 import os
@@ -76,10 +80,31 @@ SCRIPT = textwrap.dedent("""
             assert sp.stats["last_op"] == "find_matches_sparse"
         assert len(sp.find_matches(sparse_text, max_hits=16)) == 10
         assert sp.scan_states_sequential(data).shape == (len(data),)
+    for engine in ("mxu", "hybrid"):
+        se = m.scanner(device="cpu", engine=engine, n_streams=4)
+        assert se.count(text) == 9 and se.count(text * 40) == 360
+    import os
+    import tempfile
+    from aho_corasick_1975_tpu_torch.core import native
+    from aho_corasick_1975_tpu_torch.ops import autotune, build
+    os.environ["ACX_AUTOTUNE_CACHE"] = os.path.join(tempfile.mkdtemp(),
+                                                    "autotune.json")
+    autotune.PROBE_SYMBOLS = 1 << 12
+    sc = m.scanner(device="cpu", calibrate=True, n_streams=4)
+    assert "calibration" in sc.stats and sc.count(text) == 9
     loaded = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib",
                                            "aho_corasick_1975_tpu"))
     assert not loaded, loaded
+    ref_dir = os.path.join(os.path.realpath(sys.argv[1]),
+                           "aho_corasick_1975_tpu") + os.sep
+    files = [os.path.realpath(f) for f in
+             (getattr(mod, "__file__", None) for mod in list(
+                 sys.modules.values())) if f]
+    from_ref = [f for f in files if f.startswith(ref_dir)]
+    assert not from_ref, from_ref
+    lib = os.path.realpath(native.library_path)
+    assert lib.startswith(os.path.realpath(build.BUILD_DIR) + os.sep), lib
     print("NOJAX-OK")
 """)
 

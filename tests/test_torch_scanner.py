@@ -221,11 +221,16 @@ def test_tables_carried_from_jax_equal_own():
 
 
 def test_unported_options_raise():
+    """The options that raised before the engines were ported now build
+    scanners that count as the gather engine does
+    (tests/test_torch_engines.py holds them against the JAX scanner); an
+    unknown engine still raises."""
     m = _machine()
-    for kw in (dict(engine="mxu"), dict(engine="hybrid"),
-               dict(calibrate=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DenseScanner(m, device="cpu", **kw)
+    text = _text(4, 2000)
+    want = DenseScanner(m, device="cpu", n_streams=8).count(text)
+    for kw in (dict(engine="mxu"), dict(engine="hybrid")):
+        assert DenseScanner(m, device="cpu", n_streams=8,
+                            **kw).count(text) == want > 0
     with pytest.raises(ValueError):
         DenseScanner(m, device="cpu", engine="warp")
     ref = ac.Machine()
