@@ -7,7 +7,8 @@ package's jax-free modules (``core/``, ``models/machine.py``,
 ``utils/``, ``api.py``), with checkpoints the two packages share; counting,
 match retrieval, streaming sessions, online refresh and batch scoring run
 on the GPU through hand-written CUDA kernels (``csrc/``), each with a plain
-PyTorch version that tensors on the CPU take instead.
+PyTorch version that tensors on the CPU take instead. ``parallel/`` shards a
+corpus over a mesh of devices (``ShardedScanner``).
 
 Quick start::
 
@@ -37,11 +38,13 @@ from .models.results import MatchSet
 from .models.scanner import DenseScanner, StreamSession
 from .utils.checkpoint import (load_machine, load_tables, save_machine,
                                save_tables)
+from .utils.config import MachineConfig, MeshConfig, ScanConfig
 
 __all__ = [
     "Machine", "Cursor", "Match", "MatchSet", "DenseScanner", "Builder",
     "DenseTables", "ByteMachine", "UnicodeMachine", "StreamSession",
     "save_machine", "load_machine", "save_tables", "load_tables",
+    "MachineConfig", "ScanConfig", "MeshConfig",
     "acm_create", "acm_release", "acm_initiate",
     "acm_insert_letter_of_keyword", "acm_insert_end_of_keyword", "acm_match",
     "acm_matcher_init", "acm_get_match", "acm_matcher_release",

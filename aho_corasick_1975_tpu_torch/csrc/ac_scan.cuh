@@ -81,6 +81,13 @@ struct AcScanArgs {
   int32_t S_pad, n_planes, count_bits_m;
   int32_t B1;               // K11: columns [0, B1) gather, [B1, B) MMA
   int32_t layout;           // K9, K10: 0 stream, 1 batch (tm), 2 windows
+  // K12: table = delta [n_states, V], ext = ids int32 [doc_len], out =
+  // states [doc_len], cut into B chunks of L symbols; compose [B, n_states]
+  // each chunk's composed transition function, starts [B] each chunk's
+  // start state.
+  int32_t* compose;
+  int32_t* starts;
+  int32_t n_states;
 };
 
 // Letter id of one symbol: raw symbols translate through the LUT with the
@@ -661,5 +668,48 @@ AC_HD void ac_mxu_warp(const AcScanArgs& a, AcMxuWarp& w, int lane,
   }
   AC_FOR_ROWS(r, lane) {
     if ((live >> r) & 1u) a.out[col0 + r] = (int32_t)tot[AC_SLOT(r)];
+  }
+}
+
+// K12, the associative-scan formulation (ops/scan_assoc.py): the states
+// after every symbol from the root, by chunked composition of the symbols'
+// transition functions f_c = delta[:, c]. Three phases, each a per-thread
+// body: (1) chunk c's composed function at state s, for every s (T*S
+// lookups in all, by design of the formulation); (2) the chunks' start
+// states chained through those functions, one thread; (3) each chunk re-run
+// from its start state, writing its states. ``delta`` may point into shared
+// memory.
+AC_HD int32_t ac_assoc_run(const int32_t* delta, int32_t V,
+                           const int32_t* ids, int64_t t0, int64_t t1,
+                           int32_t s) {
+  for (int64_t t = t0; t < t1; ++t) s = delta[(int64_t)s * V + ids[t]];
+  return s;
+}
+
+AC_HD void ac_assoc_compose_state(const AcScanArgs& a, const int32_t* delta,
+                                  int64_t c, int32_t s) {
+  const int64_t t0 = c * a.L;
+  const int64_t t1 = t0 + a.L < a.doc_len ? t0 + a.L : a.doc_len;
+  a.compose[c * a.n_states + s] =
+      ac_assoc_run(delta, a.V, (const int32_t*)a.ext, t0, t1, s);
+}
+
+AC_HD void ac_assoc_chain(const AcScanArgs& a) {
+  int32_t s = 0;
+  for (int64_t c = 0; c < a.B; ++c) {
+    a.starts[c] = s;
+    s = a.compose[c * a.n_states + s];
+  }
+}
+
+AC_HD void ac_assoc_states_chunk(const AcScanArgs& a, const int32_t* delta,
+                                 int64_t c) {
+  const int32_t* ids = (const int32_t*)a.ext;
+  const int64_t t0 = c * a.L;
+  const int64_t t1 = t0 + a.L < a.doc_len ? t0 + a.L : a.doc_len;
+  int32_t s = a.starts[c];
+  for (int64_t t = t0; t < t1; ++t) {
+    s = delta[(int64_t)s * a.V + ids[t]];
+    a.out[t] = s;
   }
 }

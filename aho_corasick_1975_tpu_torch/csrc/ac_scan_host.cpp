@@ -112,6 +112,15 @@ int ac_hybrid_count(const AcScanArgs* a, void*) {
   return 0;
 }
 
+int ac_assoc_scan(const AcScanArgs* a, void*) {
+  for (int64_t c = 0; c < a->B; ++c)
+    for (int32_t s = 0; s < a->n_states; ++s)
+      ac_assoc_compose_state(*a, a->table, c, s);
+  ac_assoc_chain(*a);
+  for (int64_t c = 0; c < a->B; ++c) ac_assoc_states_chunk(*a, a->table, c);
+  return 0;
+}
+
 const char* ac_error_string(int) { return "host build"; }
 
 }  // extern "C"

@@ -219,6 +219,8 @@ class DenseScanner:
         are live: then the dense kernels)."""
         if engine not in ("auto", "gather", "mxu", "hybrid"):
             raise ValueError(f"unknown engine {engine!r}")
+        from ..utils.compile_cache import enable_compile_cache
+        enable_compile_cache()
         self._engine = engine
         if prefilter not in ("off", "auto", "on"):
             raise ValueError(f"unknown prefilter {prefilter!r}")
@@ -1211,7 +1213,7 @@ class StreamSession:
     total, dictionary version): small, and exact to resume from.
     """
 
-    def __init__(self, scanner: DenseScanner):
+    def __init__(self, scanner):
         self.scanner = scanner
         self.offset = 0
         self.total = 0
@@ -1255,15 +1257,17 @@ class StreamSession:
     def feed_matches(self, signs, max_hits: Optional[int] = None):
         """Match events of the next chunk as a ``MatchSet`` with absolute
         stream positions; ``max_hits`` bounds it as in
-        ``DenseScanner.find_matches``."""
+        ``DenseScanner.find_matches``, per shard on a mesh scanner
+        (``ShardedScanner.find_matches(max_hits_per_shard=...)``)."""
         offset = self.offset
         head = self._advance(signs)
         s = self.scanner
         if not len(signs):
             return MatchSet(s.machine, s.tables, np.zeros(0, np.int64),
                             np.zeros(0, np.int32), np.zeros(0, np.int32))
+        key = "max_hits_per_shard" if hasattr(s, "n_dev") else "max_hits"
         out = s.find_matches(signs, offset=offset, head=head,
-                             max_hits=max_hits)
+                             **{key: max_hits})
         self.total += len(out)
         return out
 

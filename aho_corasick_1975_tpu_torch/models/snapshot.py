@@ -10,7 +10,11 @@ both packages hold bit-identical tables, and so that ``refresh`` can bring
 an online insertion in without changing a shape.
 
 The device tensors are the only copy the snapshot keeps: the port reads no
-host mirror, so a refresh updates the device tables alone, in place.
+host mirror, so a refresh updates the device tables alone, in place. A mesh
+scanner (parallel/sharded_scan.py) asks for a replica of every table on
+each distinct device of its mesh (``devices``), and for ``packed_only``:
+no two-table form, as the JAX mesh scanner's snapshot. A refresh writes
+the same rows and cells into every replica.
 """
 
 from __future__ import annotations
@@ -31,17 +35,31 @@ class DeviceSnapshot:
     """Device-resident tables of one ``DenseTables`` snapshot, with
     in-place incremental refresh."""
 
+    _TABLES = ("dflat", "nb_out", "packed", "delta_k", "cnt_k")
+
     def __init__(self, tables, step_k="auto",
                  step_budget_bytes: int = 128 * 1024 * 1024,
-                 device="cuda"):
+                 device="cuda", packed_only: bool = False, devices=()):
+        """``packed_only``: where the k-gram table only fits as two tables,
+        keep no k-gram table (``stepped`` None, ``step_k`` as chosen), as
+        the JAX snapshot's ``packed_only=True``. ``devices``: more devices
+        that get a replica of every table (``replica``); ``device`` is the
+        first."""
         self.device = torch.device(device)
+        self.devices = [self.device]
+        for d in map(torch.device, devices):
+            if d not in self.devices:
+                self.devices.append(d)
+        self.packed_only = packed_only
         self._spec = (step_k, step_budget_bytes)
         self.last_refresh: dict = {}
         self._build(tables)
 
-    def place(self, a: np.ndarray) -> torch.Tensor:
-        """Synchronous upload of a host array to the snapshot's device."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def place(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """Synchronous upload of a host array to ``device`` (default: the
+        snapshot's device)."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device if device is None else device)
 
     def _table(self, a: np.ndarray) -> torch.Tensor:
         """An int32 table's own copy on the device. On the CPU ``place``
@@ -51,12 +69,33 @@ class DeviceSnapshot:
             return torch.from_numpy(np.array(a, dtype=np.int32))
         return self.place(np.asarray(a, np.int32))
 
+    def replica(self, device) -> dict:
+        """The tables on ``device`` (one of ``devices``), by name: "dflat",
+        "nb_out", "packed", "delta_k", "cnt_k" (None where absent)."""
+        device = torch.device(device)
+        if device == self.device:
+            return {n: getattr(self, n) for n in self._TABLES}
+        return self._replicas[device]
+
+    def _replicate(self) -> None:
+        """Copy every table to each further device of ``devices``."""
+        self._replicas = {
+            d: {n: None if getattr(self, n) is None
+                else getattr(self, n).to(d, copy=True) for n in self._TABLES}
+            for d in self.devices[1:]}
+
     # -- full (re)build ------------------------------------------------------
 
     def _build(self, tables) -> None:
+        """The tables of ``_build_tables`` on the snapshot's device, then
+        their replicas."""
+        self._build_tables(tables)
+        self._replicate()
+
+    def _build_tables(self, tables) -> None:
         """``models/snapshot.py:DeviceSnapshot._build``: the 1-char tables
         and the choice of k; the k-gram tables packed, else in two
-        tables."""
+        tables (none with ``packed_only``)."""
         self.tables = tables
         S = tables.n_states
         self.V = tables.vocab_size
@@ -104,7 +143,7 @@ class DeviceSnapshot:
             return
         if st.packed is not None:
             self._adopt_packed(st)
-        else:
+        elif not self.packed_only:
             self.delta_k = self._table(self._at_cap(st.delta_k, st.Vk))
             self.cnt_k = self._table(self._at_cap(st.cnt_k, st.Vk))
             self.stepped = dataclasses.replace(st, delta_k=None, cnt_k=None)
@@ -139,6 +178,9 @@ class DeviceSnapshot:
         (utils/convert.py). A rebuild on refresh keeps k."""
         snap = cls.__new__(cls)
         snap.device = torch.device(device)
+        snap.devices = [snap.device]
+        snap.packed_only = False
+        snap._replicas = {}
         snap._spec = (k, 128 * 1024 * 1024)
         snap.last_refresh = {}
         snap.tables = tables
@@ -210,27 +252,30 @@ class DeviceSnapshot:
                         or state_bits + st.count_bits > 31):
                     self._build(new)
                     return "rebuild"
-                cell_update = [(self.packed, (
+                cell_update = [("packed", (
                     (land.astype(np.int64) << st.count_bits)
                     | cnt).astype(np.int32))]
             else:
-                cell_update = [(self.delta_k, land),
-                               (self.cnt_k, cnt.astype(np.int32))]
+                cell_update = [("delta_k", land),
+                               ("cnt_k", cnt.astype(np.int32))]
 
-        self._scatter(self.dflat, rows1, new.delta[rows1], self.V)
-        self._scatter(self.nb_out, rows1, new.nb_outputs[rows1], 1)
-        for table, vals in cell_update or ():
-            self._scatter(table, cells, vals, 1)
+        self._scatter("dflat", rows1, new.delta[rows1], self.V)
+        self._scatter("nb_out", rows1, new.nb_outputs[rows1], 1)
+        for name, vals in cell_update or ():
+            self._scatter(name, cells, vals, 1)
         self.tables = new
         self.max_nb = int(new.nb_outputs.max()) if S_new else 0
         self.last_refresh = {"rows": int(len(rows1)), "cells": int(n_cells),
                              "seconds": time.perf_counter() - t0}
         return "inplace"
 
-    def _scatter(self, table: torch.Tensor, rows: np.ndarray,
-                 vals: np.ndarray, width: int) -> None:
-        """Rows of ``width`` entries of the flat ``table``, written in place
-        (the port of ``models/snapshot.py:_make_row_scatter``)."""
-        table.view(-1, width).index_copy_(
-            0, self.place(rows.astype(np.int64)),
-            self.place(np.asarray(vals, np.int32).reshape(-1, width)))
+    def _scatter(self, name: str, rows: np.ndarray, vals: np.ndarray,
+                 width: int) -> None:
+        """Rows of ``width`` entries of the flat table ``name``, written in
+        place into every replica (the port of
+        ``models/snapshot.py:_make_row_scatter``)."""
+        rows = rows.astype(np.int64)
+        vals = np.asarray(vals, np.int32).reshape(-1, width)
+        for d in self.devices:
+            self.replica(d)[name].view(-1, width).index_copy_(
+                0, self.place(rows, d), self.place(vals, d))

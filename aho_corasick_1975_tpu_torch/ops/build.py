@@ -33,14 +33,15 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 _HEADERS = ("ac_scan.cuh",)
 _CUDA_SOURCES = ("dense_scan.cu", "stepped_scan.cu", "sparse_scan.cu",
-                 "mxu_scan.cu")
+                 "mxu_scan.cu", "assoc_scan.cu")
 _HOST_SOURCES = ("ac_scan_host.cpp",)
 ENTRY_POINTS = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
                 "ac_stepped_emit", "ac_stepped_count_many",
                 "ac_dense_count_many", "ac_dense_states_tm",
                 "ac_sparse_count",
                 "ac_sparse_count_stepped", "ac_dense_hits", "ac_window_hits",
-                "ac_stepped_count_2t", "ac_mxu_count", "ac_hybrid_count")
+                "ac_stepped_count_2t", "ac_mxu_count", "ac_hybrid_count",
+                "ac_assoc_scan")
 
 # Launches per entry point since the last reset_launches(), and per
 # "entry/form" where a wrapper names the input form it launched on (K7, K8,
@@ -78,6 +79,8 @@ class AcScanArgs(ctypes.Structure):
         ("S_pad", ctypes.c_int32), ("n_planes", ctypes.c_int32),
         ("count_bits_m", ctypes.c_int32), ("B1", ctypes.c_int32),
         ("layout", ctypes.c_int32),
+        ("compose", ctypes.c_void_p), ("starts", ctypes.c_void_p),
+        ("n_states", ctypes.c_int32),
     ]
 
 

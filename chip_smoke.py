@@ -110,6 +110,8 @@ RESIDENT_DENSITIES = (1e-2, 1e-3, 1e-4)
 SEQ_SYMBOLS = 1 << 15   # scan_states_sequential: one thread
 TM_SIDE = 4096          # the time-major K2 batch: [TM_SIDE, TM_SIDE] ids
 TWO_TABLE_DOC = 12_288  # K9's batch form against its plain version
+MESH_SHARDS, MESH_STREAMS = 4, 4096   # 16,384 streams in all, as the slice
+ASSOC_T = 1 << 20       # K12's stream
 GOLDEN = "To ushers: he found his pencil, but she could not find hers."
 GOLDEN_LINE = " 6:he 5:she 6:hers 12:he 21:his 38:he 37:she 56:he 56:hers"
 # entry point, or "entry/form" for a form counted in build.form_launches
@@ -172,6 +174,10 @@ KERNELS = {
         "K11 hybrid_count (gather and MMA blocks in one launch)",
         "aho_corasick_1975_tpu_torch/csrc/mxu_scan.cu",
         "aho_corasick_1975_tpu/ops/scan_hybrid.py:52"),
+    "ac_assoc_scan": (
+        "K12 assoc_scan (chunked transition-function composition)",
+        "aho_corasick_1975_tpu_torch/csrc/assoc_scan.cu",
+        "aho_corasick_1975_tpu/ops/scan_assoc.py:29"),
 }
 # K7 and K8 input forms every sparse run must launch (build.form_launches)
 SPARSE_FORMS = ("ac_sparse_count/idx", "ac_sparse_count/elided",
@@ -406,6 +412,49 @@ def driven(build, entries, what: str, fn):
     return out, launches
 
 
+# The mesh paths' launches and times, printed as one JSON line at the end.
+MESH_PATHS: dict = {}
+
+
+def mesh_path(build, sc, entries, what: str, fn, dense=None,
+              timed: bool = True):
+    """fn() on the ShardedScanner sc with the launch counters and sc's
+    per-shard tally set to 0 just before and read just after; fails unless
+    every kernel (or "entry/form") of ``entries`` launched on every shard.
+    Then, with ``timed``, fn() again on the wall clock beside ``dense()``,
+    the DenseScanner doing the same; both end in a host result, so the
+    device has finished. Returns fn()'s first result."""
+    build.reset_launches()
+    sc.shard_launches.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    tally = {i: dict(sc.shard_launches.get(i, {})) for i in range(sc.n_dev)}
+    for i in range(sc.n_dev):
+        for entry in entries:
+            check(tally[i].get(entry, 0) >= 1,
+                  f"{entry} ran on shard {i} in the mesh {what} run")
+    totals = {e: v for e, v in {**build.launches,
+                                **build.form_launches}.items() if v}
+    ms = dense_ms = None
+    if timed:
+        t0 = time.perf_counter()
+        fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        if dense is not None:
+            t0 = time.perf_counter()
+            dense()
+            dense_ms = (time.perf_counter() - t0) * 1e3
+    MESH_PATHS[what] = {"shards": sc.n_dev, "ms": ms, "dense_ms": dense_ms,
+                        "launches": totals,
+                        "per_shard": [tally[i] for i in range(sc.n_dev)]}
+    print(f"mesh {what}: {sc.n_dev} shards, launches {totals}, per shard "
+          f"{[sum(tally[i].values()) for i in range(sc.n_dev)]}; "
+          f"{'' if ms is None else f'{ms:.1f} ms'}"
+          f"{'' if dense_ms is None else f' (DenseScanner {dense_ms:.1f} ms)'}",
+          flush=True)
+    return out
+
+
 def config3_setup(act):
     """benchmarks/bench_count_many.py's ByteMachine (10,000 ` word `
     keywords) and its 256 documents of 400,000 bytes."""
@@ -486,10 +535,11 @@ def best_s(fn, reps: int = 3):
     return best, out
 
 
-def phase_count_many(build, m, docs) -> dict:
+def phase_count_many(build, m, docs, mesh) -> dict:
     """BASELINE config 3 through count_many: raw bytes (K5), the id path,
     a resident int32 [L, B] tensor, and a step_k=1 scanner (K6), each
-    against the native host scan of every document."""
+    against the native host scan of every document; then the raw bytes on
+    the mesh (K5 on every shard)."""
     sc = m.scanner(n_streams=N_STREAMS)
     sc_id = m.scanner(n_streams=N_STREAMS, device_encode=False)
     sc1 = m.scanner(n_streams=N_STREAMS, step_k=1)
@@ -528,6 +578,14 @@ def phase_count_many(build, m, docs) -> dict:
           f"matches == host oracle, {oracle_s:.2f} s): {'; '.join(parts)}; "
           f"host column fill of the raw batch {stage_s * 1e3:.1f} ms",
           flush=True)
+    from aho_corasick_1975_tpu_torch.parallel.sharded_scan import (
+        ShardedScanner)
+    shm = ShardedScanner(m, mesh, n_streams_per_device=MESH_STREAMS)
+    got = mesh_path(build, shm, ("ac_stepped_count_many",), "count_many",
+                    lambda: shm.count_many(docs),
+                    lambda: sc.count_many(docs))
+    check(np.array_equal(got, oracle), "mesh count_many equals the host "
+          "oracle and DenseScanner per document")
     return launches
 
 
@@ -1233,7 +1291,7 @@ def phase_mxu(act, build, ranked, text: bytes, docs, hunt: bytes,
           f"host oracle; hunt bytes [{hb[1]}] {hb[2] * 1e3:.1f} ms, tensor "
           f"[{ht[1]}] {ht[2] * 1e3:.1f} ms, {hunt_n} matches", flush=True)
     return dict(sc=sc, sh=sh, t_ids=t_ids, h_ids=h_ids, N=N,
-                hunt=hunt), launches
+                hunt=hunt, oracle=oracle), launches
 
 
 def phase_calibration(act, ranked, n_mxu: int) -> None:
@@ -1349,6 +1407,191 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
     return res
 
 
+def phase_mesh(act, build, mesh, machine, sc, sc1, text: bytes, n: int,
+               ms, t_ids, ranked, mxu: dict, state: dict) -> None:
+    """The mesh path: the slice's dictionary and corpus on MESH_SHARDS
+    logical shards of cuda:0, n_streams_per_device=MESH_STREAMS, each
+    path's kernels on every shard, each result against the host oracle
+    (n, the hunt's and MXU dictionary's counts, checked against it in
+    earlier phases) and the DenseScanner; then one count through a
+    one-rank NCCL group, and a mesh of every card where there are more."""
+    from aho_corasick_1975_tpu_torch.parallel import mesh as pmesh
+    from aho_corasick_1975_tpu_torch.parallel.sharded_scan import (
+        ShardedScanner)
+    import torch.distributed as dist
+
+    def scanner(m, **kw):
+        return ShardedScanner(m, mesh, n_streams_per_device=MESH_STREAMS,
+                              **kw)
+
+    t0 = time.perf_counter()
+    sh = scanner(machine)
+    sh1 = scanner(machine, step_k=1)
+    pad = -t_ids.numel() % MESH_SHARDS
+    placed = pmesh.data_sharded(mesh, torch.cat([t_ids, torch.zeros(
+        pad, dtype=t_ids.dtype, device=t_ids.device)]))
+    print(f"mesh: {mesh}, k={sh.step_k}, halo {sh.halo}, set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def same(a, b) -> bool:
+        return (np.array_equal(a.ends, b.ends)
+                and np.array_equal(a.end_states, b.end_states)
+                and np.array_equal(a.indices, b.indices))
+
+    K3, K4 = ("ac_stepped_count",), ("ac_stepped_emit",)
+    check(mesh_path(build, sh, K3, "count bytes", lambda: sh.count(text),
+                    lambda: sc.count(text)) == n, "mesh count of the bytes")
+    check(mesh_path(build, sh, K3, "count tensor", lambda: sh.count(placed),
+                    lambda: sc.count(t_ids)) == n, "mesh count of a tensor")
+    check(same(mesh_path(build, sh, K4, "find_matches auto",
+                         lambda: sh.find_matches(text),
+                         lambda: sc.find_matches(text)), ms),
+          "mesh find_matches equals DenseScanner's")
+    check(same(mesh_path(build, sh, K4, "find_matches bounded",
+                         lambda: sh.find_matches(text, max_hits_per_shard=n),
+                         lambda: sc.find_matches(text, max_hits=n)), ms),
+          "mesh bounded find_matches equals DenseScanner's")
+    check(mesh_path(build, sh1, ("ac_dense_count",), "step_k=1 count",
+                    lambda: sh1.count(text), lambda: sc1.count(text)) == n,
+          "mesh step_k=1 count")
+    check(np.array_equal(mesh_path(
+        build, sh1, ("ac_dense_hits",), "step_k=1 find_matches bounded",
+        lambda: sh1.find_matches(text, max_hits_per_shard=n),
+        lambda: sc1.find_matches(text, max_hits=n)).ends, ms.ends),
+        "mesh step_k=1 bounded find_matches' ends")
+    prefix = text[:4 << 20]
+    check(np.array_equal(mesh_path(
+        build, sh1, ("ac_dense_states",), "step_k=1 scan_states 4 MiB",
+        lambda: sh1.scan_states(prefix), lambda: sc1.scan_states(prefix)),
+        sc1.scan_states(prefix)), "mesh scan_states equals DenseScanner's")
+
+    chunks = session_chunks(text)
+    half = len(chunks) // 2
+
+    def session_run(scanner):
+        s = scanner.session()
+        for ch in chunks[:half]:
+            s.feed_count(ch)
+        s = act.StreamSession.restore(scanner, s.checkpoint())
+        for ch in chunks[half:]:
+            s.feed_count(ch)
+        return s.total
+    check(mesh_path(build, sh, K3, f"session of {len(chunks)} chunks",
+                    lambda: session_run(sh), lambda: session_run(sc)) == n,
+          "mesh session total, resumed from a checkpoint at half")
+
+    mr = keyword_machine(act, ranked[:N_KEYWORDS])
+    shr = scanner(mr)
+    dr = mr.scanner(n_streams=N_STREAMS)
+    for w in ranked[N_KEYWORDS:N_KEYWORDS + 10]:
+        mr.insert_keyword(w)
+    refresh_ms = {}
+
+    def refresh_run():
+        t0 = time.perf_counter()
+        status = shr.refresh()
+        refresh_ms["mesh"] = (time.perf_counter() - t0) * 1e3
+        return status, shr.count(text)
+    status, c = mesh_path(build, shr, K3, "refresh +10 and count",
+                          refresh_run, timed=False)
+    t0 = time.perf_counter()
+    dr.refresh()
+    refresh_ms["dense"] = (time.perf_counter() - t0) * 1e3
+    oracle = mr.match_stream(mr.initiate(), text)
+    check(c == oracle == dr.count(text),
+          f"mesh count after refresh {c} equals the host oracle {oracle} "
+          f"and a DenseScanner's")
+    MESH_PATHS["refresh +10 and count"].update(
+        ms=refresh_ms["mesh"], dense_ms=refresh_ms["dense"])
+    print(f"mesh refresh +10: returned {status} in "
+          f"{refresh_ms['mesh']:.1f} ms (DenseScanner {refresh_ms['dense']:.1f}"
+          f" ms), count {c} == host oracle", flush=True)
+
+    shh = scanner(machine, engine="hybrid")
+    dh = machine.scanner(n_streams=N_STREAMS, engine="hybrid")
+    check(mesh_path(build, shh, ("ac_hybrid_count/raw",), "hybrid count",
+                    lambda: shh.count(text), lambda: dh.count(text)) == n,
+          "mesh hybrid count")
+    scm = mxu["sc"]
+    shx = scanner(scm.machine, engine="mxu")
+    check(mesh_path(build, shx, ("ac_mxu_count/raw",), "mxu count",
+                    lambda: shx.count(text), lambda: scm.count(text))
+          == mxu["oracle"], "mesh MXU count equals the host oracle")
+
+    hunt, hunt_n, dsp = state["text"], state["hunt_n"], state["sc"]
+    shp = scanner(dsp.machine, prefilter="on")
+    h_placed = pmesh.data_sharded(mesh, state["hunt_ids"])
+    h_tensor = torch.from_numpy(state["hunt_ids"]).to("cuda")
+    check(mesh_path(build, shp, ("ac_sparse_count_stepped/elided",),
+                    "hunt count bytes", lambda: shp.count(hunt),
+                    lambda: dsp.count(hunt)) == hunt_n,
+          "mesh hunt count (raw elision)")
+    check(len(mesh_path(build, shp, ("ac_window_hits/elided",),
+                        "hunt find_matches bytes",
+                        lambda: shp.find_matches(hunt),
+                        lambda: dsp.find_matches(hunt))) == hunt_n,
+          "mesh hunt find_matches (elided windows)")
+    check(mesh_path(build, shp, ("ac_sparse_count/idx",),
+                    "hunt count tensor", lambda: shp.count(h_placed),
+                    lambda: dsp.count(h_tensor)) == hunt_n,
+          "mesh hunt count of a tensor (device block filter)")
+    del h_placed, h_tensor
+
+    from socket import socket
+    with socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pmesh.init_distributed(coordinator_address=f"localhost:{port}",
+                           num_processes=1, process_id=0)
+    try:
+        check(dist.get_backend() == "nccl", "the process group is NCCL")
+        mesh_nccl = pmesh.make_mesh(devices=["cuda:0"] * MESH_SHARDS)
+        check(mesh_nccl.distributed, "the mesh spans the process group")
+        shn = ShardedScanner(machine, mesh_nccl,
+                             n_streams_per_device=MESH_STREAMS)
+        check(mesh_path(build, shn, K3, "count through NCCL",
+                        lambda: shn.count(text)) == n,
+              "mesh count through a one-rank NCCL group")
+    finally:
+        dist.destroy_process_group()
+    if torch.cuda.device_count() > 1:
+        sha = ShardedScanner(machine, pmesh.make_mesh(),
+                             n_streams_per_device=MESH_STREAMS)
+        check(mesh_path(build, sha, K3, "count on every card",
+                        lambda: sha.count(text)) == n,
+              "mesh count on every card")
+
+
+def phase_assoc(act, build) -> dict:
+    """K12 through make_assoc_scan (the user's entry point, counted) on
+    ASSOC_T symbols of a tests/test_assoc_scan.py-style dictionary, then
+    against its plain version and K2's one-thread form, exact."""
+    from aho_corasick_1975_tpu_torch.ops import scan_assoc, scan_dense
+    rng = np.random.default_rng(1)
+    act_m = act.Machine()
+    for _ in range(25):
+        act_m.insert_keyword("".join(rng.choice(list("ab"),
+                                                rng.integers(1, 6))))
+    t = act_m.compile()
+    S, V = t.n_states, t.vocab_size
+    delta = torch.from_numpy(np.ascontiguousarray(t.delta, np.int32)).cuda()
+    ids = torch.from_numpy(np.asarray(act_m.vocab.lookup_many(
+        "".join(rng.choice(list("abx"), ASSOC_T))), np.int32)).cuda()
+    got, launches = driven(build, ("ac_assoc_scan",), "associative scan",
+                           lambda: scan_assoc.make_assoc_scan(V)(delta, ids))
+    res = compare("ac_assoc_scan", scan_assoc.assoc_scan,
+                  scan_assoc.assoc_scan_plain, (delta,), {"ids": (ids,)},
+                  f"T={ASSOC_T} S={S} V={V} chunk={scan_assoc.CHUNK}")
+    seq = scan_dense.sequential_states(delta.reshape(-1), V, ids)
+    check(torch.equal(got, seq), "K12 equals K2's one-thread form")
+    seq_ms = cuda_ms(lambda: scan_dense.sequential_states(
+        delta.reshape(-1), V, ids), 2)
+    print(f"K12 beside K2's one thread ({seq_ms:.3f} ms) at T={ASSOC_T}; "
+          f"its bound counts bytes only: the formulation does T*S = "
+          f"{ASSOC_T * S} lookups by design (K2 does T)", flush=True)
+    return {"ac_assoc_scan": res}, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1357,6 +1600,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import aho_corasick_1975_tpu_torch as act
     from aho_corasick_1975_tpu_torch.ops import build
+    from aho_corasick_1975_tpu_torch.parallel.mesh import make_mesh
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1372,6 +1616,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
           f"{build.last_build['seconds']})", flush=True)
     log(str(build.last_build["log"])[-3000:])
+
+    mesh = make_mesh(devices=["cuda:0"] * MESH_SHARDS)
 
     # 2. golden
     m = act.Machine()
@@ -1456,7 +1702,8 @@ def main() -> int:
     del sc_cm
 
     # 6. count_many at config 3
-    launches.update({e: v for e, v in phase_count_many(build, m3, docs).items()
+    launches.update({e: v for e, v in phase_count_many(
+        build, m3, docs, mesh).items()
                      if e in ("ac_stepped_count_many", "ac_dense_count_many")})
     del m3
 
@@ -1494,6 +1741,15 @@ def main() -> int:
     launches["ac_stepped_count_2t"] = two_launches["ac_stepped_count_2t"]
     launches["ac_mxu_count"] = mxu_launches["ac_mxu_count"]
     launches["ac_hybrid_count"] = hyb_launches["ac_hybrid_count"]
+    # 15. the mesh: logical shards on cuda:0, NCCL, every card
+    t0 = time.perf_counter()
+    phase_mesh(act, build, mesh, machine, sc, sc1, text, n, ms,
+               gate["t_ids"], ranked, mxu, state)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    # 16. K12 against its plain version and K2's one-thread form
+    assoc, assoc_launches = phase_assoc(act, build)
+    kern.update(assoc)
+    launches["ac_assoc_scan"] = assoc_launches["ac_assoc_scan"]
 
     def first(entry, key):
         return next(iter(kern[entry].values()))[key]
@@ -1506,6 +1762,9 @@ def main() -> int:
          "bound_ms": first(entry, "bound_ms"),
          "bound_by": first(entry, "bound_by"), "library_ms": None}
         for entry, (name, src, rep) in KERNELS.items()]}), flush=True)
+    print(json.dumps({"mesh": {"device": kind, "shards": MESH_SHARDS,
+                               "n_streams_per_device": MESH_STREAMS,
+                               "paths": MESH_PATHS}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,7 +17,9 @@ count, stream and batch forms), K10 (the MXU engine's warp body, whose
 ``mma.sync`` the g++ build emulates lane by lane from the PTX fragment
 layout, in every form) and K11 (the hybrid launch) are held against the
 JAX package's ``ops/multistep.py``, ``ops/scan_mxu.py``,
-``ops/scan_hybrid.py`` and ``ops/sparse.py`` functions.
+``ops/scan_hybrid.py`` and ``ops/sparse.py`` functions. K12's three phases
+(the associative scan's chunked composition) are held against the JAX
+package's ``ops/scan_assoc.py:make_assoc_scan``.
 """
 
 import ctypes
@@ -524,3 +526,29 @@ def test_hybrid_count_kernel(lib, k, kind, B1):
             *jp, jnp.asarray(s["lut"]), jnp.asarray(s["ext"]),
             jnp.asarray(s["head_ids"]))
     np.testing.assert_array_equal(out.numpy(), np.asarray(jwant))
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, 5000])
+def test_assoc_scan_kernel(lib, chunk):
+    """K12's three phases (compose per chunk and state, the chain, the
+    states per chunk) against the JAX package's make_assoc_scan and the
+    plain version, a last chunk short where chunk does not divide T."""
+    from aho_corasick_1975_tpu.ops.scan_assoc import make_assoc_scan
+    from aho_corasick_1975_tpu_torch.ops import scan_assoc
+    tab = tc.tables(1)
+    t = tab["machine"].compile()
+    S, V = t.n_states, t.vocab_size
+    ids = np.random.default_rng(5).integers(0, V, 999).astype(np.int32)
+    delta = _t(np.ascontiguousarray(t.delta, np.int32))
+    n_chunks = -(-len(ids) // chunk)
+    out = torch.full((len(ids),), -7, dtype=torch.int32)
+    compose = torch.full((n_chunks, S), -7, dtype=torch.int32)
+    starts = torch.full((n_chunks,), -7, dtype=torch.int32)
+    _run(lib, "ac_assoc_scan", table=delta, ext=_t(ids), out=out, L=chunk,
+         B=n_chunks, V=V, doc_len=len(ids), n_states=S, compose=compose,
+         starts=starts)
+    want = np.asarray(make_assoc_scan(V)(jnp.asarray(t.delta),
+                                         jnp.asarray(ids)))
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert torch.equal(out, scan_assoc.assoc_scan_plain(delta, _t(ids)))
+    assert int(starts[0]) == 0 and (compose >= 0).all()

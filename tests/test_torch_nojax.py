@@ -6,7 +6,9 @@ golden flow, then a ByteMachine through save_machine/load_machine, a
 session, count_many (raw bytes and a resident tensor), refresh(), a
 prefilter scanner's count and find_matches (raw bytes, host ids and a
 tensor) and scan_states_sequential, an ``engine="mxu"`` and an
-``engine="hybrid"`` count and a ``calibrate=True`` scanner. Then no module
+``engine="hybrid"`` count and a ``calibrate=True`` scanner, a mesh of CPU
+shards (a ShardedScanner's count, also of a ShardedTensor, find_matches and
+a bounded session), the associative scan and the utils. Then no module
 of the JAX package may be loaded, by name or by file: the port keeps its
 own copies of the host modules it needs, and its native core builds in
 the port's build directory.
@@ -92,6 +94,29 @@ SCRIPT = textwrap.dedent("""
     autotune.PROBE_SYMBOLS = 1 << 12
     sc = m.scanner(device="cpu", calibrate=True, n_streams=4)
     assert "calibration" in sc.stats and sc.count(text) == 9
+    from aho_corasick_1975_tpu_torch.ops.scan_assoc import make_assoc_scan
+    from aho_corasick_1975_tpu_torch.parallel.mesh import (data_sharded,
+                                                           make_mesh)
+    from aho_corasick_1975_tpu_torch.parallel.sharded_scan import (
+        ShardedScanner)
+    from aho_corasick_1975_tpu_torch.utils import compile_cache, profiling
+    from aho_corasick_1975_tpu_torch.utils.config import MachineConfig
+    assert act.MachineConfig is MachineConfig
+    mesh = make_mesh(devices=["cpu"] * 4)
+    sh = ShardedScanner(m, mesh, n_streams_per_device=4)
+    ids = sh.encode(text * 4)
+    assert sh.count(text * 4) == sh.count(data_sharded(mesh, ids)) == 36
+    assert len(sh.find_matches(text)) == 9 and len(sh.session().feed_matches(
+        text, max_hits=16)) == 9
+    t = m.compile()
+    got = make_assoc_scan(t.vocab_size)(
+        torch.from_numpy(np.ascontiguousarray(t.delta, np.int32)),
+        torch.from_numpy(sc.encode(text)))
+    assert got.tolist() == sc.scan_states_sequential(text).tolist()
+    timer = profiling.PhaseTimer()
+    with timer.phase("scan"):
+        pass
+    compile_cache.enable_compile_cache()
     loaded = sorted(n for n in sys.modules
                     if n.split(".")[0] in ("jax", "jaxlib",
                                            "aho_corasick_1975_tpu"))
