@@ -2,8 +2,9 @@
 // stepped_scan.cu, sparse_scan.cu, mxu_scan.cu) and the g++ host shim
 // (ac_scan_host.cpp) that the CPU tests run: one function per kernel,
 // computing everything one stream (one CUDA thread) does; for the MXU
-// engine (K10, K11's MMA half), everything one warp of 16 streams does,
-// with the tensor-core instruction emulated lane by lane on the host.
+// engine (K10, K11's MMA half), everything one warp of R streams does,
+// with the tensor-core instruction and the warp's votes and shuffles
+// emulated lane by lane on the host.
 //
 // Layout: B streams of L symbols each over a contiguous ext buffer of
 // halo + B*L symbols. Window row t of stream b (t in [0, halo + L)) is
@@ -29,6 +30,7 @@
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 #if defined(__CUDACC__)
 #define AC_HD __host__ __device__ __forceinline__
@@ -75,9 +77,10 @@ struct AcScanArgs {
   const int64_t* hit_off;   // [B] first slot of each column
   // K9: cnt_k [cap*V^k], the k-gram counts beside table = delta_k.
   const int32_t* table2;
-  // K10, K11's MMA half: planes int8 [S_pad, n_planes*V], row-major
-  // (ops/scan_mxu.py:build_planes), and the count bits of their words.
-  const int8_t* planes;
+  // K10, K11's MMA half: the digit planes keyed by (state, letter), int8
+  // planes_t [n_planes, S_pad*V rounded up to 32]
+  // (ops/scan_mxu.py:transpose_planes), and the count bits of their words.
+  const int8_t* planes_t;
   int32_t S_pad, n_planes, count_bits_m;
   int32_t B1;               // K11: columns [0, B1) gather, [B1, B) MMA
   int32_t layout;           // K9, K10: 0 stream, 1 batch (tm), 2 windows
@@ -411,20 +414,46 @@ AC_HD void ac_stepped_emit_stream(const AcScanArgs& a, int64_t b) {
 // ---------------------------------------------------------------------------
 // K10 (ops/scan_mxu.py:mxu_count_core) and K11's MMA half
 // (ops/scan_hybrid.py:hybrid_count_core): the automaton step as an int8
-// tensor-core product. Row r of a warp's 16-row tile is stream (or batch
-// column, or window) col0 + r; A is the one-hot of the 16 current states,
-// B a 32-state by 8-column tile of the digit planes, and D = A x B holds,
-// in row r, the planes' row of state s_r. The step then selects, for each
-// plane p, column p*V + c_r of row r (the select-reduce of
-// mxu_count_core), e = sum_p digit_p << 7p, counts e & mask past the halo
-// and moves to e >> count_bits_m.
+// tensor-core product keyed by (state, letter). planes_t [n_planes, K]
+// (ops/scan_mxu.py:transpose_planes), K = S_pad * V rounded up to 32,
+// holds at key s*V + c digit p of the packed word
+// (next_state << count_bits_m) | count of state s and letter c. A warp
+// owns R rows (columns col0 .. col0+R-1: streams, batch columns or
+// windows; R = AC_K10_ROWS in K10, AC_K11_ROWS in K11) of an m16n8k32
+// tile, rows past R zero. Row r's A row
+// is the one-hot of its key s_r*V + c_r over a 32-key tile, B is the
+// tile's 32 keys by 8 columns, column p plane p (columns past n_planes
+// zero), so D's row r holds row r's digits and its word is
+// e = sum_p digit_p << 7p. The step counts e & mask past the halo and
+// moves to e >> count_bits_m.
 //
-// A one-hot row is zero outside the 32-state tile that holds its state,
-// so a step multiplies only the tiles that hold one of the 16 states, and
-// of each only the 8-column tiles that hold a wanted column: the product
-// the engine computes, without its all-zero tiles. Every choice of tile is
-// made identically by all 32 lanes from the warp's shared state, so the
-// warp stays converged through mma.sync.
+// A row whose key lies outside a tile has an all-zero A row, so a step
+// multiplies each distinct 32-key tile among its rows once, passing the
+// running D as C: after the last one D holds every row's digits. Tiles are
+// picked by warp votes (a ballot of the lanes with a pending row, the first
+// such lane's tile broadcast), uniformly across the warp as mma.sync
+// requires. Lane (g = lane >> 2, q = lane & 3) keeps the state, the next
+// letters and the total of rows g and g+8, the rows its A fragment and D
+// elements touch, in registers; the quad assembles each word from its D
+// elements by two shuffles. At R = 1 every lane holds the one row, which
+// fills all 16 A rows: its tile needs no vote. No step touches shared state
+// or waits at a barrier.
+//
+// R is one constant per kernel, chosen on the card (PERF.md): K10's
+// 16,384 streams keep every SM's issue slots busy, so its time follows the
+// launch's products in all, least at R = 8; K11's few MMA columns run few
+// warps, so its time follows one warp's chain, shortest at R = 1.
+// probe_mxu_rows.py rebuilds the kernels at other values of these macros
+// to time them, and at AC_MXU_FILL 0 to time the vote loop at R = 1.
+#ifndef AC_K10_ROWS
+#define AC_K10_ROWS 8
+#endif
+#ifndef AC_K11_ROWS
+#define AC_K11_ROWS 1
+#endif
+#ifndef AC_MXU_FILL
+#define AC_MXU_FILL 1
+#endif
 
 // Fragment index functions of mma.sync.aligned.m16n8k32.row.col.s32.s8.
 // s8.s32 (PTX ISA, "Matrix Fragments for mma.m16n8k32"): for lane l, with
@@ -451,92 +480,89 @@ AC_HD int ac_frag_c_col(int lane, int i) {
   return 2 * (lane & 3) + (i & 1);
 }
 
-// A warp's state, in shared memory on the card.
-struct AcMxuWarp {
-  int32_t s[16];      // state of row r's stream; -1: the row has none
-  int32_t sym[16];    // row r's letter id at this step
-  int32_t e[16][4];   // digit p of row r's word, taken from D
-};
-
-// Per-lane code runs once per lane on the card and for all 32 lanes in
-// turn on the host; per-row code (r < 16) on lane r on the card and for
-// every row on the host. Each lane's fragments live in slot
-// AC_SLOT(lane) of a small array, the rows' own values in AC_SLOT(r).
+// Per-lane values: one register on the card, one slot per lane on the host,
+// where every per-lane statement runs for the 32 lanes in turn
+// (AC_FOR_LANES) and the warp primitives below combine the slots as the
+// card's instructions combine the lanes.
 #if defined(__CUDA_ARCH__)
 #define AC_LANE_SLOTS 1
-#define AC_ROW_SLOTS 1
 #define AC_SLOT(i) 0
 #define AC_FOR_LANES(l, lane) for (int l = (lane); l == (lane); l += 64)
-#define AC_FOR_ROWS(r, lane) \
-  for (int r = (lane); r < 16 && r == (lane); r += 64)
-#define AC_SYNCWARP() __syncwarp()
+#define AC_UNROLL _Pragma("unroll")
 #else
 #define AC_LANE_SLOTS 32
-#define AC_ROW_SLOTS 16
 #define AC_SLOT(i) (i)
 #define AC_FOR_LANES(l, lane) for (int l = 0; l < 32; ++l)
-#define AC_FOR_ROWS(r, lane) for (int r = 0; r < 16; ++r)
-#define AC_SYNCWARP()
+#define AC_UNROLL
 #endif
 
-// Lane l's A fragment for the states k0 .. k0+31: 1 where its row's state
-// is its column's.
-AC_HD void ac_mxu_frag_a(const AcMxuWarp& w, int lane, int32_t k0,
-                         uint32_t a[4]) {
-  for (int reg = 0; reg < 4; ++reg) {
-    uint32_t v = 0;
-    for (int j = 0; j < 4; ++j) {
-      const int i = 4 * reg + j;
-      const int32_t hit = w.s[ac_frag_a_row(lane, i)] == k0 + ac_frag_a_col(lane, i);
-      v |= (uint32_t)hit << (8 * j);
-    }
-    a[reg] = v;
-  }
+// __ballot_sync: bit l set where lane l's predicate holds.
+AC_HD uint32_t ac_ballot(const bool p[AC_LANE_SLOTS]) {
+#if defined(__CUDA_ARCH__)
+  return __ballot_sync(0xffffffffu, p[0]);
+#else
+  uint32_t m = 0;
+  for (int l = 0; l < 32; ++l) m |= (uint32_t)p[l] << l;
+  return m;
+#endif
 }
 
-// Lane l's B fragment: planes[k0 + k][n0 + n], 0 past the planes' columns.
-AC_HD void ac_mxu_frag_b(const AcScanArgs& a, int lane, int32_t k0,
-                         int32_t n0, uint32_t b[2]) {
-  const int64_t n_cols = (int64_t)a.n_planes * a.V;
-  const int64_t n = n0 + ac_frag_b_col(lane, 0);
-  for (int reg = 0; reg < 2; ++reg) {
-    uint32_t v = 0;
-    for (int j = 0; j < 4; ++j) {
-      const int64_t k = k0 + ac_frag_b_row(lane, 4 * reg + j);
-      const uint32_t d = n < n_cols ? (uint8_t)a.planes[k * n_cols + n] : 0u;
-      v |= d << (8 * j);
-    }
-    b[reg] = v;
-  }
+// __shfl_sync from lane src: its value, the same in every lane.
+AC_HD int32_t ac_shfl(const int32_t v[AC_LANE_SLOTS], int src) {
+#if defined(__CUDA_ARCH__)
+  return __shfl_sync(0xffffffffu, v[0], src);
+#else
+  return v[src];
+#endif
 }
 
-// Lane l's share of the select: of its D elements, those in a row of
-// `rows` whose column is the row's wanted column of plane p.
-AC_HD void ac_mxu_take(AcMxuWarp& w, const AcScanArgs& a, int lane,
-                       int32_t n0, int p, uint32_t rows, const int32_t d[4]) {
-  for (int i = 0; i < 4; ++i) {
-    const int r = ac_frag_c_row(lane, i);
-    if (((rows >> r) & 1u) && n0 + ac_frag_c_col(lane, i) == p * a.V + w.sym[r])
-      w.e[r][p] = d[i];
-  }
+// __shfl_xor_sync: out[l] = in[l ^ m].
+AC_HD void ac_shfl_xor(const uint32_t in[AC_LANE_SLOTS],
+                       uint32_t out[AC_LANE_SLOTS], int m) {
+#if defined(__CUDA_ARCH__)
+  out[0] = __shfl_xor_sync(0xffffffffu, in[0], m);
+#else
+  for (int l = 0; l < 32; ++l) out[l] = in[l ^ m];
+#endif
+}
+
+// The lowest set bit of a non-zero ballot (__ffs - 1).
+AC_HD int ac_first_lane(uint32_t m) {
+#if defined(__CUDA_ARCH__)
+  return __ffs((int)m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+// Four bytes from a 4-aligned address, little-endian.
+AC_HD uint32_t ac_load_u32(const int8_t* p) {
+#if defined(__CUDA_ARCH__)
+  return *(const uint32_t*)p;
+#else
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+#endif
 }
 
 #if defined(__CUDA_ARCH__)
+// D = A x B + D.
 __device__ __forceinline__ void ac_warp_mma(const uint32_t a[1][4],
                                             const uint32_t b[1][2],
                                             int32_t d[1][4]) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=r"(d[0][0]), "=r"(d[0][1]), "=r"(d[0][2]), "=r"(d[0][3])
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3])
       : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
-        "r"(b[0][0]), "r"(b[0][1]), "r"(0), "r"(0), "r"(0), "r"(0));
+        "r"(b[0][0]), "r"(b[0][1]));
 }
 #else
 // The warp's mma.sync on the host: assemble A [16 x 32] and B [32 x 8]
 // from the 32 lanes' fragments by the index functions above, multiply in
-// int32, and hand each lane its D elements.
+// int32, and add to each lane's D elements.
 inline void ac_warp_mma(const uint32_t a[32][4], const uint32_t b[32][2],
                         int32_t d[32][4]) {
   int32_t A[16][32], B[32][8];
@@ -553,25 +579,59 @@ inline void ac_warp_mma(const uint32_t a[32][4], const uint32_t b[32][2],
       int32_t acc = 0;
       for (int k = 0; k < 32; ++k)
         acc += A[ac_frag_c_row(l, i)][k] * B[k][ac_frag_c_col(l, i)];
-      d[l][i] = acc;
+      d[l][i] += acc;
     }
 }
 #endif
 
-// One tile product: the one-hot of the states in k0 .. k0+31 times the
-// planes' columns n0 .. n0+7, and the select of plane p's wanted columns
-// for the rows `rows`.
-AC_HD void ac_mxu_tile(const AcScanArgs& a, AcMxuWarp& w, int lane,
-                       int32_t k0, int32_t n0, int p, uint32_t rows) {
-  (void)lane;  // the host runs every lane
-  uint32_t fa[AC_LANE_SLOTS][4], fb[AC_LANE_SLOTS][2];
-  int32_t fd[AC_LANE_SLOTS][4];
-  AC_FOR_LANES(l, lane) {
-    ac_mxu_frag_a(w, l, k0, fa[AC_SLOT(l)]);
-    ac_mxu_frag_b(a, l, k0, n0, fb[AC_SLOT(l)]);
+// The key axis of planes_t: S_pad * V rounded up to a whole 32-key tile.
+AC_HD int32_t ac_key_stride(const AcScanArgs& a) {
+  return (int32_t)(((int64_t)a.S_pad * a.V + 31) & ~(int64_t)31);
+}
+
+// Lane l's A fragment for key tile `tile`: for each of its pending rows
+// (g + 8h) whose key falls in the tile, a 1 at the key's column where the
+// fragment holds it (register h for columns 0-15, 2 + h for 16-31); those
+// rows are then no longer pending. Branch-free, every register index
+// fixed at compile time, so that the fragment never leaves registers.
+template <int H>
+AC_HD void ac_mxu_frag_a(int lane, int32_t tile, const int32_t* key,
+                         bool* pend, uint32_t a[4]) {
+  a[0] = a[1] = a[2] = a[3] = 0;
+  AC_UNROLL
+  for (int h = 0; h < H; ++h) {
+    const bool in = pend[h] && (key[h] >> 5) == tile;
+    pend[h] = pend[h] && !in;
+    const int o = key[h] & 31;
+    const uint32_t v =
+        in && ((o >> 2) & 3) == (lane & 3) ? 1u << (8 * (o & 3)) : 0u;
+    a[h] = (o >> 4) ? 0u : v;
+    a[2 + h] = (o >> 4) ? v : 0u;
   }
-  ac_warp_mma(fa, fb, fd);
-  AC_FOR_LANES(l, lane) ac_mxu_take(w, a, l, n0, p, rows, fd[AC_SLOT(l)]);
+}
+
+// Lane l's B fragment for key tile `tile`: keys tile*32 + 4q .. +3 and
+// +16 .. +19 of plane g, two aligned 32-bit loads; zero for g >= n_planes
+// (those lanes load plane 0's and drop it, so the warp never diverges).
+AC_HD void ac_mxu_frag_b(const int8_t* planes_t, int32_t K, int n_planes,
+                         int lane, int32_t tile, uint32_t b[2]) {
+  const int p = lane >> 2;
+  const bool on = p < n_planes;
+  const int8_t* row = planes_t + (on ? p * K : 0) + tile * 32 + 4 * (lane & 3);
+  const uint32_t lo = ac_load_u32(row), hi = ac_load_u32(row + 16);
+  b[0] = on ? lo : 0u;
+  b[1] = on ? hi : 0u;
+}
+
+// Lane l's share of row (g + 8h)'s word: its D elements of that row are
+// the digits of planes 2q and 2q + 1.
+AC_HD uint32_t ac_mxu_digits(const int32_t d[4], int lane, int h,
+                             int n_planes) {
+  const int p = 2 * (lane & 3);
+  uint32_t w = 0;
+  if (p < n_planes) w |= (uint32_t)d[2 * h] << (7 * p);
+  if (p + 1 < n_planes) w |= (uint32_t)d[2 * h + 1] << (7 * (p + 1));
+  return w;
 }
 
 // The symbol accessors of the three layouts, as types.
@@ -598,76 +658,125 @@ struct AcWinLayout {
   }
 };
 
-// Smallest of f(r) >> shift over the rows of `rows`, and the rows that
-// share it.
-AC_HD int32_t ac_min_tile(const int32_t* v, int32_t add, int shift,
-                          uint32_t rows, uint32_t* same) {
-  int32_t best = 0x7fffffff;
-  for (int r = 0; r < 16; ++r)
-    if ((rows >> r) & 1u) {
-      const int32_t t = (v[r] + add) >> shift;
-      best = t < best ? t : best;
-    }
-  uint32_t m = 0;
-  for (int r = 0; r < 16; ++r)
-    if (((rows >> r) & 1u) && ((v[r] + add) >> shift) == best) m |= 1u << r;
-  *same = m;
-  return best;
-}
+// Symbols each row loads ahead of its chain, in a ring of registers.
+#define AC_MXU_AHEAD 4
 
-// The MXU count of the 16 columns col0 .. col0+15 (those below a.B):
-// a.halo warm-up rows, then a.L counted rows; out[col] is the column's
-// int32 total.
-template <typename Layout>
-AC_HD void ac_mxu_warp(const AcScanArgs& a, AcMxuWarp& w, int lane,
+// The MXU count of the R columns col0 .. col0+R-1 (those below a.B), over
+// planes_t (in shared or global memory): a.halo warm-up rows, then a.L
+// counted rows; out[col] is the column's int32 total. At R = 1 every lane
+// holds the one row and it fills all 16 A rows, so a step is one product
+// of its own tile, with no vote, and every quad's D holds its word.
+template <int R, typename Layout>
+AC_HD void ac_mxu_warp(const AcScanArgs& a, const int8_t* planes_t, int lane,
                        int64_t col0) {
-  (void)lane;  // the host runs every row
-  typename Layout::Syms syms[AC_ROW_SLOTS];
-  uint32_t tot[AC_ROW_SLOTS];
-  AC_FOR_ROWS(r, lane) {
-    const bool live = col0 + r < a.B;
-    w.s[r] = live ? 0 : -1;
-    tot[AC_SLOT(r)] = 0;
-    if (live) syms[AC_SLOT(r)] = Layout::make(a, col0 + r);
-  }
-  AC_SYNCWARP();
-  uint32_t live = 0;
-  for (int r = 0; r < 16; ++r) live |= (uint32_t)(w.s[r] >= 0) << r;
+  (void)lane;  // the host runs every lane
+  const int H = R > 8 ? 2 : 1;   // rows g and g + 8 of each lane, below R
+  const bool fill = R == 1 && AC_MXU_FILL;   // one row in all 16 A rows
+  const int P = AC_MXU_AHEAD;
+  const int32_t K = ac_key_stride(a), V = a.V;
+  const int n_planes = a.n_planes;
   const uint32_t mask = (1u << a.count_bits_m) - 1u;
-  for (int64_t t = 0; t < a.halo + a.L; ++t) {
-    AC_FOR_ROWS(r, lane) {
-      if ((live >> r) & 1u) w.sym[r] = syms[AC_SLOT(r)](t);
+  const int64_t T = (int64_t)a.halo + a.L;
+  typename Layout::Syms syms[AC_LANE_SLOTS][H];
+  bool live[AC_LANE_SLOTS][H];
+  int32_t st[AC_LANE_SLOTS][H], key[AC_LANE_SLOTS][H];
+  int32_t ring[AC_LANE_SLOTS][H][P];
+  uint32_t tot[AC_LANE_SLOTS][H];
+  // every index of these arrays is fixed at compile time (the loops over
+  // h and j unroll), so that they stay in registers on the card
+  AC_FOR_LANES(l, lane) {
+    const int s = AC_SLOT(l);
+    AC_UNROLL
+    for (int h = 0; h < H; ++h) {
+      const int r = fill ? 0 : (l >> 2) + 8 * h;
+      live[s][h] = r < R && col0 + r < a.B;
+      st[s][h] = 0;
+      key[s][h] = -1;  // a dead row never falls in a tile
+      tot[s][h] = 0;
+      if (live[s][h]) syms[s][h] = Layout::make(a, col0 + r);
+      AC_UNROLL
+      for (int j = 0; j < P; ++j)
+        ring[s][h][j] = live[s][h] && j < T ? syms[s][h](j) : 0;
     }
-    AC_SYNCWARP();
-    uint32_t pending = live;
-    while (pending) {
-      uint32_t in_tile;
-      const int32_t kt = ac_min_tile(w.s, 0, 5, pending, &in_tile);
-      pending &= ~in_tile;
-      for (int p = 0; p < a.n_planes; ++p) {
-        uint32_t todo = in_tile;
-        while (todo) {
-          uint32_t rows;
-          const int32_t nt = ac_min_tile(w.sym, p * a.V, 3, todo, &rows);
-          todo &= ~rows;
-          ac_mxu_tile(a, w, lane, kt * 32, nt * 8, p, rows);
+  }
+  for (int64_t t0 = 0; t0 < T; t0 += P) {
+    AC_UNROLL
+    for (int j = 0; j < P; ++j) {
+      const int64_t t = t0 + j;
+      if (t >= T) break;
+      // this step's keys; ring slot j is refilled P symbols ahead
+      bool pend[AC_LANE_SLOTS][H];
+      AC_FOR_LANES(l, lane) {
+        const int s = AC_SLOT(l);
+        AC_UNROLL
+        for (int h = 0; h < H; ++h) {
+          pend[s][h] = live[s][h];
+          if (!live[s][h]) continue;
+          key[s][h] = st[s][h] * V + ring[s][h][j];
+          if (t + P < T) ring[s][h][j] = syms[s][h](t + P);
+        }
+      }
+      // one product per distinct key tile, accumulated in D
+      int32_t d[AC_LANE_SLOTS][4];
+      AC_FOR_LANES(l, lane) {
+        for (int i = 0; i < 4; ++i) d[AC_SLOT(l)][i] = 0;
+      }
+      if (fill) {
+        uint32_t fa[AC_LANE_SLOTS][4], fb[AC_LANE_SLOTS][2];
+        AC_FOR_LANES(l, lane) {
+          const int s = AC_SLOT(l);
+          const int32_t both[2] = {key[s][0], key[s][0]};
+          bool rows[2] = {true, true};
+          ac_mxu_frag_a<2>(l, key[s][0] >> 5, both, rows, fa[s]);
+          ac_mxu_frag_b(planes_t, K, n_planes, l, key[s][0] >> 5, fb[s]);
+        }
+        ac_warp_mma(fa, fb, d);
+      }
+      while (!fill) {
+        bool any[AC_LANE_SLOTS];
+        int32_t lt[AC_LANE_SLOTS];
+        AC_FOR_LANES(l, lane) {
+          const int s = AC_SLOT(l);
+          any[s] = pend[s][0] || pend[s][H - 1];
+          lt[s] = (pend[s][0] ? key[s][0] : key[s][H - 1]) >> 5;
+        }
+        const uint32_t voters = ac_ballot(any);
+        if (voters == 0) break;
+        const int32_t tile = ac_shfl(lt, ac_first_lane(voters));
+        uint32_t fa[AC_LANE_SLOTS][4], fb[AC_LANE_SLOTS][2];
+        AC_FOR_LANES(l, lane) {
+          const int s = AC_SLOT(l);
+          ac_mxu_frag_a<H>(l, tile, key[s], pend[s], fa[s]);
+          ac_mxu_frag_b(planes_t, K, n_planes, l, tile, fb[s]);
+        }
+        ac_warp_mma(fa, fb, d);
+      }
+      // each row's word, gathered across its quad; count and move
+      AC_UNROLL
+      for (int h = 0; h < H; ++h) {
+        uint32_t w[AC_LANE_SLOTS], x[AC_LANE_SLOTS];
+        AC_FOR_LANES(l, lane) {
+          w[AC_SLOT(l)] = ac_mxu_digits(d[AC_SLOT(l)], l, h, n_planes);
+        }
+        ac_shfl_xor(w, x, 1);
+        AC_FOR_LANES(l, lane) { w[AC_SLOT(l)] |= x[AC_SLOT(l)]; }
+        ac_shfl_xor(w, x, 2);
+        AC_FOR_LANES(l, lane) {
+          const int s = AC_SLOT(l);
+          const uint32_t e = w[s] | x[s];
+          if (!live[s][h]) continue;
+          if (t >= a.halo) tot[s][h] += e & mask;
+          st[s][h] = (int32_t)(e >> a.count_bits_m);
         }
       }
     }
-    AC_SYNCWARP();
-    AC_FOR_ROWS(r, lane) {
-      if ((live >> r) & 1u) {
-        uint32_t e = 0;
-        for (int p = 0; p < a.n_planes; ++p)
-          e += (uint32_t)w.e[r][p] << (7 * p);
-        if (t >= a.halo) tot[AC_SLOT(r)] += e & mask;
-        w.s[r] = (int32_t)(e >> a.count_bits_m);
-      }
-    }
-    AC_SYNCWARP();
   }
-  AC_FOR_ROWS(r, lane) {
-    if ((live >> r) & 1u) a.out[col0 + r] = (int32_t)tot[AC_SLOT(r)];
+  AC_FOR_LANES(l, lane) {
+    const int s = AC_SLOT(l);
+    for (int h = 0; h < H; ++h) {
+      if (live[s][h] && (fill ? l == 0 : (l & 3) == 0))
+        a.out[col0 + (fill ? 0 : (l >> 2) + 8 * h)] = (int32_t)tot[s][h];
+    }
   }
 }
 

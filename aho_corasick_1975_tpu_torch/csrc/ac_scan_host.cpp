@@ -1,7 +1,8 @@
 // Host build of the per-thread scans in ac_scan.cuh, with the same C entry
 // points as the CUDA kernels: each loops over the streams (or batch
 // columns, or windows) one by one, and the MXU kernels over their warps,
-// each warp's 32 lanes in turn with the tensor-core instruction emulated.
+// each warp's 32 lanes in turn with the tensor-core instruction and the
+// warp's votes and shuffles emulated.
 // Built with g++ by the CPU tests, so that the logic the H100 kernels run
 // is tested where there is no GPU; the scanner never loads it.
 #include "ac_scan.cuh"
@@ -21,12 +22,12 @@ int run(const AcScanArgs* a) {
   return run<U8, I32>(a, a->B);
 }
 
-template <typename Layout>
-void mxu_warps(const AcScanArgs& a, int64_t col0, int64_t end) {
-  for (int64_t c = col0; c < end; c += 16) {
-    AcMxuWarp w;
-    ac_mxu_warp<Layout>(a, w, 0, c);
-  }
+// The warps of R rows each over the columns [col0, end).
+template <int R, typename Layout>
+int mxu_warps(const AcScanArgs& a, int64_t col0, int64_t end) {
+  for (int64_t c = col0; c < end; c += R)
+    ac_mxu_warp<R, Layout>(a, a.planes_t, 0, c);
+  return 0;
 }
 
 }  // namespace
@@ -89,27 +90,23 @@ int ac_stepped_count_2t(const AcScanArgs* a, void*) {
 }
 
 int ac_mxu_count(const AcScanArgs* a, void*) {
-  if (a->layout == 2)
-    mxu_warps<AcWinLayout>(*a, 0, a->B);
-  else if (a->layout == 1 && a->ext_u8)
-    mxu_warps<AcBatchLayout<uint8_t>>(*a, 0, a->B);
-  else if (a->layout == 1)
-    mxu_warps<AcBatchLayout<int32_t>>(*a, 0, a->B);
-  else if (a->ext_u8)
-    mxu_warps<AcStreamLayout<uint8_t>>(*a, 0, a->B);
-  else
-    mxu_warps<AcStreamLayout<int32_t>>(*a, 0, a->B);
-  return 0;
+  constexpr int R = AC_K10_ROWS;
+  if (a->layout == 2) return mxu_warps<R, AcWinLayout>(*a, 0, a->B);
+  if (a->layout == 1 && a->ext_u8)
+    return mxu_warps<R, AcBatchLayout<uint8_t>>(*a, 0, a->B);
+  if (a->layout == 1)
+    return mxu_warps<R, AcBatchLayout<int32_t>>(*a, 0, a->B);
+  if (a->ext_u8) return mxu_warps<R, AcStreamLayout<uint8_t>>(*a, 0, a->B);
+  return mxu_warps<R, AcStreamLayout<int32_t>>(*a, 0, a->B);
 }
 
 int ac_hybrid_count(const AcScanArgs* a, void*) {
+  constexpr int R = AC_K11_ROWS;
   run<ac_stepped_count_stream<uint8_t>, ac_stepped_count_stream<int32_t>>(
       a, a->B1);
   if (a->ext_u8)
-    mxu_warps<AcStreamLayout<uint8_t>>(*a, a->B1, a->B);
-  else
-    mxu_warps<AcStreamLayout<int32_t>>(*a, a->B1, a->B);
-  return 0;
+    return mxu_warps<R, AcStreamLayout<uint8_t>>(*a, a->B1, a->B);
+  return mxu_warps<R, AcStreamLayout<int32_t>>(*a, a->B1, a->B);
 }
 
 int ac_assoc_scan(const AcScanArgs* a, void*) {

@@ -312,12 +312,15 @@ class DenseScanner:
         tables (raw_lut_entry), and the engine's digit planes, rebuilt
         from the tables (``_mxu`` and ``_hybrid``: (planes int8 tensor
         [S_pad, n_planes*V], count_bits, n_planes, S_pad), as in the JAX
-        scanner). ``__init__``, ``refresh()`` and calibration call it."""
+        scanner), with the kernels' copy keyed by (state, letter)
+        (``_planes_t``, ``scan_mxu.transpose_planes``), made here and
+        never per call. ``__init__``, ``refresh()`` and calibration call
+        it."""
         st = self._stepped
         self._halo_steps = -(-self.halo // st.k) if st is not None else 0
         self._halo_sym = self._halo_steps * st.k if st is not None else 0
         self._lut_cache.clear()
-        self._mxu = self._hybrid = None
+        self._mxu = self._hybrid = self._planes_t = None
         tabs = self.tables
         if self._engine == "mxu":
             built = scan_mxu.build_planes(tabs.delta, tabs.nb_outputs)
@@ -327,6 +330,8 @@ class DenseScanner:
                     "or digit planes over the ops/scan_mxu.py limits); use "
                     "engine='gather'")
             self._mxu = (self._snap.place(built[0]),) + built[1:]
+            self._planes_t = scan_mxu.transpose_planes(self._mxu[0], self.V,
+                                                       built[2])
         elif self._engine == "hybrid":
             built = None
             if self._snap.packed is not None:
@@ -339,6 +344,8 @@ class DenseScanner:
                     "states over ops/scan_hybrid.MAX_HYBRID_STATES, or no "
                     "packed stepped table); use engine='gather'")
             self._hybrid = (self._snap.place(built[0]),) + built[1:]
+            self._planes_t = scan_mxu.transpose_planes(self._hybrid[0],
+                                                       self.V, built[2])
 
     # -- incremental snapshot refresh ----------------------------------------
 
@@ -580,7 +587,8 @@ class DenseScanner:
         if self._mxu is not None:
             planes, cbits, n_planes, _ = self._mxu
             per = sparse.sparse_count_mxu(planes, self.V, cbits, n_planes,
-                                          halo, L_blk, src, idx)
+                                          halo, L_blk, src, idx,
+                                          planes_t=self._planes_t)
         elif self._packed_windows:
             per = sparse.sparse_count_stepped(
                 snap.packed, st.V, k, st.count_bits, self._halo_steps, L_blk,
@@ -719,7 +727,7 @@ class DenseScanner:
             planes, cbits, n_planes, _ = self._mxu
             return self.halo, 128, functools.partial(
                 scan_mxu.mxu_count, planes, self.V, cbits, n_planes,
-                self.halo)
+                self.halo, planes_t=self._planes_t)
         if self._hybrid is not None:
             return self._halo_sym, 128 * st.k, self._hybrid_count
         if snap.packed is not None:
@@ -744,7 +752,7 @@ class DenseScanner:
         return scan_hybrid.hybrid_count(
             self._snap.packed, planes, st.V, st.k, st.count_bits,
             self._halo_steps, n_planes, cbm, B - B2, B, L, ext, lut,
-            head_ids)
+            head_ids, planes_t=self._planes_t)
 
     def _count_raw_pipelined(self, raw, ent, head) -> Optional[int]:
         """Raw count of a large host input in independent chunks through
@@ -922,7 +930,7 @@ class DenseScanner:
             c, Lp = self._split_for(L, B, 128)
             per = scan_mxu.mxu_count_many(
                 planes, self.V, cbits, n_planes, self.halo if c > 1 else 0,
-                c, Lp, tm, lut)
+                c, Lp, tm, lut, planes_t=self._planes_t)
         elif snap.packed is not None and L % st.k == 0:
             c, Lp = self._split_for(L, B, 128 * st.k)
             per = stepped_count_many(

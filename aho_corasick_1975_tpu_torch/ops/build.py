@@ -75,7 +75,7 @@ class AcScanArgs(ctypes.Structure):
         ("gather", ctypes.c_int32),
         ("hit_pos", ctypes.c_void_p), ("hit_state", ctypes.c_void_p),
         ("hit_off", ctypes.c_void_p),
-        ("table2", ctypes.c_void_p), ("planes", ctypes.c_void_p),
+        ("table2", ctypes.c_void_p), ("planes_t", ctypes.c_void_p),
         ("S_pad", ctypes.c_int32), ("n_planes", ctypes.c_int32),
         ("count_bits_m", ctypes.c_int32), ("B1", ctypes.c_int32),
         ("layout", ctypes.c_int32),

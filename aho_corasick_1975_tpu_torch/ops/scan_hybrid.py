@@ -15,8 +15,10 @@ that both packages split alike, and are to be measured again on the card
 
 K11 (csrc/mxu_scan.cu) replaces ``hybrid_count_core``
 (``make_hybrid_count_stream`` / ``_raw``): the launch's blocks take a role
-by index, gather blocks one thread per column of [0, B1) running K3's
-body, MMA blocks one warp per 16 columns of [B1, B) running K10's.
+by index, MMA blocks first, one warp per R columns of [B1, B)
+(``AC_K11_ROWS`` in csrc/ac_scan.cuh) running K10's body over
+``planes_t``, then gather blocks, one thread per column of [0, B1)
+running K3's.
 """
 
 from __future__ import annotations
@@ -60,8 +62,8 @@ def hybrid_count_plain(packed, planes, V: int, k: int, count_bits: int,
 
 def hybrid_count(packed, planes, V: int, k: int, count_bits: int,
                  halo_steps: int, n_planes: int, count_bits_m: int, B1: int,
-                 B: int, L: int, ext, lut=None,
-                 head_ids=None) -> torch.Tensor:
+                 B: int, L: int, ext, lut=None, head_ids=None, *,
+                 planes_t: torch.Tensor) -> torch.Tensor:
     """K11: per-stream int32 match totals [B] (the gather half's B1, then
     the MXU half's B - B1); the caller sums them in int64. Forms "ids"
     and "raw"."""
@@ -71,6 +73,7 @@ def hybrid_count(packed, planes, V: int, k: int, count_bits: int,
     dev = check_stepped(packed, k, halo_steps, B, L, ext, lut, head_ids)
     if planes.device != dev:
         raise ValueError(f"inputs on {planes.device} and {dev}")
+    fields = mxu_fields(planes, V, count_bits_m, n_planes, planes_t)
     if dev.type == "cpu":
         return hybrid_count_plain(packed, planes, V, k, count_bits,
                                   halo_steps, n_planes, count_bits_m, B1, B,
@@ -81,6 +84,5 @@ def hybrid_count(packed, planes, V: int, k: int, count_bits: int,
                  L=L, Vk=V ** k, B=B, B1=B1, halo=halo_steps * k,
                  ext_u8=int(ext.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), k=k,
-                 count_bits=count_bits, layout=0,
-                 **mxu_fields(planes, V, count_bits_m, n_planes))
+                 count_bits=count_bits, layout=0, **fields)
     return out

@@ -22,15 +22,23 @@ Device half: K10 (csrc/mxu_scan.cu) replaces ``mxu_count_core`` in the
 forms of ``make_mxu_count_stream`` / ``_raw`` (``mxu_count``),
 ``make_mxu_count_many`` (``mxu_count_many``) and, in ``ops/sparse.py``,
 ``make_mxu_count_halo`` and ``make_sparse_count_mxu[_dev]``
-(``sparse_count_mxu``). One warp owns 16 streams and runs each symbol's
-lookup as ``mma.sync`` m16n8k32 int8 products of the 16 one-hot state rows
-with the planes' 32-state, 8-column tiles. Each version here beside its
-plain PyTorch one, which multiplies in float32: exact, since the digits
-are below 2^7 and each product sums one non-zero term (TF32 would be exact
-too: 7-bit integers fit its mantissa).
+(``sparse_count_mxu``). It reads the planes keyed by (state, letter):
+``planes_t`` of ``transpose_planes``, [n_planes, S_pad*V] plane-major, so
+that row b's one-hot has its 1 at key ``s_b*V + c_b`` and one ``mma.sync``
+m16n8k32 int8 product of a 32-key tile gives every plane's digit of every
+row whose key lies in it: no select-reduce over the letter. One warp owns
+R streams (``AC_K10_ROWS`` in csrc/ac_scan.cuh) and multiplies, per
+symbol, each distinct key tile among them once, accumulating in D. The
+scanners make ``planes_t`` once per bind, beside the planes, which stay
+bit-identical to the JAX package's and remain the plain versions' input.
+Each version here
+beside its plain PyTorch one, which multiplies in float32: exact, since
+the digits are below 2^7 and each product sums one non-zero term (TF32
+would be exact too: 7-bit integers fit its mantissa).
 
 Inputs follow ``ops/scan_dense.py``; ``planes`` is the int8 tensor
-[S_pad, n_planes * V] of ``build_planes`` on the scan's device.
+[S_pad, n_planes * V] of ``build_planes`` on the scan's device, and every
+wrapper takes its ``planes_t`` too, which a launch on the card reads.
 """
 
 from __future__ import annotations
@@ -49,7 +57,6 @@ MAX_MXU_STATES = 512
 
 DIGIT_BITS = 7
 DIGIT_MASK = (1 << DIGIT_BITS) - 1
-
 
 def build_planes(delta: np.ndarray, nb_outputs: np.ndarray,
                  max_states: Optional[int] = None
@@ -120,10 +127,45 @@ def check_planes(planes: torch.Tensor, V: int, n_planes: int) -> None:
             f"n_planes={n_planes}, V={V})")
 
 
-def mxu_fields(planes: torch.Tensor, V: int, count_bits: int,
-               n_planes: int) -> dict:
-    """The launch fields of the planes."""
-    return dict(planes=planes, S_pad=planes.shape[0], n_planes=n_planes,
+def key_stride(S_pad: int, V: int) -> int:
+    """The key axis of ``planes_t``: S_pad*V rounded up to a whole 32-key
+    tile (csrc/ac_scan.cuh:ac_key_stride)."""
+    return -(-S_pad * V // 32) * 32
+
+
+def transpose_planes(planes: torch.Tensor, V: int,
+                     n_planes: int) -> torch.Tensor:
+    """The planes keyed by (state, letter), K10's and K11's B operand:
+    int8 [n_planes, key_stride(S_pad, V)] with
+    ``planes_t[p, s*V + c] = planes[s, p*V + c]`` and zeros past S_pad*V,
+    on the planes' device."""
+    check_planes(planes, V, n_planes)
+    S_pad = planes.shape[0]
+    out = torch.zeros((n_planes, key_stride(S_pad, V)), dtype=torch.int8,
+                      device=planes.device)
+    out[:, :S_pad * V] = planes.view(S_pad, n_planes, V).permute(
+        1, 0, 2).reshape(n_planes, S_pad * V)
+    return out
+
+
+def mxu_fields(planes: torch.Tensor, V: int, count_bits: int, n_planes: int,
+               planes_t: Optional[torch.Tensor]) -> dict:
+    """The launch fields of the planes; raises unless ``planes_t`` is
+    ``transpose_planes(planes)``'s shape on the planes' device. Every
+    wrapper checks it, on the CPU too, where its plain version reads the
+    planes."""
+    if (planes_t is None or planes_t.dtype != torch.int8
+            or tuple(planes_t.shape) != (n_planes,
+                                         key_stride(planes.shape[0], V))
+            or not planes_t.is_contiguous()
+            or planes_t.device != planes.device or planes_t.data_ptr() % 16):
+        raise ValueError(
+            "a launch needs planes_t, transpose_planes(planes) on the "
+            "planes' device (the scanners make it once per bind); got "
+            + ("None" if planes_t is None else
+               f"{planes_t.dtype} {tuple(planes_t.shape)} on "
+               f"{planes_t.device}"))
+    return dict(planes_t=planes_t, S_pad=planes.shape[0], n_planes=n_planes,
                 count_bits_m=count_bits, V=V)
 
 
@@ -136,7 +178,8 @@ def mxu_count_plain(planes, V: int, count_bits: int, n_planes: int,
 
 
 def mxu_count(planes, V: int, count_bits: int, n_planes: int, halo: int,
-              B: int, L: int, ext, lut=None, head_ids=None) -> torch.Tensor:
+              B: int, L: int, ext, lut=None, head_ids=None, *,
+              planes_t: torch.Tensor) -> torch.Tensor:
     """K10 stream form (``make_mxu_count_stream`` / ``_raw``): per-stream
     int32 match totals [B]; the caller sums them in int64. Forms "ids"
     and "raw"."""
@@ -144,6 +187,7 @@ def mxu_count(planes, V: int, count_bits: int, n_planes: int, halo: int,
     dev = check_stream(B, L, halo, ext, lut, head_ids)
     if planes.device != dev:
         raise ValueError(f"inputs on {planes.device} and {dev}")
+    fields = mxu_fields(planes, V, count_bits, n_planes, planes_t)
     if dev.type == "cpu":
         return mxu_count_plain(planes, V, count_bits, n_planes, halo, B, L,
                                ext, lut, head_ids)
@@ -152,7 +196,7 @@ def mxu_count(planes, V: int, count_bits: int, n_planes: int, halo: int,
                  ext=ext, lut=lut, head_ids=head_ids, out=out, L=L, B=B,
                  halo=halo, ext_u8=int(ext.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), layout=0,
-                 **mxu_fields(planes, V, count_bits, n_planes))
+                 **fields)
     return out
 
 
@@ -166,7 +210,8 @@ def mxu_count_many_plain(planes, V: int, count_bits: int, n_planes: int,
 
 
 def mxu_count_many(planes, V: int, count_bits: int, n_planes: int,
-                   halo: int, c: int, Lp: int, tm, lut=None) -> torch.Tensor:
+                   halo: int, c: int, Lp: int, tm, lut=None, *,
+                   planes_t: torch.Tensor) -> torch.Tensor:
     """K10 batch form (``make_mxu_count_many``): int32 match totals per
     batch column [c*B] of the time-major batch ``tm`` [L, B] (int32 ids,
     or raw uint8/int32 symbols with ``lut``) split into c blocks of Lp
@@ -176,6 +221,7 @@ def mxu_count_many(planes, V: int, count_bits: int, n_planes: int,
     dev = check_batch(c, Lp, tm, lut)
     if planes.device != dev:
         raise ValueError(f"inputs on {planes.device} and {dev}")
+    fields = mxu_fields(planes, V, count_bits, n_planes, planes_t)
     if dev.type == "cpu":
         return mxu_count_many_plain(planes, V, count_bits, n_planes, halo, c,
                                     Lp, tm, lut)
@@ -187,6 +233,5 @@ def mxu_count_many(planes, V: int, count_bits: int, n_planes: int,
                  L=Lp, B=c * B, halo=halo,
                  ext_u8=int(tm.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), doc_len=L,
-                 n_docs=B, layout=1,
-                 **mxu_fields(planes, V, count_bits, n_planes))
+                 n_docs=B, layout=1, **fields)
     return out

@@ -275,7 +275,8 @@ def sparse_count_mxu_plain(planes, V: int, count_bits: int, n_planes: int,
 
 
 def sparse_count_mxu(planes, V: int, count_bits: int, n_planes: int,
-                     halo: int, L_blk: int, src, idx=None) -> torch.Tensor:
+                     halo: int, L_blk: int, src, idx=None, *,
+                     planes_t: torch.Tensor) -> torch.Tensor:
     """K10 window forms: int32 match totals per window [n] through the
     MXU engine, over the index list ("idx") or host-elided windows
     ("elided"); the caller sums them in int64."""
@@ -283,12 +284,12 @@ def sparse_count_mxu(planes, V: int, count_bits: int, n_planes: int,
     dev = check_windows(L_blk, halo, src, idx)
     if planes.device != dev:
         raise ValueError(f"inputs on {planes.device} and {dev}")
+    fields = mxu_fields(planes, V, count_bits, n_planes, planes_t)
     if dev.type == "cpu":
         return sparse_count_mxu_plain(planes, V, count_bits, n_planes, halo,
                                       L_blk, src, idx)
     out = torch.empty(_n_windows(src, idx), dtype=torch.int32, device=dev)
     if out.numel():
         build.launch("ac_mxu_count", dev, out=out, L=L_blk, halo=halo,
-                     layout=2, **window_fields(L_blk, src, idx),
-                     **mxu_fields(planes, V, count_bits, n_planes))
+                     layout=2, **window_fields(L_blk, src, idx), **fields)
     return out

@@ -282,13 +282,15 @@ class ShardedScanner:
         """Derive what depends on the snapshot and the halo (JAX
         ``_bind_kernels``): the halo in gram steps, the raw-encode LUTs and
         the engine's digit planes (``_mxu``, ``_hybrid``: (planes by
-        device, count_bits, n_planes, S_pad)). The one rebind of
+        device, count_bits, n_planes, S_pad)) with the kernels' copy keyed
+        by (state, letter), one per replica (``_planes_t`` by device,
+        ``scan_mxu.transpose_planes``). The one rebind of
         ``__init__``, ``refresh()``, calibration and ``autotune.probe``."""
         st = self._stepped
         self._halo_steps = -(-self.halo // st.k) if st is not None else 0
         self._halo_sym = self._halo_steps * st.k if st is not None else 0
         self._lut_cache.clear()
-        self._mxu = self._hybrid = None
+        self._mxu = self._hybrid = self._planes_t = None
         tabs = self.tables
         if self._engine == "mxu":
             built = scan_mxu.build_planes(tabs.delta, tabs.nb_outputs)
@@ -298,6 +300,7 @@ class ShardedScanner:
                     "or digit planes over the ops/scan_mxu.py limits); use "
                     "engine='gather'")
             self._mxu = (self._replicate(built[0]),) + built[1:]
+            self._planes_t = self._transpose(self._mxu[0], built[2])
         elif self._engine == "hybrid":
             built = None
             if self._snap.packed is not None:
@@ -310,6 +313,12 @@ class ShardedScanner:
                     "states over ops/scan_hybrid.MAX_HYBRID_STATES, or no "
                     "packed stepped table); use engine='gather'")
             self._hybrid = (self._replicate(built[0]),) + built[1:]
+            self._planes_t = self._transpose(self._hybrid[0], built[2])
+
+    def _transpose(self, planes: Dict[torch.device, torch.Tensor],
+                   n_planes: int) -> Dict[torch.device, torch.Tensor]:
+        return {d: scan_mxu.transpose_planes(p, self.V, n_planes)
+                for d, p in planes.items()}
 
     def refresh(self) -> bool:
         """Bring the replicated snapshot up to the machine's dictionary
@@ -566,7 +575,8 @@ class ShardedScanner:
             def count(i, B, L, ext, lut, head_ids):
                 return scan_mxu.mxu_count(
                     planes[self.mesh.devices[i]], self.V, cbits, n_planes,
-                    self.halo, B, L, ext, lut, head_ids)
+                    self.halo, B, L, ext, lut, head_ids,
+                    planes_t=self._planes_t[self.mesh.devices[i]])
             return self.halo, lambda Tl: _dense_geometry(Tl, nspd), count
         if st is not None:
             def count(i, B, L, ext, lut, head_ids):
@@ -582,7 +592,8 @@ class ShardedScanner:
                 return scan_hybrid.hybrid_count(
                     packed, planes[self.mesh.devices[i]], st.V, st.k,
                     st.count_bits, self._halo_steps, n_planes, cbm, B - B2,
-                    B, L, ext, lut, head_ids)
+                    B, L, ext, lut, head_ids,
+                    planes_t=self._planes_t[self.mesh.devices[i]])
             return (self._halo_sym,
                     lambda Tl: _stepped_geometry(Tl, st.k, nspd), count)
 
@@ -1153,7 +1164,8 @@ class ShardedScanner:
                 c, Lp = self._split_for(L, B_local, 128)
                 per = scan_mxu.mxu_count_many(
                     planes[dev], self.V, cbits, n_planes,
-                    self.halo if c > 1 else 0, c, Lp, tm, lut)
+                    self.halo if c > 1 else 0, c, Lp, tm, lut,
+                    planes_t=self._planes_t[dev])
             elif st is not None and L % st.k == 0:
                 c, Lp = self._split_for(L, B_local, 128 * st.k)
                 per = multistep.stepped_count_many(

@@ -64,8 +64,13 @@ card, importing nothing of JAX:
    scanners: the probe's times and winner; a second scanner of the same
    geometry does not probe;
 14. engine kernels: every form of K9, K10 and K11 against its plain
-   version, exact, on data whose plain total is non-zero, with times, and
-   K11's time beside K3's at the same B and L.
+   version, exact, on data whose plain total is non-zero, with times
+   (K11 also over the corpus repeated to fill every column, since
+   count()'s zero padding is its MMA half's; there that half's own total
+   must be non-zero); K11's time beside K3's on the slice's tables and
+   K10's beside K3's on the MXU dictionary's, each at the same B and L, in
+   ns a step too. (probe_mxu_rows.py times K10 and K11 at other rows per
+   warp.)
 
 Each of phases 4, 6-8, 9's (a)-(b) and (c), and 10-12 runs with the launch
 counters set to 0 just before it and read just after, and fails unless
@@ -74,8 +79,8 @@ Every kernel comparison gives its bound: every tensor of the call read
 once and its output written once over 3.35 TB/s (a capacity-padded
 table at its real states' rows, a stream read through an index list at
 its listed windows), against the int8 tensor-core operations the data
-needs at least (K10, K11: one tile product per plane and warp step) over
-1,979 TOPS. Prints the kernels'
+needs at least (K10, K11: one m16n8k32 product, all planes at once, per
+16 rows and step, the densest the instruction allows) over 1,979 TOPS. Prints the kernels'
 JSON line, the card's name and power limit, and last the line
 {"ok": true, "device": {...}}. Any failure exits non-zero, and so does a
 machine without CUDA.
@@ -83,6 +88,7 @@ machine without CUDA.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -167,7 +173,7 @@ KERNELS = {
         "aho_corasick_1975_tpu_torch/csrc/stepped_scan.cu",
         "aho_corasick_1975_tpu/ops/multistep.py:366"),
     "ac_mxu_count": (
-        "K10 mxu_count (int8 mma.sync one-hot x digit planes)",
+        "K10 mxu_count (int8 mma.sync, (state, letter) one-hot x planes)",
         "aho_corasick_1975_tpu_torch/csrc/mxu_scan.cu",
         "aho_corasick_1975_tpu/ops/scan_mxu.py:79"),
     "ac_hybrid_count": (
@@ -301,11 +307,15 @@ def bound(moved: int, ops: int):
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
-def mma_ops(n_planes: int, columns: int, rows: int) -> int:
-    """The int8 operations a K10 warp body needs at least: every step of
-    each 16-column warp multiplies, per plane, one 32-state tile of the
-    one-hot states by one 8-column tile of the planes."""
-    return MMA_OPS * n_planes * (-(-columns // 16)) * rows
+def mma_ops(columns: int, rows: int) -> int:
+    """The int8 operations the K10/K11 lookup needs at least: every step
+    of each group of 16 columns multiplies the one-hot (state, letter) keys
+    of its 16 rows, at best all in one 32-key tile, by the planes keyed so,
+    all planes in one m16n8k32 product. Sixteen rows are the most one
+    product serves, so this holds whatever rows per warp the kernels run
+    (a warp of R rows multiplies one product per distinct tile among
+    them)."""
+    return MMA_OPS * (-(-columns // 16)) * rows
 
 
 def max_abs_err(a, b) -> int:
@@ -348,16 +358,20 @@ def phase_kernels(sc, text: bytes) -> dict:
 
 
 def stream_inputs(sc, text: bytes, halo: int, B: int, L: int,
-                  seed: int = 1) -> dict:
+                  seed: int = 1, fill: bool = False) -> dict:
     """A kernel's stream inputs from the corpus: raw uint8 bytes with the
     scanner's byte LUT and seeded non-zero head ids, and the same stream as
-    int32 letter ids."""
+    int32 letter ids. The corpus is zero-padded to B*L bytes as count()
+    lays it out or, with ``fill``, repeated to fill every column."""
     rng = np.random.default_rng(seed)
     snap = sc._snap
     lut_host = sc._get_lut("byte")[3]
     raw = np.zeros(halo + B * L, np.uint8)
-    n = min(len(text), B * L)
-    raw[halo:halo + n] = np.frombuffer(text, np.uint8)[:n]
+    src = np.frombuffer(text, np.uint8)
+    if fill:
+        src = np.tile(src, -(-B * L // len(src)))
+    n = min(len(src), B * L)
+    raw[halo:halo + n] = src[:n]
     head = rng.integers(1, sc.V, halo).astype(np.int32)
     ids = lut_host[raw].astype(np.int32)
     ids[:halo] = head
@@ -367,15 +381,16 @@ def stream_inputs(sc, text: bytes, halo: int, B: int, L: int,
 
 
 def compare(name, kernel, plain, args, ins, shape: str,
-            hits: bool = False, ops=None, need=None) -> dict:
+            hits=False, ops=None, need=None) -> dict:
     """Each input of ``ins`` through the kernel and its plain version:
     exact equality, then the kernel's mean time over 10 runs and the plain
     version's over 2 (CUDA events), and the bound: every tensor of the
     call read once and its output written once, those of
     ``need(*extra)`` at the bytes the data needs of them (``needs``), and
     ``ops(*extra)`` int8 tensor operations (none but for K10, K11).
-    With ``hits``, the plain version's output must hold a match (a
-    non-zero count), so that a kernel writing zeros cannot pass."""
+    With ``hits``, the plain version's output (its entries ``hits`` where
+    that is a slice) must hold a match (a non-zero count), so that a
+    kernel writing zeros there cannot pass."""
     res = {}
     for kind, extra in ins.items():
         got = kernel(*args, *extra)
@@ -383,7 +398,8 @@ def compare(name, kernel, plain, args, ins, shape: str,
         want = plain(*args, *extra)
         err = max_abs_err(got, want)
         check(err == 0, f"{name} ({kind}) equals its plain version")
-        total = int((want[-1] if isinstance(want, tuple) else want)
+        out = want[-1] if isinstance(want, tuple) else want
+        total = int((out[hits] if isinstance(hits, slice) else out)
                     .long().sum())
         check(not hits or total > 0, f"{name} ({kind}) is checked on "
               f"windows that hold matches (plain total {total})")
@@ -1351,23 +1367,26 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
 
     scm, sh = mxu["sc"], mxu["sh"]
     planes, cbits, n_planes, _ = scm._mxu
+    k10 = functools.partial(scan_mxu.mxu_count, planes_t=scm._planes_t)
     Lm = scm._layout(len(text), 128)[1]
+    args10 = (planes, scm.V, cbits, n_planes, scm.halo, B, Lm)
+    ins10 = stream_inputs(scm, text, scm.halo, B, Lm)
     res["ac_mxu_count"] = compare(
-        "ac_mxu_count", scan_mxu.mxu_count, scan_mxu.mxu_count_plain,
-        (planes, scm.V, cbits, n_planes, scm.halo, B, Lm),
-        stream_inputs(scm, text, scm.halo, B, Lm), f"B={B} L={Lm}",
-        hits=True, ops=lambda *e: mma_ops(n_planes, B, scm.halo + Lm))
+        "ac_mxu_count", k10, scan_mxu.mxu_count_plain, args10, ins10,
+        f"B={B} L={Lm}", hits=True,
+        ops=lambda *e: mma_ops(B, scm.halo + Lm))
     Lc = next(scm._length_buckets(np.array([CM_DOC_LEN]), 128))[0]
     c, Lp = scm._split_for(Lc, len(docs), 128)
     lut = scm._snap.place(scm._get_lut("byte")[3])
     res["ac_mxu_count"].update(compare(
-        "ac_mxu_count", scan_mxu.mxu_count_many,
+        "ac_mxu_count", functools.partial(scan_mxu.mxu_count_many,
+                                          planes_t=scm._planes_t),
         scan_mxu.mxu_count_many_plain,
         (planes, scm.V, cbits, n_planes, scm.halo, c, Lp),
         {"batch raw_u8": (scm._snap.place(batch_tm(docs, Lc, np.uint8)),
                           lut)},
         f"L={Lc} B={len(docs)} c={c} Lp={Lp}", hits=True,
-        ops=lambda *e: mma_ops(n_planes, c * len(docs), scm.halo + Lp)))
+        ops=lambda *e: mma_ops(c * len(docs), scm.halo + Lp)))
     hp, hcb, hnp, _ = sh._mxu
     ent = sh._get_lut("byte")
     raw = np.frombuffer(mxu["hunt"], np.uint8)
@@ -1378,7 +1397,8 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
     ext, idx, _, _ = sh._sparse_filter_device(mxu["h_ids"], None, sh.halo,
                                               128)
     res["ac_mxu_count"].update(compare(
-        "ac_mxu_count", sparse.sparse_count_mxu,
+        "ac_mxu_count", functools.partial(sparse.sparse_count_mxu,
+                                          planes_t=sh._planes_t),
         sparse.sparse_count_mxu_plain,
         (hp, sh.V, hcb, hnp, sh.halo, 128),
         {"elided (hunt)": (sh._snap.place(win), None),
@@ -1386,24 +1406,51 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
         f"hunt windows {tuple(win.shape)}, cap={idx.numel()}", hits=True,
         need=needs(sh, sh.halo, 128),
         ops=lambda src, i: mma_ops(
-            hnp, src.shape[1] if i is None else i.numel(), sh.halo + 128)))
+            src.shape[1] if i is None else i.numel(), sh.halo + 128)))
 
     sth = hyb._stepped
     hplanes, cbm, hn, S_pad = hyb._hybrid
     B2 = scan_hybrid.mxu_cols(B, S_pad)
+    k11 = functools.partial(scan_hybrid.hybrid_count, planes_t=hyb._planes_t)
+    args11 = (hyb._snap.packed, hplanes, sth.V, sth.k, sth.count_bits,
+              hyb._halo_steps, hn, cbm, B - B2, B, L)
+    # count()'s layout pads the corpus to B*L, and the padding is the last
+    # columns, the MMA half's; the corpus repeated to fill every column
+    # gives that half text, and its own matches
+    ins11 = stream_inputs(hyb, text, hyb._halo_sym, B, L)
+    full11 = stream_inputs(hyb, text, hyb._halo_sym, B, L, fill=True)
+    shape11 = f"B={B} (B1={B - B2}, B2={B2}) L={L} k={sth.k}"
+    ops11 = lambda *e: mma_ops(B2, hyb._halo_sym + L)
     res["ac_hybrid_count"] = compare(
-        "ac_hybrid_count", scan_hybrid.hybrid_count,
-        scan_hybrid.hybrid_count_plain,
-        (hyb._snap.packed, hplanes, sth.V, sth.k, sth.count_bits,
-         hyb._halo_steps, hn, cbm, B - B2, B, L),
-        stream_inputs(hyb, text, hyb._halo_sym, B, L),
-        f"B={B} (B1={B - B2}, B2={B2}) L={L} k={sth.k}", hits=True,
-        need=needs(hyb),
-        ops=lambda *e: mma_ops(hn, B2, hyb._halo_sym + L))
-    for kind in ("raw_u8", "ids_i32"):
-        print(f"K11 {kind} {res['ac_hybrid_count'][kind]['ms']:.4f} ms "
-              f"beside K3 {kern['ac_stepped_count'][kind]['ms']:.4f} ms at "
-              f"B={B} L={L} (the slice's tables)", flush=True)
+        "ac_hybrid_count", k11, scan_hybrid.hybrid_count_plain, args11,
+        ins11, shape11, hits=True, need=needs(hyb), ops=ops11)
+    res["ac_hybrid_count"].update(compare(
+        "ac_hybrid_count", k11, scan_hybrid.hybrid_count_plain, args11,
+        {f"{kind} (text in every column)": v for kind, v in full11.items()},
+        shape11, hits=slice(B - B2, None), need=needs(hyb), ops=ops11))
+    steps11 = hyb._halo_sym + L
+    for kind in ("raw_u8", "ids_i32", "raw_u8 (text in every column)",
+                 "ids_i32 (text in every column)"):
+        ms11 = res["ac_hybrid_count"][kind]["ms"]
+        ms3 = kern["ac_stepped_count"][kind.split()[0]]["ms"]
+        print(f"K11 {kind} {ms11:.4f} ms ({ms11 * 1e6 / steps11:.1f} ns a "
+              f"symbol step) beside K3 "
+              f"{ms3:.4f} ms ({ms3 * 1e6 * sth.k / steps11:.1f} ns a gram "
+              f"step) at B={B} L={L} (the slice's tables)", flush=True)
+    # K10 beside K3 on the MXU dictionary's own tables
+    stm = scm._stepped
+    L3 = Lm // stm.k * stm.k
+    ins3 = stream_inputs(scm, text, scm._halo_sym, B, L3)
+    for kind, extra in ins3.items():
+        ms3 = cuda_ms(lambda: multistep.stepped_count(
+            scm._snap.packed, stm.V, stm.k, stm.count_bits, scm._halo_steps,
+            B, L3, *extra), 10)
+        ms10 = res["ac_mxu_count"][kind]["ms"]
+        print(f"K10 {kind} {ms10:.4f} ms ({ms10 * 1e6 / (scm.halo + Lm):.1f}"
+              f" ns a symbol step) beside K3 "
+              f"{ms3:.4f} ms ({ms3 * 1e6 / (scm._halo_steps + L3 // stm.k):.1f}"
+              f" ns a gram step, k={stm.k}) at B={B} L={L3} (the MXU "
+              f"dictionary's tables)", flush=True)
     return res
 
 

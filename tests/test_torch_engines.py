@@ -8,7 +8,9 @@ kernel wrappers take their plain versions. Counts are integers: every
 comparison is exact. Inputs are made from seeds at small sizes.
 """
 
+import ctypes
 import random
+import shutil
 import threading
 
 import jax.numpy as jnp
@@ -20,7 +22,8 @@ import aho_corasick_1975_tpu as ac
 from aho_corasick_1975_tpu.ops import autotune as jautotune
 from aho_corasick_1975_tpu.ops import scan_mxu as jmxu
 from aho_corasick_1975_tpu_torch import Machine
-from aho_corasick_1975_tpu_torch.ops import autotune, scan_hybrid, scan_mxu
+from aho_corasick_1975_tpu_torch.ops import (autotune, build, scan_hybrid,
+                                             scan_mxu)
 
 ENGINES = ("mxu", "hybrid")
 
@@ -145,6 +148,48 @@ def test_refresh_rounds(engine):
                     for j in range(0, len(text), 500))
         assert total == jsc.count(text) == pm.match_stream(pm.initiate(),
                                                            text)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_kernel_bodies_read_planes_t_after_refresh(engine):
+    """After a refresh() that adds states, the scanner's planes_t (made in
+    _bind(), never per call) is the permute of its new planes, and K10's
+    or K11's g++ body reading it counts a text as the JAX scanner and the
+    host scan do."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    lib = build.host_library()
+    jm, pm = _pair(_words())
+    jsc, sc = _scanners(jm, pm, n_streams=8, engine=engine)
+    before = (pm.n_states, sc._planes_t)
+    for w in _words(21, 12, "abcdnpr", 7):
+        jm.insert_keyword(w)
+        pm.insert_keyword(w)
+    assert sc.refresh() == jsc.refresh()
+    planes, cbm, n_planes, _ = sc._mxu if engine == "mxu" else sc._hybrid
+    assert pm.n_states > before[0] and sc._planes_t is not before[1]
+    assert torch.equal(sc._planes_t,
+                       scan_mxu.transpose_planes(planes, sc.V, n_planes))
+    text = _text(9, 3000, "abcdnpr ")
+    ids = np.asarray(sc.encode(text), np.int32)
+    n, st = 8, sc._stepped
+    k = st.k if engine == "hybrid" else 1
+    L = -(-len(ids) // (n * k)) * k
+    halo = sc._halo_sym if engine == "hybrid" else sc.halo
+    ext = np.zeros(halo + n * L, np.int32)
+    ext[halo:halo + len(ids)] = ids
+    out = torch.full((n,), -7, dtype=torch.int32)
+    fields = dict(ext=torch.from_numpy(ext), out=out, L=L, B=n, halo=halo,
+                  layout=0, **scan_mxu.mxu_fields(
+                      planes, sc.V, cbm, n_planes, sc._planes_t))
+    if engine == "hybrid":
+        fields.update(table=sc._snap.packed, Vk=st.V ** k, k=k,
+                      count_bits=st.count_bits, B1=3)
+    args = build.scan_args(**fields)
+    name = "ac_mxu_count" if engine == "mxu" else "ac_hybrid_count"
+    assert getattr(lib, name)(ctypes.byref(args), None) == 0
+    assert int(out.sum()) == jsc.count(text) == pm.match_stream(
+        pm.initiate(), text) > 0
 
 
 def test_refresh_that_outgrows_the_mxu_engine_raises_in_both():

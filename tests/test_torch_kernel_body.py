@@ -23,6 +23,9 @@ package's ``ops/scan_assoc.py:make_assoc_scan``.
 """
 
 import ctypes
+import os
+import random
+import re
 import shutil
 
 import jax.numpy as jnp
@@ -37,6 +40,7 @@ from aho_corasick_1975_tpu.ops import scan_hybrid as jhybrid
 from aho_corasick_1975_tpu.ops import scan_mxu as jmxu
 from aho_corasick_1975_tpu.ops import scan_xla as jxla
 from aho_corasick_1975_tpu.ops import sparse as jsp
+from aho_corasick_1975_tpu_torch import Machine
 from aho_corasick_1975_tpu_torch.ops import (build, hits, multistep,
                                              scan_dense, scan_hybrid,
                                              scan_mxu, sparse)
@@ -348,11 +352,16 @@ def _two_tables(tab):
 
 
 def _planes(tab, max_states=None):
+    """The JAX-layout planes (the plain versions' input) and the launch
+    fields of K10/K11 over their ``planes_t``."""
     t = tab["machine"].compile()
     planes, cb, n_planes, S_pad = scan_mxu.build_planes(
         t.delta, t.nb_outputs, max_states=max_states)
-    return planes, dict(planes=_t(planes), S_pad=S_pad, n_planes=n_planes,
-                        count_bits_m=cb)
+    fields = scan_mxu.mxu_fields(_t(planes), t.vocab_size, cb, n_planes,
+                                 scan_mxu.transpose_planes(
+                                     _t(planes), t.vocab_size, n_planes))
+    fields.pop("V")
+    return planes, fields
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
@@ -420,7 +429,7 @@ def test_mxu_count_kernel(lib, kind, shape, n_streams):
     common = dict(_common(s, halo, L, V), B=n_streams)
     out = torch.full((n_streams,), -7, dtype=torch.int32)
     _run(lib, "ac_mxu_count", out=out, **common, **pf)
-    want = scan_mxu.mxu_count_plain(pf["planes"], V, pf["count_bits_m"],
+    want = scan_mxu.mxu_count_plain(_t(planes), V, pf["count_bits_m"],
                                     pf["n_planes"], halo, n_streams, L,
                                     _t(ext), _t(s["lut"]), _t(s["head_ids"]))
     assert torch.equal(out, want) and int(want.sum()) > 0
@@ -454,7 +463,7 @@ def test_mxu_count_many_kernel(lib, kind, c):
     _run(lib, "ac_mxu_count", out=out, layout=1,
          **_many_common(b, c, L, Lp, halo, V), **pf)
     want = scan_mxu.mxu_count_many_plain(
-        pf["planes"], V, pf["count_bits_m"], pf["n_planes"], halo, c, Lp,
+        _t(planes), V, pf["count_bits_m"], pf["n_planes"], halo, c, Lp,
         _t(b["tm"]), _t(b["lut"]))
     assert torch.equal(out, want) and int(want.sum()) > 0
     jp = jnp.asarray(planes)
@@ -481,7 +490,7 @@ def test_mxu_window_kernel(lib, form):
     _run(lib, "ac_mxu_count", out=out, L=L_blk, V=V, halo=halo, layout=2,
          **fields, **pf)
     want = sparse.sparse_count_mxu_plain(
-        pf["planes"], V, pf["count_bits_m"], pf["n_planes"], halo, L_blk,
+        _t(planes), V, pf["count_bits_m"], pf["n_planes"], halo, L_blk,
         src, idx if form == "idx" else None)
     assert torch.equal(out, want) and int(want.sum()) > 0
     geo = (V, pf["S_pad"], pf["count_bits_m"], pf["n_planes"], halo)
@@ -511,7 +520,7 @@ def test_hybrid_count_kernel(lib, k, kind, B1):
     _run(lib, "ac_hybrid_count", table=_t(tab["packed"]), out=out, Vk=V ** k,
          k=k, count_bits=cb, B1=B1, **_common(s, hs * k, L, V), **pf)
     want = scan_hybrid.hybrid_count_plain(
-        _t(tab["packed"]), pf["planes"], V, k, cb, hs, pf["n_planes"],
+        _t(tab["packed"]), _t(planes), V, k, cb, hs, pf["n_planes"],
         pf["count_bits_m"], B1, B, L, _t(s["ext"]), _t(s["lut"]),
         _t(s["head_ids"]))
     assert torch.equal(out, want) and int(want.sum()) > 0
@@ -526,6 +535,357 @@ def test_hybrid_count_kernel(lib, k, kind, B1):
             *jp, jnp.asarray(s["lut"]), jnp.asarray(s["ext"]),
             jnp.asarray(s["head_ids"]))
     np.testing.assert_array_equal(out.numpy(), np.asarray(jwant))
+
+
+# -- K10, K11: rows per warp, key tiles, plane counts, planes_t ---------------
+
+
+def _header_rows(name):
+    """A rows-per-warp constant of csrc/ac_scan.cuh, as the g++ build and
+    the card's take it."""
+    with open(os.path.join(build.CSRC_DIR, "ac_scan.cuh")) as f:
+        return int(re.search(rf"#define {name} (\d+)", f.read()).group(1))
+
+
+K10_ROWS = _header_rows("AC_K10_ROWS")
+K11_ROWS = _header_rows("AC_K11_ROWS")
+
+
+@pytest.mark.parametrize("form", ["stream", "batch", "window"])
+def test_mxu_rows_kernel(lib, form):
+    """K10's body at its rows per warp over each layout, column counts
+    that R does not divide (21 streams, 12 batch columns, 13 windows),
+    against the JAX package's make_mxu_count_raw, make_mxu_count_many and
+    make_sparse_count_mxu."""
+    tab = tc.tables(1)
+    V = tab["V"]
+    planes, pf = _planes(tab)
+    geo = (V, pf["S_pad"], pf["count_bits_m"], pf["n_planes"])
+    jp = jnp.asarray(planes)
+    if form == "stream":
+        halo, L, n = 5, 24, 21
+        s = tc.stream(tab, "raw_u8", halo, L * n // B + L, seed=K10_ROWS)
+        ext = np.ascontiguousarray(s["ext"][:halo + n * L])
+        out = torch.full((n,), -7, dtype=torch.int32)
+        _run(lib, "ac_mxu_count", out=out,
+             **dict(_common(dict(s, ext=ext), halo, L, V), B=n), **pf)
+        want = jmxu.make_mxu_count_raw(*geo, halo, n, L)(
+            jp, jnp.asarray(s["lut"]), jnp.asarray(ext),
+            jnp.asarray(s["head_ids"]))
+    elif form == "batch":
+        c, (L, Lp), halo = 3, (61, 24), 5
+        b = tc.batch(tab, "raw_i32", L, seed=K10_ROWS)
+        n = c * b["tm"].shape[1]
+        out = torch.full((n,), -7, dtype=torch.int32)
+        _run(lib, "ac_mxu_count", out=out, layout=1,
+             **_many_common(b, c, L, Lp, halo, V), **pf)
+        want = jmxu.make_mxu_count_many(*geo, halo, c, Lp, True)(
+            jp, jnp.asarray(b["lut"]), jnp.asarray(b["tm"]))
+        out = out.view(c, -1).sum(dim=0, dtype=torch.int64)
+    else:
+        L_blk, halo = 16, 5
+        s = tc.sparse(tab, halo, L_blk)
+        n = 13   # the index list cycled: live windows in the last warp too
+        s = dict(s, idx=np.resize(s["idx"], n))
+        _, _, fields = _win_fields(s, "idx", L_blk)
+        out = torch.full((n,), -7, dtype=torch.int32)
+        _run(lib, "ac_mxu_count", out=out, L=L_blk, V=V, halo=halo, layout=2,
+             **fields, **pf)
+        want = jsp.make_sparse_count_mxu(*geo, halo, L_blk, s["nB"], n)(
+            jp, jnp.asarray(s["ext"]), jnp.asarray(s["idx"]))
+    assert n % K10_ROWS
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+    assert int(out.sum()) > 0
+
+
+def _tile_machine(seed=5, n=90):
+    """A seeded machine of n keywords of 3-8 letters over "abcd": enough
+    states (S * V over 16 tiles of 32 keys) for 16 rows in 16 key tiles."""
+    rng = random.Random(seed)
+    m = Machine()
+    for _ in range(n):
+        m.insert_keyword(bytes(rng.choice(b"abcd")
+                               for _ in range(rng.randint(3, 8))))
+    return m
+
+
+def _small_machine():
+    m = Machine()
+    for w in (b"ab", b"bca", b"cab", b"dd", b"abd", b"cc", b"bd"):
+        m.insert_keyword(w)
+    return m
+
+
+def _hand_planes(t, n_planes, S_pad):
+    """build_planes' packing of tables t at S_pad states and the count
+    bits that give n_planes digit planes (1-4; build_planes' own choice
+    gives 2-4): (planes, count_bits)."""
+    S, V = t.delta.shape
+    cb = 7 * n_planes - (S_pad - 1).bit_length()
+    assert cb >= max(1, int(t.nb_outputs.max()).bit_length())
+    packed = (t.delta.astype(np.int64) << cb) | t.nb_outputs[t.delta]
+    planes = np.zeros((S_pad, n_planes * V), np.int8)
+    for p in range(n_planes):
+        planes[:S, p * V:(p + 1) * V] = (packed >> (7 * p)) & 127
+    return planes, cb
+
+
+def _paths(delta):
+    """A shortest letter-id path from the root to every state (BFS over
+    the dense table)."""
+    paths = {0: []}
+    frontier = [0]
+    while frontier:
+        nxt = []
+        for s in frontier:
+            for c in range(delta.shape[1]):
+                d = int(delta[s, c])
+                if d not in paths:
+                    paths[d] = paths[s] + [c]
+                    nxt.append(d)
+        frontier = nxt
+    return paths
+
+
+def _key_tiles(delta, rows, R):
+    """The most distinct 32-key tiles among one warp's R rows at one step,
+    and every key: each row (its ids, halo rows first) walked through the
+    table."""
+    V = delta.shape[1]
+    states = np.zeros(len(rows), np.int64)
+    most, keys = 0, set()
+    for t in range(len(rows[0])):
+        c = np.array([r[t] for r in rows])
+        key = states * V + c
+        for w in range(0, len(rows), R):
+            most = max(most, len(set((key[w:w + R] >> 5).tolist())))
+        keys |= set(key.tolist())
+        states = delta[states, c]
+    return most, keys
+
+
+def _mxu_bodies(lib, n, **fields):
+    """K10's body (K10_ROWS rows a warp) and K11's MMA half (K11_ROWS;
+    B1 = 0, every column an MMA column) over the same stream-layout launch
+    fields; asserts they agree and returns the totals."""
+    outs = []
+    for name, extra in (("ac_mxu_count", {}), ("ac_hybrid_count",
+                                               dict(B1=0))):
+        out = torch.full((n,), -7, dtype=torch.int32)
+        _run(lib, name, out=out, B=n, layout=0, **fields, **extra)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    return outs[0]
+
+
+def _k10_rows(lib, t, planes, cb, n_planes, rows, halo):
+    """K10's and K11's MMA stream bodies over id rows (halo + L ids each,
+    chained as the stream layout reads them), held against K10's plain
+    version, the dense count and the JAX package's make_mxu_count_stream;
+    returns the totals."""
+    V = t.delta.shape[1]
+    n, L = len(rows), len(rows[0]) - halo
+    ext = np.asarray(rows[0][:halo] + sum((list(r[halo:]) for r in rows), []),
+                     np.int32)
+    pt = _t(planes)
+    fields = scan_mxu.mxu_fields(pt, V, cb, n_planes,
+                                 scan_mxu.transpose_planes(pt, V, n_planes))
+    out = _mxu_bodies(lib, n, ext=_t(ext), L=L, halo=halo, **fields)
+    assert torch.equal(out, scan_mxu.mxu_count_plain(pt, V, cb, n_planes,
+                                                     halo, n, L, _t(ext)))
+    dflat = _t(np.ascontiguousarray(t.delta, np.int32).ravel())
+    nb = _t(np.asarray(t.nb_outputs, np.int32))
+    assert torch.equal(out, scan_dense.dense_count_plain(dflat, nb, V, halo,
+                                                         n, L, _t(ext)))
+    jwant = jmxu.make_mxu_count_stream(V, planes.shape[0], cb, n_planes,
+                                       halo, n, L)(jnp.asarray(planes),
+                                                   jnp.asarray(ext))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jwant))
+    return out
+
+
+def _chained(rows, halo):
+    """Id rows whose halos are the stream layout's: row r's first halo ids
+    are row r-1's last (row 0 keeps its own)."""
+    out = [list(rows[0])]
+    for r in rows[1:]:
+        out.append(out[-1][-halo:] + list(r[halo:]) if halo else list(r))
+    return out
+
+
+@pytest.mark.parametrize("case", ["distinct", "same", "last_tile"])
+def test_mxu_key_tiles_kernel(lib, case):
+    """K10's and K11's MMA bodies over 16 rows that fall, at one step, in
+    16 distinct 32-key tiles (each K10 warp's rows all in distinct tiles),
+    whose keys share one tile at every step, and where a key falls in
+    planes_t's last tile (S_pad = S, the last state read with the last
+    letter); then 13 of the rows, dead rows past B in K10's last warp."""
+    m = _tile_machine()
+    if case == "last_tile":
+        n = 1
+        while m.compile().n_states % 32:
+            m.insert_keyword(b"d" * n)
+            n += 1
+    t = m.compile()
+    delta = np.asarray(t.delta)
+    S, V = delta.shape
+    S_pad = -(-S // 32) * 32
+    planes, cb = _hand_planes(t, 3, S_pad)
+    paths = _paths(delta)
+    rng = np.random.default_rng(7)
+    halo, D = 4, max(len(p) for p in paths.values()) + 1  # >= one OOV
+    tail = [list(rng.integers(0, V, 30)) for _ in range(16)]
+    if case == "same":
+        tail[0][-halo:] = [0] * halo
+        rows = [[0] * halo + tail[0]] * 16
+    else:
+        if case == "distinct":
+            seen, picks = set(), []
+            for s in sorted(paths, key=lambda s: -s):
+                if (s * V + 1) >> 5 not in seen:
+                    seen.add((s * V + 1) >> 5)
+                    picks.append(s)
+            picks = picks[:16]
+            nxt = [1] * 16
+        else:
+            picks = [S - 1] * 16
+            nxt = [V - 1] * 16
+        assert len(picks) == 16
+        rows = [[0] * halo + [0] * (D - len(paths[s])) + paths[s] + [c]
+                + tail[i] for i, (s, c) in enumerate(zip(picks, nxt))]
+    rows = _chained(rows, halo)
+    most, keys = _key_tiles(delta, rows, K10_ROWS)
+    if case == "distinct":
+        assert _key_tiles(delta, rows, 16)[0] == 16 and most == K10_ROWS
+    elif case == "same":
+        assert most == 1
+    else:
+        assert max(keys) == S_pad * V - 1
+    totals = _k10_rows(lib, t, planes, cb, 3, rows, halo)
+    assert int(totals.sum()) > 0
+    assert 13 % K10_ROWS
+    sub = _k10_rows(lib, t, planes, cb, 3, rows[:13], halo)
+    assert torch.equal(sub, totals[:13])
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3, 4])
+def test_mxu_plane_count_kernel(lib, n_planes):
+    """K10's and K11's MMA bodies with 1 to 4 digit planes (count bits
+    chosen so, over a machine of at most 32 states and 3 matches a state
+    at S_pad 32), against the JAX package's make_mxu_count_stream and the
+    dense count."""
+    t = _small_machine().compile()
+    assert t.n_states <= 32 and int(t.nb_outputs.max()) <= 3
+    planes, cb = _hand_planes(t, n_planes, 32)
+    V, halo = t.delta.shape[1], 3
+    rng = np.random.default_rng(n_planes)
+    ids = _chained([list(rng.integers(0, V, halo + 40)) for _ in range(11)],
+                   halo)
+    out = _k10_rows(lib, t, planes, cb, n_planes, ids, halo)
+    assert int(out.sum()) > 0
+
+
+def test_mxu_byte_machine_kernel(lib):
+    """K10's and K11's MMA bodies over a ByteMachine (V = 257) at S_pad
+    512, its planes_t 2 x 512 x 257 bytes, raw bytes through the byte LUT,
+    against the JAX package's make_mxu_count_raw."""
+    from aho_corasick_1975_tpu_torch import ByteMachine
+    rng = np.random.default_rng(11)
+    m = ByteMachine()
+    alphabet = rng.choice(256, 40, replace=False).astype(np.uint8)
+    words = []
+    while m.compile().n_states < 400:
+        w = bytes(rng.choice(alphabet, int(rng.integers(3, 9))))
+        words.append(w)
+        m.insert_keyword(w)
+    t = m.compile()
+    planes, cb, n_planes, S_pad = scan_mxu.build_planes(t.delta,
+                                                        t.nb_outputs)
+    V = t.vocab_size
+    assert (V, S_pad) == (257, 512)
+    halo, L, n = 8, 64, 19
+    text = b"".join(words[int(i)] + bytes(rng.choice(alphabet, 3))
+                    for i in rng.integers(0, len(words), 400))
+    raw = np.frombuffer(text[:halo + n * L], np.uint8).copy()
+    lut = (np.arange(256) + 1).astype(np.int32)
+    head = rng.integers(1, V, halo).astype(np.int32)
+    pt = _t(planes)
+    fields = scan_mxu.mxu_fields(pt, V, cb, n_planes,
+                                 scan_mxu.transpose_planes(pt, V, n_planes))
+    out = _mxu_bodies(lib, n, ext=_t(raw), lut=_t(lut), head_ids=_t(head),
+                      L=L, halo=halo, ext_u8=1, n_lut=256, **fields)
+    jwant = jmxu.make_mxu_count_raw(V, S_pad, cb, n_planes, halo, n, L)(
+        jnp.asarray(planes), jnp.asarray(lut), jnp.asarray(raw),
+        jnp.asarray(head))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jwant))
+    assert int(out.sum()) > 0
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_hybrid_rows_kernel(lib, k):
+    """K11 at its rows per warp, 5 MMA columns (B1 = 3 of 8), raw bytes,
+    against make_hybrid_count_raw."""
+    tab = tc.tables(k)
+    V, cb = tab["V"], tab["count_bits"]
+    hs, L, B1 = -(-5 // k), 8 * k, 3
+    s = tc.stream(tab, "raw_u8", hs * k, L, seed=K11_ROWS)
+    planes, pf = _planes(tab, scan_hybrid.MAX_HYBRID_STATES)
+    out = torch.full((B,), -7, dtype=torch.int32)
+    _run(lib, "ac_hybrid_count", table=_t(tab["packed"]), out=out, Vk=V ** k,
+         k=k, count_bits=cb, B1=B1, **_common(s, hs * k, L, V), **pf)
+    jwant = jhybrid.make_hybrid_count_raw(
+        V, k, V ** k, cb, hs, pf["S_pad"], pf["n_planes"], pf["count_bits_m"],
+        B1, B - B1, L)(jnp.asarray(tab["packed"]), jnp.asarray(planes),
+                       jnp.asarray(s["lut"]), jnp.asarray(s["ext"]),
+                       jnp.asarray(s["head_ids"]))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jwant))
+    assert int(out[B1:].sum()) > 0
+
+
+def test_planes_t_is_the_permute_of_the_planes():
+    """planes_t[p, s*V + c] == planes[s, p*V + c] of the JAX package's
+    planes, zero past S_pad*V, for build_planes' and hand-made planes."""
+    from aho_corasick_1975_tpu_torch import ByteMachine
+    bm = ByteMachine()
+    for w in (b"\x00\xff", b"abc", b"\xfe\xfe\x01"):
+        bm.insert_keyword(w)
+    cases = []
+    for t, max_states in ((tc.machine(0).compile(), None),
+                          (_tile_machine().compile(),
+                           scan_hybrid.MAX_HYBRID_STATES),
+                          (bm.compile(), None)):
+        planes, _, n_planes, S_pad = jmxu.build_planes(
+            t.delta, t.nb_outputs, max_states=max_states)
+        cases.append((np.asarray(planes), n_planes, t.delta.shape[1]))
+    t = _small_machine().compile()
+    for n_planes in (1, 4):
+        cases.append((_hand_planes(t, n_planes, 32)[0], n_planes,
+                      t.delta.shape[1]))
+    for planes, n_planes, V in cases:
+        S_pad = planes.shape[0]
+        got = scan_mxu.transpose_planes(_t(planes), V, n_planes).numpy()
+        K = scan_mxu.key_stride(S_pad, V)
+        assert got.shape == (n_planes, K) and K % 32 == 0
+        want = np.einsum("spc->psc", planes.reshape(S_pad, n_planes, V))
+        np.testing.assert_array_equal(got[:, :S_pad * V],
+                                      want.reshape(n_planes, S_pad * V))
+        assert not got[:, S_pad * V:].any()
+
+
+@pytest.mark.parametrize("bad", ["none", "shape", "dtype", "device"])
+def test_mxu_fields_refuse_a_launch_without_planes_t(bad):
+    """A launch's fields need the planes' own planes_t: missing, of
+    another shape or dtype, or on another device, they raise, so that no
+    launch reads planes laid out otherwise."""
+    t = tc.machine(0).compile()
+    planes, cb, n_planes, _ = scan_mxu.build_planes(t.delta, t.nb_outputs)
+    pt, V = _t(planes), t.vocab_size
+    good = scan_mxu.transpose_planes(pt, V, n_planes)
+    assert scan_mxu.mxu_fields(pt, V, cb, n_planes, good)["planes_t"] is good
+    wrong = {"none": None, "shape": good[:, :-32].contiguous(),
+             "dtype": good.to(torch.int32), "device": good.to("meta")}[bad]
+    with pytest.raises(ValueError, match="planes_t"):
+        scan_mxu.mxu_fields(pt, V, cb, n_planes, wrong)
 
 
 @pytest.mark.parametrize("chunk", [1, 7, 64, 5000])

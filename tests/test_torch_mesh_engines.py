@@ -165,6 +165,34 @@ def test_sharded_hybrid_session_and_refresh(meshes):
     assert sc.count(text) == jsc.count(text) == _oracle(m, text)
 
 
+@pytest.mark.parametrize("engine", ["mxu", "hybrid"])
+def test_sharded_planes_t_per_replica_through_refresh(meshes, engine):
+    """The kernels' planes keyed by (state, letter) are made once per
+    replica in _bind(), beside the planes, and again by a refresh() that
+    adds states; the counts still equal the JAX mesh's."""
+    from aho_corasick_1975_tpu_torch.ops import scan_mxu
+    m = _machine(seed=5, n=12 if engine == "mxu" else 30)
+    jsc, sc = _pair(m, meshes, n_streams_per_device=16, step_k=2,
+                    engine=engine)
+
+    def check():
+        planes, _, n_planes, _ = sc._mxu if engine == "mxu" else sc._hybrid
+        assert set(sc._planes_t) == set(planes)
+        for dev, p in planes.items():
+            assert torch.equal(sc._planes_t[dev],
+                               scan_mxu.transpose_planes(p, sc.V, n_planes))
+        return dict(sc._planes_t)
+
+    before, n0 = check(), m.n_states
+    m.insert_keyword("abcdea")
+    assert sc.refresh() == jsc.refresh()
+    after = check()
+    assert m.n_states > n0
+    assert all(after[d] is not before[d] for d in before)
+    text = "".join(random.Random(6).choice("abcdex") for _ in range(6000))
+    assert sc.count(text) == jsc.count(text) == _oracle(m, text)
+
+
 def test_sharded_hybrid_tiny_stream_degenerates(meshes):
     m = _machine(seed=4, n=20)
     text = "abcde" * 40

@@ -11,7 +11,8 @@ shards (a ShardedScanner's count, also of a ShardedTensor, find_matches and
 a bounded session), the associative scan and the utils. Then no module
 of the JAX package may be loaded, by name or by file: the port keeps its
 own copies of the host modules it needs, and its native core builds in
-the port's build directory.
+the port's build directory. The card's scripts, ``chip_smoke.py`` and
+``probe_mxu_rows.py``, import neither and refuse to run without CUDA.
 """
 
 import os
@@ -142,3 +143,36 @@ def test_port_runs_without_jax():
                           cwd=ROOT, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX-OK" in proc.stdout
+
+
+CHIP_SCRIPT = textwrap.dedent("""
+    import importlib
+    import sys
+
+    class BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib",
+                                      "aho_corasick_1975_tpu"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, BlockJax())
+    sys.path.insert(0, sys.argv[1])
+    import torch
+    assert not torch.cuda.is_available()
+    assert importlib.import_module(sys.argv[2]).main() == 1
+    print("REFUSED")
+""")
+
+
+def test_chip_scripts_refuse_without_cuda_and_import_no_jax():
+    """chip_smoke.py and probe_mxu_rows.py import neither JAX nor the JAX
+    package, and their main() returns 1 where torch sees no CUDA."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    for name in ("chip_smoke", "probe_mxu_rows"):
+        proc = subprocess.run([sys.executable, "-c", CHIP_SCRIPT, ROOT, name],
+                              capture_output=True, text=True, timeout=120,
+                              cwd=ROOT, env=env)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert "REFUSED" in proc.stdout
