@@ -21,12 +21,17 @@
 //
 // What bounds these scans on an H100: each step's table index depends on
 // the previous step's gather, so a stream is a chain of dependent loads
-// (L2 or device-memory latency, not bandwidth). In the stream layout
-// neighbouring threads read ext L symbols apart, so symbol loads are
-// uncoalesced; in the batch layout neighbouring threads read neighbouring
-// columns of one row, so a warp's symbol loads coalesce. 16,384 threads
-// fill a few percent of the card's thread slots. Shared-memory tables are
-// left for later work.
+// (L2 or device-memory latency, not bandwidth), and one thread per stream
+// (16,384 at the slice) fills a few percent of the card's thread slots.
+// The stepped counts (K3, K5, K9, K11's gather half) therefore split each
+// stream or batch column into P sub-streams (ac_stepped_part), each
+// warmed up from the root over warm_steps grams before its body, so that
+// B*P threads fill the SMs; the symbols of the next group of steps are
+// loaded (evict-first) while this group's gathers run, and the table is
+// read through the read-only path. In the stream layout a sub-stream's
+// symbols are contiguous, and a byte stream's are loaded as 32-bit words;
+// in the batch layout neighbouring threads read neighbouring columns of
+// one row, so a warp's symbol loads coalesce.
 #pragma once
 
 #include <stdint.h>
@@ -91,7 +96,54 @@ struct AcScanArgs {
   int32_t* compose;
   int32_t* starts;
   int32_t n_states;
+  // K3, K5, K9, K11's gather half: the grams a sub-stream reads before its
+  // body, ceil((max_depth - 1) / k) of the tables (never the halo, which
+  // may be shorter or 0), and the sub-streams per column, a power of two
+  // up to AC_MAX_SPLIT; 0 lets the launcher pick (ac_pick_split).
+  int32_t warm_steps;
+  int32_t split;
 };
+
+// Loads with an evict-first, streaming hint (the corpus, read once), so
+// that the corpus does not push the tables out of L2.
+template <typename T>
+AC_HD T ac_ldcs(const T* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldcs(p);
+#else
+  return *p;
+#endif
+}
+
+// The stepped tables' gathers, through the read-only path (ld.global.nc,
+// cached in L1).
+template <typename T>
+AC_HD T ac_ldtab(const T* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// Bytes sh .. sh + 3 of the little-endian pair lo, hi (sh in 0-3).
+AC_HD uint32_t ac_funnel(uint32_t lo, uint32_t hi, int sh) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_r(lo, hi, 8 * sh);
+#else
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (8 * sh));
+#endif
+}
+
+// Gram steps whose symbols the stepped counts load one group ahead
+// (ac_stepped_sub), per layout: a stream's contiguous symbols and a
+// batch's or windows' rows, each a multiple of 4 so that a group of a
+// byte stream is whole 32-bit words at every k. Chosen on the card: a
+// stream group of 4 and a batch group of 8 were slower (PERF.md).
+constexpr int kStreamGroup = 8;
+constexpr int kBatchGroup = 4;
+static_assert(kStreamGroup % 4 == 0 && kBatchGroup % 4 == 0,
+              "step groups are multiples of 4");
 
 // Letter id of one symbol: raw symbols translate through the LUT with the
 // index clamped to its last entry (XLA's gather clamps; models/scanner.py
@@ -108,6 +160,7 @@ AC_HD int32_t ac_lookup(T v, const int32_t* lut, int32_t n_lut) {
 // head_ids on the raw path (ops/scan_xla.py:raw_window).
 template <typename T>
 struct AcSyms {
+  static constexpr int kGroup = kStreamGroup;
   const T* row;
   const int32_t* lut;
   const int32_t* head;
@@ -116,6 +169,22 @@ struct AcSyms {
   AC_HD int32_t operator()(int64_t t) const {
     if (head != nullptr && t < halo) return head[t];
     return ac_lookup(row[t], lut, n_lut);
+  }
+
+  // operator() in two halves: the load, issued ahead of its use, and the
+  // letter id of what it loaded.
+  AC_HD int32_t load(int64_t t) const {
+    if (head != nullptr && t < halo) return head[t];
+    return (int32_t)ac_ldcs(row + t);
+  }
+  AC_HD int32_t id(int64_t t, int32_t v) const {
+    if (head != nullptr && t < halo) return v;
+    return ac_lookup(v, lut, n_lut);
+  }
+  // The letter id at row t of the raw symbol v read from the row itself.
+  AC_HD int32_t id_of_row(int64_t t, int32_t v) const {
+    if (head != nullptr && t < halo) return head[t];
+    return ac_lookup(v, lut, n_lut);
   }
 };
 
@@ -137,6 +206,7 @@ AC_HD AcSyms<T> ac_syms(const AcScanArgs& a, int64_t b) {
 // gather (ops/scan_xla.py:split_docs_layout).
 template <typename T>
 struct AcBatchSyms {
+  static constexpr int kGroup = kBatchGroup;
   const T* col;
   const int32_t* lut;
   int64_t r0, n_rows, stride;
@@ -146,6 +216,15 @@ struct AcBatchSyms {
     const int64_t r = r0 + t;
     if (r < 0 || r >= n_rows) return 0;
     return ac_lookup(col[r * stride], lut, n_lut);
+  }
+
+  AC_HD int32_t load(int64_t t) const {
+    const int64_t r = r0 + t;
+    return r < 0 || r >= n_rows ? 0 : (int32_t)ac_ldcs(col + r * stride);
+  }
+  AC_HD int32_t id(int64_t t, int32_t v) const {
+    const int64_t r = r0 + t;
+    return r < 0 || r >= n_rows ? 0 : ac_lookup(v, lut, n_lut);
   }
 };
 
@@ -168,10 +247,13 @@ AC_HD AcBatchSyms<T> ac_batch_syms(const AcScanArgs& a, int64_t column) {
 // windows [halo + L, B] (ops/sparse.py:elide_windows). Ids only: the
 // prefilter encodes (or LUT-translates) on the host first.
 struct AcWinSyms {
+  static constexpr int kGroup = kBatchGroup;
   const int32_t* col;
   int64_t stride;
 
   AC_HD int32_t operator()(int64_t t) const { return col[t * stride]; }
+  AC_HD int32_t load(int64_t t) const { return ac_ldcs(col + t * stride); }
+  AC_HD int32_t id(int64_t, int32_t v) const { return v; }
 };
 
 AC_HD AcWinSyms ac_win_syms(const AcScanArgs& a, int64_t column) {
@@ -296,17 +378,79 @@ AC_HD void ac_window_hits_column(const AcScanArgs& a, int64_t column) {
                      (int64_t)a.idx[column] * a.L);
 }
 
+// Per-lane values: one register on the card, one slot per lane on the host,
+// where every per-lane statement runs for the 32 lanes in turn
+// (AC_FOR_LANES) and the warp primitives below combine the slots as the
+// card's instructions combine the lanes.
+#if defined(__CUDA_ARCH__)
+#define AC_LANE_SLOTS 1
+#define AC_SLOT(i) 0
+#define AC_FOR_LANES(l, lane) for (int l = (lane); l == (lane); l += 64)
+#define AC_UNROLL _Pragma("unroll")
+#else
+#define AC_LANE_SLOTS 32
+#define AC_SLOT(i) (i)
+#define AC_FOR_LANES(l, lane) for (int l = 0; l < 32; ++l)
+#define AC_UNROLL
+#endif
+
+// __ballot_sync: bit l set where lane l's predicate holds.
+AC_HD uint32_t ac_ballot(const bool p[AC_LANE_SLOTS]) {
+#if defined(__CUDA_ARCH__)
+  return __ballot_sync(0xffffffffu, p[0]);
+#else
+  uint32_t m = 0;
+  for (int l = 0; l < 32; ++l) m |= (uint32_t)p[l] << l;
+  return m;
+#endif
+}
+
+// __shfl_sync from lane src: its value, the same in every lane.
+AC_HD int32_t ac_shfl(const int32_t v[AC_LANE_SLOTS], int src) {
+#if defined(__CUDA_ARCH__)
+  return __shfl_sync(0xffffffffu, v[0], src);
+#else
+  return v[src];
+#endif
+}
+
+// __shfl_xor_sync: out[l] = in[l ^ m].
+AC_HD void ac_shfl_xor(const uint32_t in[AC_LANE_SLOTS],
+                       uint32_t out[AC_LANE_SLOTS], int m) {
+#if defined(__CUDA_ARCH__)
+  out[0] = __shfl_xor_sync(0xffffffffu, in[0], m);
+#else
+  for (int l = 0; l < 32; ++l) out[l] = in[l ^ m];
+#endif
+}
+
+// The lowest set bit of a non-zero ballot (__ffs - 1).
+AC_HD int ac_first_lane(uint32_t m) {
+#if defined(__CUDA_ARCH__)
+  return __ffs((int)m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
 // The k-gram tables of the stepped count: one packed word
 // (next_state << count_bits) | gram_count per (state, gram), or, where
 // (state, count) need more than 31 bits, two tables delta_k and cnt_k.
+// Both are read through the read-only path.
 struct AcPackedTable {
   const int32_t* word;
   int32_t count_bits;
 
   AC_HD int32_t next(int64_t i, uint32_t* count) const {
-    const int32_t v = word[i];
+    const int32_t v = ac_ldtab(word + i);
     *count = (uint32_t)v & ((1u << count_bits) - 1u);
     return v >> count_bits;
+  }
+  AC_HD static AcPackedTable make(const AcScanArgs& a) {
+    AcPackedTable t;
+    t.word = a.table;
+    t.count_bits = a.count_bits;
+    return t;
   }
 };
 
@@ -315,65 +459,271 @@ struct AcTwoTables {
   const int32_t* cnt_k;
 
   AC_HD int32_t next(int64_t i, uint32_t* count) const {
-    *count = (uint32_t)cnt_k[i];
-    return delta_k[i];
+    *count = (uint32_t)ac_ldtab(cnt_k + i);
+    return ac_ldtab(delta_k + i);
+  }
+  AC_HD static AcTwoTables make(const AcScanArgs& a) {
+    AcTwoTables t;
+    t.delta_k = a.table;
+    t.cnt_k = a.table2;
+    return t;
   }
 };
 
 AC_HD AcPackedTable ac_packed(const AcScanArgs& a) {
-  AcPackedTable t;
-  t.word = a.table;
-  t.count_bits = a.count_bits;
-  return t;
+  return AcPackedTable::make(a);
 }
 
-AC_HD AcTwoTables ac_two_tables(const AcScanArgs& a) {
-  AcTwoTables t;
-  t.delta_k = a.table;
-  t.cnt_k = a.table2;
-  return t;
+// Runs the statements with K, a compile-time gram width, the launch's k
+// for k = 1-4, else 0 (k read at run time from a.k).
+#define AC_WITH_K(k, ...)                                  \
+  do {                                                     \
+    switch (k) {                                           \
+      case 1: { constexpr int K = 1; __VA_ARGS__; } break; \
+      case 2: { constexpr int K = 2; __VA_ARGS__; } break; \
+      case 3: { constexpr int K = 3; __VA_ARGS__; } break; \
+      case 4: { constexpr int K = 4; __VA_ARGS__; } break; \
+      default: { constexpr int K = 0; __VA_ARGS__; } break; \
+    }                                                      \
+  } while (0)
+
+// The raw symbols of one group of G gram steps from gram g0 (those below
+// j1), loaded ahead of their translation: one load a symbol, through the
+// accessor.
+template <int K, int G, typename Syms>
+struct AcGroup {
+  int32_t v[G][K];
+
+  AC_HD void load(const Syms& sym, int64_t g0, int64_t j1) {
+    AC_UNROLL
+    for (int m = 0; m < G; ++m) {
+      AC_UNROLL
+      for (int i = 0; i < K; ++i)
+        v[m][i] = g0 + m < j1 ? sym.load((g0 + m) * K + i) : 0;
+    }
+  }
+  AC_HD int32_t id(const Syms& sym, int64_t g0, int m, int i) const {
+    return sym.id((g0 + m) * K + i, v[m][i]);
+  }
+};
+
+// A stream of bytes: a group's G*K bytes (G*K a multiple of 4, so that
+// every group of a sub-stream sits at the same offset in its words) as the
+// G*K/4 + 1 aligned 32-bit words that hold them, loaded once each where
+// they hold a byte below gram j1, and realigned by funnel shifts; a warp's
+// lanes then issue a quarter of the loads that one a byte would take.
+// Stream 0's head rows take their ids from head_ids at translation.
+template <int K, int G>
+struct AcGroup<K, G, AcSyms<uint8_t> > {
+  static constexpr int W = G * K / 4;
+  uint32_t w[W + 1];
+  int sh;
+
+  AC_HD void load(const AcSyms<uint8_t>& sym, int64_t g0, int64_t j1) {
+    const uintptr_t p = (uintptr_t)(sym.row + g0 * K);
+    const uint32_t* base = (const uint32_t*)(p & ~(uintptr_t)3);
+    sh = (int)(p & 3);
+    const int64_t need = g0 < j1 ? (j1 - g0 < G ? j1 - g0 : G) * K + sh : 0;
+    AC_UNROLL
+    for (int i = 0; i <= W; ++i) w[i] = 4 * i < need ? ac_ldcs(base + i) : 0u;
+  }
+  AC_HD int32_t id(const AcSyms<uint8_t>& sym, int64_t g0, int m,
+                   int i) const {
+    const int q = m * K + i;
+    const uint32_t u = ac_funnel(w[q >> 2], w[(q >> 2) + 1], sh);
+    return sym.id_of_row((g0 + m) * K + i,
+                         (int32_t)((u >> (8 * (q & 3))) & 255u));
+  }
+};
+
+// The stepped recurrence of one column over gram steps [start, j1) from
+// the root, counting the grams from j0 on: s <- table[s*V^k + gram]. The
+// table index is 64-bit: s*V^k can pass 2^31 where JAX's int32 would
+// wrap. At K > 0 the steps run in groups of Syms::kGroup: a group's
+// symbols, loaded during the group before, are translated and combined
+// into grams first, then the next group's loads are issued, then the
+// group's gathers run, so that each step's dependent chain is the gather
+// alone (every register index fixed at compile time). K = 0 is the plain
+// loop over the run-time k.
+template <int K, typename Syms, typename Table>
+AC_HD uint32_t ac_stepped_sub(const Syms& sym, const Table& table, int32_t V,
+                              int32_t k, int64_t Vk, int64_t start,
+                              int64_t j0, int64_t j1) {
+  int32_t s = 0;
+  uint32_t tot = 0;
+  if constexpr (K == 0) {
+    for (int64_t j = start; j < j1; ++j) {
+      uint32_t c;
+      s = table.next((int64_t)s * Vk + ac_gram(sym, j * k, V, k), &c);
+      if (j >= j0) tot += c;
+    }
+  } else {
+    (void)k;
+    constexpr int G = Syms::kGroup;
+    AcGroup<K, G, Syms> nxt;
+    nxt.load(sym, start, j1);
+    for (int64_t g0 = start; g0 < j1; g0 += G) {
+      uint32_t gram[G];
+      AC_UNROLL
+      for (int m = 0; m < G; ++m) {
+        uint32_t g = 0;
+        AC_UNROLL
+        for (int i = 0; i < K; ++i)
+          g = g * (uint32_t)V + (uint32_t)nxt.id(sym, g0, m, i);
+        gram[m] = g;
+      }
+      nxt.load(sym, g0 + G, j1);
+      AC_UNROLL
+      for (int m = 0; m < G; ++m) {
+        const int64_t j = g0 + m;
+        if (j >= j1) break;
+        uint32_t c;
+        s = table.next((int64_t)s * Vk + gram[m], &c);
+        if (j >= j0) tot += c;
+      }
+    }
+  }
+  return tot;
 }
 
-// K3 (ops/multistep.py:stepped_count_core), K5
-// (ops/multistep.py:_stepped_count_many_body) and K9
-// (make_stepped_count_unpacked[_stream]): one table step per k symbols,
-// counted past the halo grams. The table index is 64-bit: s*V^k can pass
-// 2^31 where JAX's int32 would wrap.
+// Sub-streams per column: a power of two up to AC_MAX_SPLIT. The
+// launchers of the batch forms (K5, K9's batch) pick a P above
+// AC_COLS_SPLIT only where its launch fits one wave: a column's
+// sub-streams share a block, and above 8 of them the block's 1,024
+// threads hold the kernel to 64 registers, where it spills at k >= 2, so
+// such a split pays only for a few long columns (PERF.md).
+#define AC_MAX_SPLIT 32
+#define AC_SPLITS 6   // P = 1, 2, 4, ..., AC_MAX_SPLIT
+#define AC_COLS_SPLIT 8
+
+// The P of the last stepped launch of a library (K3, K5, K9, K11), read
+// through its ac_last_split() to report it.
+inline int g_ac_last_split = 0;
+
+AC_HD bool ac_valid_split(int P) {
+  return P >= 1 && P <= AC_MAX_SPLIT && (P & (P - 1)) == 0;
+}
+
+// Sub-stream p of P of a column of halo_steps = a.halo / K halo grams and
+// n_body = a.L / K body grams: it counts body grams [j0, j1), j0 = halo_steps
+// + n_body*p/P, j1 = halo_steps + n_body*(p+1)/P (the last takes the
+// remainder). Sub-stream 0 runs from gram 0 as the one-thread body does;
+// sub-stream p > 0 starts from the root warm_steps grams before j0, or at
+// gram 0 where that is closer. warm_steps*k >= max_depth - 1 symbols read
+// from the root put every state from j0's first symbol on at the longest
+// suffix of the column's rows that is a trie node, as the column's run
+// from gram 0 does (ops/blocking.py's halo argument, inside the column), so
+// the P parts sum to the one-thread total, whatever the halo.
+template <int K, typename Syms, typename Table>
+AC_HD uint32_t ac_stepped_part(const AcScanArgs& a, const Syms& sym,
+                               const Table& table, int p, int P) {
+  const int64_t k = K ? K : a.k;
+  const int64_t hs = a.halo / k, n_body = a.L / k;
+  const int64_t j0 = hs + n_body * p / P, j1 = hs + n_body * (p + 1) / P;
+  if (p > 0 && j0 >= j1) return 0;
+  const int64_t start =
+      p == 0 ? 0 : (j0 > a.warm_steps ? j0 - a.warm_steps : 0);
+  return ac_stepped_sub<K>(sym, table, a.V, (int32_t)k, a.Vk, start, j0, j1);
+}
+
+// K3 (ops/multistep.py:stepped_count_core), K9's stream form and K11's
+// gather half, one warp: columns [0, n_cols), P sub-streams each in
+// consecutive lanes; lane l is sub-stream (g0 + l) % P of column
+// (g0 + l) / P. The P totals of a column reduce in uint32 (wrapping like
+// JAX's int32 accumulator) by __shfl_xor_sync and the column's first lane
+// writes it once. Lanes past the last column take part with a zero total:
+// every lane reaches every shuffle.
+template <int K, typename Layout, typename Table>
+AC_HD void ac_stepped_lanes(const AcScanArgs& a, const Table& table,
+                            int64_t n_cols, int P, int64_t g0, int lane) {
+  (void)lane;  // the host runs every lane
+  uint32_t tot[AC_LANE_SLOTS], x[AC_LANE_SLOTS];
+  AC_FOR_LANES(l, lane) {
+    const int64_t g = g0 + l, col = g / P;
+    tot[AC_SLOT(l)] =
+        col < n_cols ? ac_stepped_part<K>(a, Layout::make(a, col), table,
+                                          (int)(g % P), P)
+                     : 0u;
+  }
+  for (int m = P >> 1; m > 0; m >>= 1) {
+    ac_shfl_xor(tot, x, m);
+    AC_FOR_LANES(l, lane) { tot[AC_SLOT(l)] += x[AC_SLOT(l)]; }
+  }
+  AC_FOR_LANES(l, lane) {
+    const int64_t g = g0 + l;
+    if (g % P == 0 && g / P < n_cols) a.out[g / P] = (int32_t)tot[AC_SLOT(l)];
+  }
+}
+
+// The sum of column col's P sub-streams, one after another: what K5's and
+// K9's batch-form block computes for the column (there the sub-streams run
+// in P warps and reduce through shared memory), for the host build.
+template <int K, typename Layout, typename Table>
+AC_HD uint32_t ac_stepped_column(const AcScanArgs& a, const Table& table,
+                                 int64_t col, int P) {
+  const typename Layout::Syms sym = Layout::make(a, col);
+  uint32_t tot = 0;
+  for (int p = 0; p < P; ++p) tot += ac_stepped_part<K>(a, sym, table, p, P);
+  return tot;
+}
+
+// The launcher's P for n_cols columns of n_body body grams, halo_steps halo
+// grams and warm_steps of warm-up, from slots[i], the threads the card
+// holds at once (SMs x resident blocks x block size) at P = 2^i: the P
+// whose longest sub-stream, times the waves of threads its launch needs,
+// is the least (the smaller P on a tie), among those whose sub-streams'
+// bodies each hold at least 4 * warm_steps grams and one, and, above
+// wide_split, whose launch fits one wave. A latency-bound chain takes
+// about its length per wave, so this is the launch's critical path in
+// dependent gathers; P = 1 is the one-thread launch.
+inline int ac_pick_split(int64_t n_cols, int64_t n_body, int64_t halo_steps,
+                         int64_t warm_steps, const int64_t* slots,
+                         int wide_split) {
+  int best = 1;
+  int64_t best_cost = -1;
+  for (int i = 0, P = 1; i < AC_SPLITS; ++i, P *= 2) {
+    if (P > 1 && (n_body / P < 4 * warm_steps || n_body / P < 1)) break;
+    const int64_t waves =
+        slots[i] > 0 ? (n_cols * P + slots[i] - 1) / slots[i] : 1;
+    if (P > wide_split && waves > 1) continue;
+    const int64_t lead = P > 1 && warm_steps > halo_steps ? warm_steps
+                                                          : halo_steps;
+    const int64_t cost = waves * ((n_body + P - 1) / P + lead);
+    if (best_cost < 0 || cost < best_cost) {
+      best = P;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The P of a launch over n_cols columns: its split field where set, else
+// ac_pick_split over slots (1 without columns); kept as the library's last
+// split. 0, which fails the launch, for a split that is no power of two up
+// to AC_MAX_SPLIT and for columns without warm_steps (negative, as
+// ops/build.py:scan_args leaves it), which would count wrong once P > 1
+// (K11's MMA half alone, B1 = 0, has no such column).
+inline int ac_launch_split(const AcScanArgs& a, int64_t n_cols,
+                           const int64_t* slots, int wide_split) {
+  int P = 1;
+  if (n_cols > 0 && a.warm_steps < 0)
+    P = 0;
+  else if (a.split != 0)
+    P = ac_valid_split(a.split) ? a.split : 0;
+  else if (n_cols > 0)
+    P = ac_pick_split(n_cols, a.L / a.k, a.halo / a.k, a.warm_steps, slots,
+                      wide_split);
+  if (P > 0) g_ac_last_split = P;
+  return P;
+}
+
+// The one-thread stepped count of a column (K7's windows): sub-stream 0
+// of 1.
 template <typename Syms, typename Table>
 AC_HD int32_t ac_stepped_count_body(const AcScanArgs& a, const Syms& sym,
                                     const Table& table) {
-  const int64_t halo_steps = a.halo / a.k, n_steps = halo_steps + a.L / a.k;
-  int32_t s = 0;
-  uint32_t tot = 0;
-  for (int64_t j = 0; j < n_steps; ++j) {
-    uint32_t c;
-    s = table.next((int64_t)s * a.Vk + ac_gram(sym, j * a.k, a.V, a.k), &c);
-    if (j >= halo_steps) tot += c;
-  }
-  return (int32_t)tot;
-}
-
-template <typename T>
-AC_HD void ac_stepped_count_stream(const AcScanArgs& a, int64_t b) {
-  a.out[b] = ac_stepped_count_body(a, ac_syms<T>(a, b), ac_packed(a));
-}
-
-template <typename T>
-AC_HD void ac_stepped_count_many_column(const AcScanArgs& a, int64_t column) {
-  a.out[column] = ac_stepped_count_body(a, ac_batch_syms<T>(a, column),
-                                        ac_packed(a));
-}
-
-// K9 stream form (ids or raw) and batch form (count_many's [L, B] ids,
-// every column from the root).
-template <typename T>
-AC_HD void ac_stepped_count_2t_stream(const AcScanArgs& a, int64_t b) {
-  a.out[b] = ac_stepped_count_body(a, ac_syms<T>(a, b), ac_two_tables(a));
-}
-
-AC_HD void ac_stepped_count_2t_column(const AcScanArgs& a, int64_t column) {
-  a.out[column] = ac_stepped_count_body(a, ac_batch_syms<int32_t>(a, column),
-                                        ac_two_tables(a));
+  AC_WITH_K(a.k, return (int32_t)ac_stepped_part<K>(a, sym, table, 0, 1));
+  return 0;
 }
 
 // K7 stepped (ops/sparse.py:make_sparse_count_stepped / _dev, and the
@@ -478,61 +828,6 @@ AC_HD int ac_frag_c_row(int lane, int i) {
 }
 AC_HD int ac_frag_c_col(int lane, int i) {
   return 2 * (lane & 3) + (i & 1);
-}
-
-// Per-lane values: one register on the card, one slot per lane on the host,
-// where every per-lane statement runs for the 32 lanes in turn
-// (AC_FOR_LANES) and the warp primitives below combine the slots as the
-// card's instructions combine the lanes.
-#if defined(__CUDA_ARCH__)
-#define AC_LANE_SLOTS 1
-#define AC_SLOT(i) 0
-#define AC_FOR_LANES(l, lane) for (int l = (lane); l == (lane); l += 64)
-#define AC_UNROLL _Pragma("unroll")
-#else
-#define AC_LANE_SLOTS 32
-#define AC_SLOT(i) (i)
-#define AC_FOR_LANES(l, lane) for (int l = 0; l < 32; ++l)
-#define AC_UNROLL
-#endif
-
-// __ballot_sync: bit l set where lane l's predicate holds.
-AC_HD uint32_t ac_ballot(const bool p[AC_LANE_SLOTS]) {
-#if defined(__CUDA_ARCH__)
-  return __ballot_sync(0xffffffffu, p[0]);
-#else
-  uint32_t m = 0;
-  for (int l = 0; l < 32; ++l) m |= (uint32_t)p[l] << l;
-  return m;
-#endif
-}
-
-// __shfl_sync from lane src: its value, the same in every lane.
-AC_HD int32_t ac_shfl(const int32_t v[AC_LANE_SLOTS], int src) {
-#if defined(__CUDA_ARCH__)
-  return __shfl_sync(0xffffffffu, v[0], src);
-#else
-  return v[src];
-#endif
-}
-
-// __shfl_xor_sync: out[l] = in[l ^ m].
-AC_HD void ac_shfl_xor(const uint32_t in[AC_LANE_SLOTS],
-                       uint32_t out[AC_LANE_SLOTS], int m) {
-#if defined(__CUDA_ARCH__)
-  out[0] = __shfl_xor_sync(0xffffffffu, in[0], m);
-#else
-  for (int l = 0; l < 32; ++l) out[l] = in[l ^ m];
-#endif
-}
-
-// The lowest set bit of a non-zero ballot (__ffs - 1).
-AC_HD int ac_first_lane(uint32_t m) {
-#if defined(__CUDA_ARCH__)
-  return __ffs((int)m) - 1;
-#else
-  return __builtin_ctz(m);
-#endif
 }
 
 // Four bytes from a 4-aligned address, little-endian.
@@ -822,3 +1117,80 @@ AC_HD void ac_assoc_states_chunk(const AcScanArgs& a, const int32_t* delta,
     a.out[t] = s;
   }
 }
+
+#if defined(__CUDACC__)
+// ---------------------------------------------------------------------------
+// What the CUDA launchers share (stepped_scan.cu, mxu_scan.cu).
+#include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#define AC_TRY(x)                          \
+  do {                                     \
+    const cudaError_t e_ = (x);            \
+    if (e_ != cudaSuccess) return e_;      \
+  } while (0)
+
+constexpr int kLutSmem = 4096;   // LUT entries served from shared memory
+
+// The LUT entries a launch copies to shared memory: all where there are
+// at most kLutSmem, else none.
+inline int32_t ac_lut_entries(const AcScanArgs& a) {
+  return (a.lut != nullptr && a.n_lut <= kLutSmem) ? a.n_lut : 0;
+}
+
+// The LUT into shared memory (lut_n > 0 entries), by every thread of the
+// block; the block then reads it there.
+__device__ __forceinline__ void ac_lut_to_smem(AcScanArgs& a, int32_t lut_n,
+                                               int32_t* smem) {
+  if (lut_n > 0) {
+    for (int i = threadIdx.x; i < lut_n; i += blockDim.x) smem[i] = a.lut[i];
+    __syncthreads();
+    a.lut = smem;
+  }
+}
+
+// The card's SM count and a kernel's resident blocks an SM at a block size
+// and dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// queried once per kernel, device and sizes: a run launches a kernel many
+// times at the same sizes. A size above 48 KB needs the kernel's
+// cudaFuncAttributeMaxDynamicSharedMemorySize raised to it first.
+struct AcOccupancy {
+  int sms = 0, blocks = 0;
+};
+
+inline cudaError_t ac_occupancy(const void* kernel, int threads,
+                                int64_t smem, AcOccupancy* occ) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int64_t>, AcOccupancy>
+      cache;
+  int dev = 0;
+  AC_TRY(cudaGetDevice(&dev));
+  const auto key = std::make_tuple(kernel, dev, threads, smem);
+  std::lock_guard<std::mutex> hold(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *occ = it->second;
+    return cudaSuccess;
+  }
+  AC_TRY(cudaDeviceGetAttribute(&occ->sms, cudaDevAttrMultiProcessorCount,
+                                dev));
+  AC_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ->blocks, kernel,
+                                                       threads, smem));
+  cache[key] = *occ;
+  return cudaSuccess;
+}
+
+// The threads the card holds at once of a kernel (SMs x resident blocks x
+// block size): what ac_pick_split weighs a launch's waves against.
+template <typename Kernel>
+cudaError_t ac_slots(Kernel kernel, int threads, int64_t smem,
+                     int64_t* slots) {
+  AcOccupancy occ;
+  AC_TRY(ac_occupancy((const void*)kernel, threads, smem, &occ));
+  *slots = (int64_t)occ.sms * occ.blocks * threads;
+  return cudaSuccess;
+}
+#endif  // __CUDACC__

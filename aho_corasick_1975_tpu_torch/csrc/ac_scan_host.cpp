@@ -1,8 +1,9 @@
 // Host build of the per-thread scans in ac_scan.cuh, with the same C entry
 // points as the CUDA kernels: each loops over the streams (or batch
-// columns, or windows) one by one, and the MXU kernels over their warps,
-// each warp's 32 lanes in turn with the tensor-core instruction and the
-// warp's votes and shuffles emulated.
+// columns, or windows) one by one, the stepped counts over their
+// sub-streams, and the MXU kernels and K3's split over their warps, each
+// warp's 32 lanes in turn with the tensor-core instruction and the warp's
+// votes and shuffles emulated.
 // Built with g++ by the CPU tests, so that the logic the H100 kernels run
 // is tested where there is no GPU; the scanner never loads it.
 #include "ac_scan.cuh"
@@ -20,6 +21,36 @@ template <void (*U8)(const AcScanArgs&, int64_t),
           void (*I32)(const AcScanArgs&, int64_t)>
 int run(const AcScanArgs* a) {
   return run<U8, I32>(a, a->B);
+}
+
+// P of a stepped launch (ac_launch_split) for an H100 at full occupancy,
+// 132 SMs of 2,048 threads, as the card's launcher would pick there; 0 for
+// a split that is no power of two in [1, AC_MAX_SPLIT].
+int split_of(const AcScanArgs& a, int64_t n_cols, int wide_split) {
+  int64_t slots[AC_SPLITS];
+  for (int i = 0; i < AC_SPLITS; ++i) slots[i] = 132 * 2048;
+  return ac_launch_split(a, n_cols, slots, wide_split);
+}
+
+// K3, K9's stream form, K11's gather half: the warps of the card's launch
+// over columns [0, n_cols), P lanes a column, each warp's lanes in turn.
+template <int K, typename Layout, typename Table>
+int lanes(const AcScanArgs& a, int64_t n_cols) {
+  const int P = split_of(a, n_cols, AC_MAX_SPLIT);
+  if (P == 0) return 1;
+  for (int64_t g0 = 0; g0 < n_cols * P; g0 += 32)
+    ac_stepped_lanes<K, Layout>(a, Table::make(a), n_cols, P, g0, 0);
+  return 0;
+}
+
+// K5, K9's batch form: each column's P sub-streams summed.
+template <int K, typename Layout, typename Table>
+int cols(const AcScanArgs& a) {
+  const int P = split_of(a, a.B, AC_COLS_SPLIT);
+  if (P == 0) return 1;
+  for (int64_t c = 0; c < a.B; ++c)
+    a.out[c] = (int32_t)ac_stepped_column<K, Layout>(a, Table::make(a), c, P);
+  return 0;
 }
 
 // The warps of R rows each over the columns [col0, end).
@@ -43,7 +74,12 @@ int ac_dense_states(const AcScanArgs* a, void*) {
 }
 
 int ac_stepped_count(const AcScanArgs* a, void*) {
-  return run<ac_stepped_count_stream<uint8_t>, ac_stepped_count_stream<int32_t>>(a);
+  if (a->ext_u8)
+    AC_WITH_K(a->k, return lanes<K, AcStreamLayout<uint8_t>, AcPackedTable>(
+                        *a, a->B));
+  AC_WITH_K(a->k, return lanes<K, AcStreamLayout<int32_t>, AcPackedTable>(
+                      *a, a->B));
+  return 0;
 }
 
 int ac_stepped_emit(const AcScanArgs* a, void*) {
@@ -78,15 +114,22 @@ int ac_dense_count_many(const AcScanArgs* a, void*) {
 }
 
 int ac_stepped_count_many(const AcScanArgs* a, void*) {
-  return run<ac_stepped_count_many_column<uint8_t>,
-             ac_stepped_count_many_column<int32_t>>(a);
+  if (a->ext_u8)
+    AC_WITH_K(a->k,
+              return cols<K, AcBatchLayout<uint8_t>, AcPackedTable>(*a));
+  AC_WITH_K(a->k, return cols<K, AcBatchLayout<int32_t>, AcPackedTable>(*a));
+  return 0;
 }
 
 int ac_stepped_count_2t(const AcScanArgs* a, void*) {
   if (a->layout == 1)
-    return run<ac_stepped_count_2t_column, ac_stepped_count_2t_column>(a);
-  return run<ac_stepped_count_2t_stream<uint8_t>,
-             ac_stepped_count_2t_stream<int32_t>>(a);
+    AC_WITH_K(a->k, return cols<K, AcBatchLayout<int32_t>, AcTwoTables>(*a));
+  if (a->ext_u8)
+    AC_WITH_K(a->k, return lanes<K, AcStreamLayout<uint8_t>, AcTwoTables>(
+                        *a, a->B));
+  AC_WITH_K(a->k, return lanes<K, AcStreamLayout<int32_t>, AcTwoTables>(
+                      *a, a->B));
+  return 0;
 }
 
 int ac_mxu_count(const AcScanArgs* a, void*) {
@@ -102,8 +145,14 @@ int ac_mxu_count(const AcScanArgs* a, void*) {
 
 int ac_hybrid_count(const AcScanArgs* a, void*) {
   constexpr int R = AC_K11_ROWS;
-  run<ac_stepped_count_stream<uint8_t>, ac_stepped_count_stream<int32_t>>(
-      a, a->B1);
+  int err = 0;
+  if (a->ext_u8)
+    AC_WITH_K(a->k, err = lanes<K, AcStreamLayout<uint8_t>, AcPackedTable>(
+                        *a, a->B1));
+  else
+    AC_WITH_K(a->k, err = lanes<K, AcStreamLayout<int32_t>, AcPackedTable>(
+                        *a, a->B1));
+  if (err) return err;
   if (a->ext_u8)
     return mxu_warps<R, AcStreamLayout<uint8_t>>(*a, a->B1, a->B);
   return mxu_warps<R, AcStreamLayout<int32_t>>(*a, a->B1, a->B);
@@ -119,5 +168,14 @@ int ac_assoc_scan(const AcScanArgs* a, void*) {
 }
 
 const char* ac_error_string(int) { return "host build"; }
+
+int ac_last_split(void) { return g_ac_last_split; }
+
+int ac_stepped_split(int64_t n_cols, int64_t n_body, int64_t halo_steps,
+                     int64_t warm_steps, const int64_t* slots,
+                     int wide_split) {
+  return ac_pick_split(n_cols, n_body, halo_steps, warm_steps, slots,
+                       wide_split);
+}
 
 }  // extern "C"

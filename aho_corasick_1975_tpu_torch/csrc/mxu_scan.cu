@@ -11,8 +11,9 @@
 // K11 replaces ops/scan_hybrid.py:hybrid_count_core (make_hybrid_count_stream
 // / _raw): one launch whose first blocks are MMA blocks, one warp per R
 // columns of [B1, B) running K10's body, and whose other blocks are gather
-// blocks, one thread per column of [0, B1) running K3's. The MMA blocks take
-// the lowest indices so that their longer chains start first.
+// blocks, running K3's sub-streams over the columns of [0, B1) (P of them
+// a column, as stepped_scan.cu picks P). The MMA blocks take the lowest
+// indices so that their longer chains start first.
 //
 // Bound: a warp's steps form one chain (the next key comes out of this
 // step's D), each step a vote, one product per distinct 32-key tile among
@@ -28,11 +29,6 @@
 // LUT are read from shared memory where they fit: the planes unless their
 // bytes would cost the launch a wave of blocks (the hybrid slice's 161 KB,
 // one block per SM, would), then through L1 from device memory.
-#include <cuda_runtime.h>
-
-#include <map>
-#include <mutex>
-#include <tuple>
 #include <utility>
 
 #include "ac_scan.cuh"
@@ -41,13 +37,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLutSmem = 4096;   // LUT entries served from shared memory
-
-#define AC_TRY(x)                          \
-  do {                                     \
-    const cudaError_t e_ = (x);            \
-    if (e_ != cudaSuccess) return e_;      \
-  } while (0)
 
 // A block of MMA warps over the columns from col_base: planes_t copied to
 // shared memory when pt_bytes > 0, the LUT when lut_n > 0.
@@ -79,50 +68,53 @@ __global__ void __launch_bounds__(kThreads)
   mxu_block<R, Layout>(a, (int64_t)blockIdx.x * kWarps * R, pt_bytes, lut_n);
 }
 
-template <int R, typename T>
+// K11: MMA blocks first, then gather blocks running K3's sub-streams
+// (ac_stepped_lanes, P of them a column of [0, B1)) with the LUT in shared
+// memory.
+template <int R, typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-    hybrid_count_kernel(AcScanArgs a, int32_t mma_blocks, int32_t pt_bytes,
-                        int32_t lut_n) {
+    hybrid_count_kernel(AcScanArgs a, int32_t mma_blocks, int32_t P,
+                        int32_t pt_bytes, int32_t lut_n) {
   if ((int32_t)blockIdx.x >= mma_blocks) {
-    const int64_t b =
+    extern __shared__ __align__(16) unsigned char smem[];
+    ac_lut_to_smem(a, lut_n, (int32_t*)smem);
+    const int64_t t =
         (int64_t)(blockIdx.x - mma_blocks) * kThreads + threadIdx.x;
-    if (b < a.B1) ac_stepped_count_stream<T>(a, b);
+    ac_stepped_lanes<K, AcStreamLayout<T> >(a, ac_packed(a), a.B1, P,
+                                             t & ~(int64_t)31,
+                                             threadIdx.x & 31);
     return;
   }
   mxu_block<R, AcStreamLayout<T> >(
       a, a.B1 + (int64_t)blockIdx.x * kWarps * R, pt_bytes, lut_n);
 }
 
-// The occupancy of a kernel on a device at a block's dynamic shared memory
-// with and without planes_t (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// queried once per kernel, device and size: a run launches a kernel many
-// times over the same tables. `set` is the largest dynamic shared memory
-// allowed so far (cudaFuncAttributeMaxDynamicSharedMemorySize), only ever
-// raised, so that every cached size stays allowed.
+// The occupancy of a kernel at a block's dynamic shared memory with and
+// without planes_t (ac_occupancy, cached). `set` is the largest dynamic
+// shared memory allowed so far (cudaFuncAttributeMaxDynamicSharedMemorySize)
+// per kernel and device, only ever raised, so that every cached size stays
+// allowed.
 struct SmemFit {
   int sms = 0, with = 0, without = 0;
 };
 std::mutex plan_mu;
-std::map<std::tuple<const void*, int, int64_t, int64_t>, SmemFit> plan_fits;
 std::map<std::pair<const void*, int>, int64_t> plan_set;
 
 template <typename Kernel>
 cudaError_t smem_fit(Kernel kernel, int64_t base, int64_t pt, SmemFit* fit) {
-  int dev = 0;
-  AC_TRY(cudaGetDevice(&dev));
   const void* key = (const void*)kernel;
-  std::lock_guard<std::mutex> hold(plan_mu);
-  const auto it = plan_fits.find(std::make_tuple(key, dev, base, pt));
-  if (it != plan_fits.end()) {
-    *fit = it->second;
-    return cudaSuccess;
-  }
-  int optin = 0;
-  AC_TRY(cudaDeviceGetAttribute(&fit->sms, cudaDevAttrMultiProcessorCount,
-                                dev));
+  AcOccupancy occ;
+  AC_TRY(ac_occupancy(key, kThreads, base, &occ));
+  fit->sms = occ.sms;
+  fit->without = occ.blocks;
+  fit->with = 0;
+  int dev = 0, optin = 0;
+  AC_TRY(cudaGetDevice(&dev));
   AC_TRY(cudaDeviceGetAttribute(&optin,
                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  if (base + pt <= optin) {
+  if (base + pt > optin) return cudaSuccess;
+  {
+    std::lock_guard<std::mutex> hold(plan_mu);
     int64_t& set = plan_set[std::make_pair(key, dev)];
     if (base + pt > set) {
       AC_TRY(cudaFuncSetAttribute(kernel,
@@ -130,12 +122,9 @@ cudaError_t smem_fit(Kernel kernel, int64_t base, int64_t pt, SmemFit* fit) {
                                   (int)(base + pt)));
       set = base + pt;
     }
-    AC_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit->with, kernel,
-                                                         kThreads, base + pt));
-    AC_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit->without, kernel,
-                                                         kThreads, base));
   }
-  plan_fits[std::make_tuple(key, dev, base, pt)] = *fit;
+  AC_TRY(ac_occupancy(key, kThreads, base + pt, &occ));
+  fit->with = occ.blocks;
   return cudaSuccess;
 }
 
@@ -145,7 +134,7 @@ cudaError_t smem_fit(Kernel kernel, int64_t base, int64_t pt, SmemFit* fit) {
 template <typename Kernel>
 cudaError_t smem_plan(Kernel kernel, const AcScanArgs& a, int64_t grid,
                       int32_t* pt_bytes, int32_t* lut_n) {
-  *lut_n = (a.lut != nullptr && a.n_lut <= kLutSmem) ? a.n_lut : 0;
+  *lut_n = ac_lut_entries(a);
   *pt_bytes = 0;
   const int64_t base = 4 * (int64_t)*lut_n;
   const int64_t pt = (int64_t)a.n_planes * ac_key_stride(a);
@@ -173,18 +162,28 @@ cudaError_t launch_mxu(const AcScanArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T>
+// K11's gather half takes K3's split: P from the launch's split field, or
+// from ac_pick_split over B1 columns at the kernel's occupancy without the
+// planes in shared memory; then ceil(B1 * P / kThreads) gather blocks.
+template <typename T, int K>
 cudaError_t launch_hybrid(const AcScanArgs& a, cudaStream_t st) {
   constexpr int R = AC_K11_ROWS;
-  const auto kernel = hybrid_count_kernel<R, T>;
+  const auto kernel = hybrid_count_kernel<R, T, K>;
   const int64_t mma_blocks =
       ((int64_t)a.B - a.B1 + kWarps * R - 1) / (kWarps * R);
-  const int64_t grid = mma_blocks + (a.B1 + kThreads - 1) / kThreads;
+  int64_t slots[AC_SPLITS];
+  AC_TRY(ac_slots(kernel, kThreads, 4 * (int64_t)ac_lut_entries(a),
+                  &slots[0]));
+  for (int i = 1; i < AC_SPLITS; ++i) slots[i] = slots[0];
+  const int P = ac_launch_split(a, a.B1, slots, AC_MAX_SPLIT);
+  if (P == 0) return cudaErrorInvalidValue;
+  const int64_t grid =
+      mma_blocks + ((int64_t)a.B1 * P + kThreads - 1) / kThreads;
   if (grid == 0) return cudaSuccess;
   int32_t pt_bytes = 0, lut_n = 0;
   AC_TRY(smem_plan(kernel, a, grid, &pt_bytes, &lut_n));
   kernel<<<(unsigned)grid, kThreads, pt_bytes + 4 * lut_n, st>>>(
-      a, (int32_t)mma_blocks, pt_bytes, lut_n);
+      a, (int32_t)mma_blocks, P, pt_bytes, lut_n);
   return cudaGetLastError();
 }
 
@@ -202,6 +201,7 @@ extern "C" int ac_mxu_count(const AcScanArgs* a, void* stream) {
 
 extern "C" int ac_hybrid_count(const AcScanArgs* a, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (a->ext_u8) return (int)launch_hybrid<uint8_t>(*a, st);
-  return (int)launch_hybrid<int32_t>(*a, st);
+  if (a->ext_u8) AC_WITH_K(a->k, return (int)launch_hybrid<uint8_t, K>(*a, st));
+  AC_WITH_K(a->k, return (int)launch_hybrid<int32_t, K>(*a, st));
+  return 0;
 }

@@ -63,7 +63,8 @@ from ..ops import autotune, scan_hybrid, scan_mxu, sparse
 from ..ops.hits import (dense_hits, hits_extract, hits_extract_dense,
                         max_hits_error, stepped_emit, window_hits)
 from ..ops.multistep import (pack, stepped_count, stepped_count_2t,
-                             stepped_count_many, stepped_count_many_2t)
+                             stepped_count_many, stepped_count_many_2t,
+                             warm_steps_for)
 from ..ops.scan_dense import (dense_count, dense_count_many, dense_states,
                               lookup, sequential_states)
 from .results import MatchSet
@@ -308,7 +309,9 @@ class DenseScanner:
 
     def _bind(self) -> None:
         """Derive what depends on the snapshot and the halo: the halo in
-        gram steps, the raw-encode LUTs, whose exactness rests on the
+        gram steps, the stepped kernels' warm-up (``_warm_steps``, from the
+        tables' depth whatever the halo, ``multistep.warm_steps_for``), the
+        raw-encode LUTs, whose exactness rests on the
         tables (raw_lut_entry), and the engine's digit planes, rebuilt
         from the tables (``_mxu`` and ``_hybrid``: (planes int8 tensor
         [S_pad, n_planes*V], count_bits, n_planes, S_pad), as in the JAX
@@ -319,6 +322,8 @@ class DenseScanner:
         st = self._stepped
         self._halo_steps = -(-self.halo // st.k) if st is not None else 0
         self._halo_sym = self._halo_steps * st.k if st is not None else 0
+        self._warm_steps = (warm_steps_for(self.tables, st.k)
+                            if st is not None else 0)
         self._lut_cache.clear()
         self._mxu = self._hybrid = self._planes_t = None
         tabs = self.tables
@@ -733,11 +738,11 @@ class DenseScanner:
         if snap.packed is not None:
             return self._halo_sym, 128 * st.k, functools.partial(
                 stepped_count, snap.packed, st.V, st.k, st.count_bits,
-                self._halo_steps)
+                self._halo_steps, warm_steps=self._warm_steps)
         if self._two_table:
             return self._halo_sym, 128 * st.k, functools.partial(
                 stepped_count_2t, snap.delta_k, snap.cnt_k, st.V, st.k,
-                self._halo_steps)
+                self._halo_steps, warm_steps=self._warm_steps)
         return self.halo, 128, functools.partial(
             dense_count, snap.dflat, snap.nb_out, self.V, self.halo)
 
@@ -752,7 +757,7 @@ class DenseScanner:
         return scan_hybrid.hybrid_count(
             self._snap.packed, planes, st.V, st.k, st.count_bits,
             self._halo_steps, n_planes, cbm, B - B2, B, L, ext, lut,
-            head_ids, planes_t=self._planes_t)
+            head_ids, planes_t=self._planes_t, warm_steps=self._warm_steps)
 
     def _count_raw_pipelined(self, raw, ent, head) -> Optional[int]:
         """Raw count of a large host input in independent chunks through
@@ -935,11 +940,12 @@ class DenseScanner:
             c, Lp = self._split_for(L, B, 128 * st.k)
             per = stepped_count_many(
                 snap.packed, st.V, st.k, st.count_bits,
-                self._halo_steps if c > 1 else 0, c, Lp, tm, lut)
+                self._halo_steps if c > 1 else 0, c, Lp, tm, lut,
+                warm_steps=self._warm_steps)
         elif self._two_table and lut is None and L % st.k == 0:
             c = 1
             per = stepped_count_many_2t(snap.delta_k, snap.cnt_k, st.V, st.k,
-                                        tm)
+                                        tm, warm_steps=self._warm_steps)
         else:
             c, Lp = self._split_for(L, B, 128)
             per = dense_count_many(snap.dflat, snap.nb_out, self.V,

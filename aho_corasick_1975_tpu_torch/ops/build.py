@@ -10,7 +10,8 @@ with g++ for the CPU tests.
 
 Every launch goes through ``launch()``, which raises on a non-zero
 ``cudaGetLastError()`` and counts the launch per entry point in
-``launches``, so that a run can show which kernels it went through.
+``launches``, so that a run can show which kernels it went through, and
+keeps the sub-streams per column of each stepped launch in ``splits``.
 """
 
 from __future__ import annotations
@@ -49,6 +50,12 @@ ENTRY_POINTS = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
 # count_many batch; K2: "seq", one thread); only launch() adds to them.
 launches: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 form_launches: Dict[str, int] = {}
+# The stepped launches (K3, K5, K9, K11) split each column into P
+# sub-streams; the P of each one's last launch, by entry point.
+SPLIT_ENTRIES = ("ac_stepped_count", "ac_stepped_count_many",
+                 "ac_stepped_count_2t", "ac_hybrid_count")
+MAX_SPLIT = 32
+splits: Dict[str, int] = {}
 # Seconds and compiler output of the last build this process ran (None
 # when the library was already built).
 last_build: Dict[str, object] = {"seconds": None, "log": ""}
@@ -81,6 +88,7 @@ class AcScanArgs(ctypes.Structure):
         ("layout", ctypes.c_int32),
         ("compose", ctypes.c_void_p), ("starts", ctypes.c_void_p),
         ("n_states", ctypes.c_int32),
+        ("warm_steps", ctypes.c_int32), ("split", ctypes.c_int32),
     ]
 
 
@@ -157,7 +165,32 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ac_error_string.argtypes = [ctypes.c_int]
     lib.ac_error_string.restype = ctypes.c_char_p
+    lib.ac_last_split.argtypes = []
+    lib.ac_last_split.restype = ctypes.c_int
+    lib.ac_stepped_split.argtypes = [ctypes.c_int64] * 4 + [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
+    lib.ac_stepped_split.restype = ctypes.c_int
     return lib
+
+
+def pick_split(lib: ctypes.CDLL, n_cols: int, n_body: int, halo_steps: int,
+               warm_steps: int, slots, wide_split: int = MAX_SPLIT) -> int:
+    """The P a stepped launch picks (``ac_pick_split`` in
+    csrc/ac_scan.cuh) for ``n_cols`` columns of ``n_body`` body grams,
+    given ``slots[i]``, the threads the card holds at once at P = 2**i;
+    a P above ``wide_split`` only where its launch fits one wave (K5's and
+    K9's batch launches: 8)."""
+    arr = (ctypes.c_int64 * 6)(*slots)
+    return lib.ac_stepped_split(n_cols, n_body, halo_steps, warm_steps, arr,
+                                wide_split)
+
+
+def check_split(split: int) -> None:
+    """A forced split is a power of two in [1, MAX_SPLIT], or 0 (the
+    launcher picks)."""
+    if split and not (0 < split <= MAX_SPLIT and split & (split - 1) == 0):
+        raise ValueError(f"split={split} is not 0 or a power of two up to "
+                         f"{MAX_SPLIT}")
 
 
 def _load(kind: str, build) -> ctypes.CDLL:
@@ -200,8 +233,9 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def scan_args(**fields) -> AcScanArgs:
     """AcScanArgs from tensors (pointers; None for a null pointer) and
-    ints."""
-    args = AcScanArgs()
+    ints. ``warm_steps`` is -1 unless given, so that a stepped launch
+    (K3, K5, K9, K11) without it fails rather than count wrong."""
+    args = AcScanArgs(warm_steps=-1)
     for key, val in fields.items():
         setattr(args, key, _ptr(val) if isinstance(val, torch.Tensor)
                 or val is None else val)
@@ -222,6 +256,8 @@ def launch(name: str, device: torch.device, form: Optional[str] = None,
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({lib.ac_error_string(err).decode()})")
     launches[name] += 1
+    if name in SPLIT_ENTRIES:
+        splits[name] = lib.ac_last_split()
     if form is not None:
         key = f"{name}/{form}"
         form_launches[key] = form_launches.get(key, 0) + 1

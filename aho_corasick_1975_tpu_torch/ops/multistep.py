@@ -18,7 +18,11 @@ Device half: K3 (csrc/stepped_scan.cu) is the count of
 (``make_stepped_count_unpacked_stream`` and, for count_many's time-major
 batch, ``make_stepped_count_unpacked``), each beside its plain PyTorch
 version. Inputs follow ``ops/scan_dense.py``, with
-``halo = halo_steps * k`` and ``L % k == 0``.
+``halo = halo_steps * k`` and ``L % k == 0``. On the card K3, K5 and K9
+split every stream or column into sub-streams that each warm up over
+``warm_steps`` grams before their body (``split_fields``); every card-path
+wrapper requires ``warm_steps``, which the scanners derive from the
+tables (``warm_steps_for``) in their ``_bind()``.
 """
 
 from __future__ import annotations
@@ -223,6 +227,27 @@ def check_stepped(packed, k, halo_steps, B, L, ext, lut, head_ids):
     return check_stream(B, L, halo_steps * k, ext, lut, head_ids, packed)
 
 
+def split_fields(V: int, k: int, warm_steps: int, split: int) -> dict:
+    """The launch fields of a stepped launch's sub-streams (K3, K5, K9,
+    K11's gather half): ``warm_steps``, the grams each sub-stream reads
+    from the root before its body, ``ceil((max_depth - 1) / k)`` of the
+    tables (``warm_steps_for``), and ``split``, the sub-streams per
+    column (0: the launcher picks). The kernels combine a gram in 32 bits,
+    as the reference does in int32."""
+    if warm_steps < 0:
+        raise ValueError(f"warm_steps={warm_steps} < 0")
+    if V ** k >= 2 ** 31:
+        raise ValueError(f"V^k = {V ** k} grams do not fit int32")
+    build.check_split(split)
+    return dict(warm_steps=warm_steps, split=split)
+
+
+def warm_steps_for(tables, k: int) -> int:
+    """Grams of warm-up that put a sub-stream's state right from its
+    body's first symbol on: max_depth - 1 symbols, in grams of k."""
+    return -(-max(tables.max_depth - 1, 0) // k)
+
+
 def _count_grams(packed, V: int, k: int, count_bits: int, halo_steps: int,
                  win: torch.Tensor) -> torch.Tensor:
     """int32 match totals per column of [rows, n] letter ids (rows % k ==
@@ -280,11 +305,13 @@ def stepped_count_many_plain(packed, V: int, k: int, count_bits: int,
 
 
 def stepped_count(packed, V: int, k: int, count_bits: int, halo_steps: int,
-                  B: int, L: int, ext, lut=None,
-                  head_ids=None) -> torch.Tensor:
+                  B: int, L: int, ext, lut=None, head_ids=None, *,
+                  warm_steps: int, split: int = 0) -> torch.Tensor:
     """K3: per-stream int32 match totals [B]; the caller sums them in
-    int64."""
+    int64. On the card each stream runs as ``split`` sub-streams
+    (``split_fields``)."""
     dev = check_stepped(packed, k, halo_steps, B, L, ext, lut, head_ids)
+    sub = split_fields(V, k, warm_steps, split)
     if dev.type == "cpu":
         return stepped_count_plain(packed, V, k, count_bits, halo_steps, B,
                                    L, ext, lut, head_ids)
@@ -293,19 +320,22 @@ def stepped_count(packed, V: int, k: int, count_bits: int, halo_steps: int,
                  head_ids=head_ids, out=out, L=L, Vk=V ** k, B=B, V=V,
                  halo=halo_steps * k, ext_u8=int(ext.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), k=k,
-                 count_bits=count_bits)
+                 count_bits=count_bits, **sub)
     return out
 
 
 def stepped_count_many(packed, V: int, k: int, count_bits: int,
                        halo_steps: int, c: int, Lp: int, tm,
-                       lut=None) -> torch.Tensor:
+                       lut=None, *, warm_steps: int,
+                       split: int = 0) -> torch.Tensor:
     """K5: int32 match totals per batch column [c*B] of the time-major
     batch ``tm`` [L, B] (int32 ids, or raw uint8/int32 symbols with
     ``lut``) split into c blocks of Lp with ``halo_steps`` grams of halo
     from the same document; the caller sums each document's c blocks in
-    int64. L and Lp are multiples of k."""
+    int64. L and Lp are multiples of k. On the card each column runs as
+    ``split`` sub-streams (``split_fields``)."""
     dev = check_stepped_many(packed, k, c, Lp, tm, lut)
+    sub = split_fields(V, k, warm_steps, split)
     if dev.type == "cpu":
         return stepped_count_many_plain(packed, V, k, count_bits, halo_steps,
                                         c, Lp, tm, lut)
@@ -317,7 +347,7 @@ def stepped_count_many(packed, V: int, k: int, count_bits: int,
                  out=out, L=Lp, Vk=V ** k, B=c * B, V=V,
                  halo=halo_steps * k, ext_u8=int(tm.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), k=k,
-                 count_bits=count_bits, doc_len=L, n_docs=B)
+                 count_bits=count_bits, doc_len=L, n_docs=B, **sub)
     return out
 
 
@@ -330,11 +360,14 @@ def stepped_count_2t_plain(delta_k, cnt_k, V: int, k: int, halo_steps: int,
 
 
 def stepped_count_2t(delta_k, cnt_k, V: int, k: int, halo_steps: int, B: int,
-                     L: int, ext, lut=None, head_ids=None) -> torch.Tensor:
+                     L: int, ext, lut=None, head_ids=None, *,
+                     warm_steps: int, split: int = 0) -> torch.Tensor:
     """K9: per-stream int32 match totals [B] through the two tables; the
-    caller sums them in int64. Forms "ids" and "raw"."""
+    caller sums them in int64. Forms "ids" and "raw"; sub-streams as
+    K3's."""
     dev = check_stepped(delta_k, k, halo_steps, B, L, ext, lut, head_ids)
     _check_inputs(ext, lut, (cnt_k,))
+    sub = split_fields(V, k, warm_steps, split)
     if dev.type == "cpu":
         return stepped_count_2t_plain(delta_k, cnt_k, V, k, halo_steps, B, L,
                                       ext, lut, head_ids)
@@ -344,7 +377,7 @@ def stepped_count_2t(delta_k, cnt_k, V: int, k: int, halo_steps: int, B: int,
                  table2=cnt_k, ext=ext, lut=lut, head_ids=head_ids, out=out,
                  L=L, Vk=V ** k, B=B, V=V, halo=halo_steps * k,
                  ext_u8=int(ext.dtype == torch.uint8),
-                 n_lut=0 if lut is None else lut.numel(), k=k)
+                 n_lut=0 if lut is None else lut.numel(), k=k, **sub)
     return out
 
 
@@ -355,13 +388,16 @@ def stepped_count_many_2t_plain(delta_k, cnt_k, V: int, k: int,
     return _count_grams_2t(delta_k, cnt_k, V, k, 0, tm.long())
 
 
-def stepped_count_many_2t(delta_k, cnt_k, V: int, k: int, tm) -> torch.Tensor:
+def stepped_count_many_2t(delta_k, cnt_k, V: int, k: int, tm, *,
+                          warm_steps: int, split: int = 0) -> torch.Tensor:
     """K9 batch form (count_many on the two tables, as the JAX scanner
     runs ``make_stepped_count_unpacked`` with no halo and no split): int32
     match totals [B] of the time-major batch ``tm`` [L, B] of int32 letter
-    ids, L a multiple of k; the caller sums them in int64."""
+    ids, L a multiple of k; the caller sums them in int64. On the card
+    each column runs as ``split`` sub-streams, as K5's."""
     dev = check_stepped_many(delta_k, k, 1, tm.shape[0], tm, None)
     _check_inputs(tm, None, (cnt_k,))
+    sub = split_fields(V, k, warm_steps, split)
     if dev.type == "cpu":
         return stepped_count_many_2t_plain(delta_k, cnt_k, V, k, tm)
     L, B = tm.shape
@@ -370,5 +406,5 @@ def stepped_count_many_2t(delta_k, cnt_k, V: int, k: int, tm) -> torch.Tensor:
         return out
     build.launch("ac_stepped_count_2t", dev, form="batch", table=delta_k,
                  table2=cnt_k, ext=tm, out=out, L=L, Vk=V ** k, B=B, V=V,
-                 halo=0, k=k, doc_len=L, n_docs=B, layout=1)
+                 halo=0, k=k, doc_len=L, n_docs=B, layout=1, **sub)
     return out

@@ -17,8 +17,8 @@ K11 (csrc/mxu_scan.cu) replaces ``hybrid_count_core``
 (``make_hybrid_count_stream`` / ``_raw``): the launch's blocks take a role
 by index, MMA blocks first, one warp per R columns of [B1, B)
 (``AC_K11_ROWS`` in csrc/ac_scan.cuh) running K10's body over
-``planes_t``, then gather blocks, one thread per column of [0, B1)
-running K3's.
+``planes_t``, then gather blocks running K3's sub-streams over the
+columns of [0, B1).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .multistep import _count_grams, check_stepped
+from .multistep import _count_grams, check_stepped, split_fields
 from .scan_dense import window
 from .scan_mxu import check_planes, mxu_count_window, mxu_fields
 
@@ -63,11 +63,14 @@ def hybrid_count_plain(packed, planes, V: int, k: int, count_bits: int,
 def hybrid_count(packed, planes, V: int, k: int, count_bits: int,
                  halo_steps: int, n_planes: int, count_bits_m: int, B1: int,
                  B: int, L: int, ext, lut=None, head_ids=None, *,
-                 planes_t: torch.Tensor) -> torch.Tensor:
+                 planes_t: torch.Tensor, warm_steps: int,
+                 split: int = 0) -> torch.Tensor:
     """K11: per-stream int32 match totals [B] (the gather half's B1, then
     the MXU half's B - B1); the caller sums them in int64. Forms "ids"
-    and "raw"."""
+    and "raw". The gather half's streams run as ``split`` sub-streams
+    each, as K3's (``multistep.split_fields``)."""
     check_planes(planes, V, n_planes)
+    sub = split_fields(V, k, warm_steps, split)
     if not 0 <= B1 <= B:
         raise ValueError(f"B1={B1} outside [0, B={B}]")
     dev = check_stepped(packed, k, halo_steps, B, L, ext, lut, head_ids)
@@ -84,5 +87,5 @@ def hybrid_count(packed, planes, V: int, k: int, count_bits: int,
                  L=L, Vk=V ** k, B=B, B1=B1, halo=halo_steps * k,
                  ext_u8=int(ext.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), k=k,
-                 count_bits=count_bits, layout=0, **fields)
+                 count_bits=count_bits, layout=0, **fields, **sub)
     return out

@@ -280,7 +280,9 @@ class ShardedScanner:
 
     def _bind(self) -> None:
         """Derive what depends on the snapshot and the halo (JAX
-        ``_bind_kernels``): the halo in gram steps, the raw-encode LUTs and
+        ``_bind_kernels``): the halo in gram steps, the stepped kernels'
+        warm-up (``_warm_steps``, from the tables' depth), the raw-encode
+        LUTs and
         the engine's digit planes (``_mxu``, ``_hybrid``: (planes by
         device, count_bits, n_planes, S_pad)) with the kernels' copy keyed
         by (state, letter), one per replica (``_planes_t`` by device,
@@ -289,6 +291,8 @@ class ShardedScanner:
         st = self._stepped
         self._halo_steps = -(-self.halo // st.k) if st is not None else 0
         self._halo_sym = self._halo_steps * st.k if st is not None else 0
+        self._warm_steps = (multistep.warm_steps_for(self.tables, st.k)
+                            if st is not None else 0)
         self._lut_cache.clear()
         self._mxu = self._hybrid = self._planes_t = None
         tabs = self.tables
@@ -587,13 +591,14 @@ class ShardedScanner:
                 if B2 == 0:
                     return multistep.stepped_count(
                         packed, st.V, st.k, st.count_bits, self._halo_steps,
-                        B, L, ext, lut, head_ids)
+                        B, L, ext, lut, head_ids, warm_steps=self._warm_steps)
                 planes, cbm, n_planes, _ = self._hybrid
                 return scan_hybrid.hybrid_count(
                     packed, planes[self.mesh.devices[i]], st.V, st.k,
                     st.count_bits, self._halo_steps, n_planes, cbm, B - B2,
                     B, L, ext, lut, head_ids,
-                    planes_t=self._planes_t[self.mesh.devices[i]])
+                    planes_t=self._planes_t[self.mesh.devices[i]],
+                    warm_steps=self._warm_steps)
             return (self._halo_sym,
                     lambda Tl: _stepped_geometry(Tl, st.k, nspd), count)
 
@@ -1170,7 +1175,8 @@ class ShardedScanner:
                 c, Lp = self._split_for(L, B_local, 128 * st.k)
                 per = multistep.stepped_count_many(
                     tab["packed"], st.V, st.k, st.count_bits,
-                    self._halo_steps if c > 1 else 0, c, Lp, tm, lut)
+                    self._halo_steps if c > 1 else 0, c, Lp, tm, lut,
+                    warm_steps=self._warm_steps)
             else:
                 c, Lp = self._split_for(L, B_local, 128)
                 per = scan_dense.dense_count_many(

@@ -9,7 +9,9 @@ card, importing nothing of JAX:
 2. golden: the he/she/his/hers example, count and find_matches;
 3. kernels: K1-K4 each against its plain PyTorch version on the same
    inputs, at the slice's shapes (B = 16,384 streams of bench.py's
-   dictionary and corpus), exact equality (tolerance 0), with times;
+   dictionary and corpus), exact equality (tolerance 0), with times; K3
+   also forced to every split P of SPLIT_SWEEP (sub-streams a stream; P =
+   1 is one thread a stream), exact at each, with its time by P;
 4. slice: bench.py's 1,000-keyword byte dictionary over its 64 MiB seeded
    corpus, through Machine.scanner(): count() against the native host
    scan, find_matches() (length equal to the count, a seeded sample of
@@ -17,7 +19,8 @@ card, importing nothing of JAX:
    and K2) giving the same count and match ends;
 5. batch kernels: K5 and K6 against their plain versions, exact, at
    BASELINE config 3's count_many shapes (k = 1, 64 blocks of 8,192 + 10
-   of 256 documents), and K5 at the slice's k = 3 tables, with times;
+   of 256 documents), and K5 at the slice's k = 3 tables, with times; K5
+   also forced to every split P, exact at each, with its time by P;
 6. count_many: BASELINE config 3 as benchmarks/bench_count_many.py builds
    it (10,000 keywords, 256 documents of 400,000 bytes): raw, id-path and
    resident-tensor batches give equal counts, every document equals the
@@ -67,10 +70,13 @@ card, importing nothing of JAX:
    version, exact, on data whose plain total is non-zero, with times
    (K11 also over the corpus repeated to fill every column, since
    count()'s zero padding is its MMA half's; there that half's own total
-   must be non-zero); K11's time beside K3's on the slice's tables and
+   must be non-zero); K11's time beside its two halves alone (the MMA
+   half as K11's launch with B1 = 0, the gather half as K3's), each
+   equal to K11's own columns, and beside K3's on the slice's tables, and
    K10's beside K3's on the MXU dictionary's, each at the same B and L, in
-   ns a step too. (probe_mxu_rows.py times K10 and K11 at other rows per
-   warp.)
+   ns a step too; K9 (stream and batch forms) and K11 (text in every
+   column) also forced to every split P, exact at each, with their times
+   by P. (probe_mxu_rows.py times K10 and K11 at other rows per warp.)
 
 Each of phases 4, 6-8, 9's (a)-(b) and (c), and 10-12 runs with the launch
 counters set to 0 just before it and read just after, and fails unless
@@ -80,8 +86,14 @@ once and its output written once over 3.35 TB/s (a capacity-padded
 table at its real states' rows, a stream read through an index list at
 its listed windows), against the int8 tensor-core operations the data
 needs at least (K10, K11: one m16n8k32 product, all planes at once, per
-16 rows and step, the densest the instruction allows) over 1,979 TOPS. Prints the kernels'
-JSON line, the card's name and power limit, and last the line
+16 rows and step, the densest the instruction allows) over 1,979 TOPS.
+Every kernel of the JSON line also gives the sub-streams per column its
+launch picked (``split``, the stepped kernels K3, K5, K9, K11), its ns a
+step of one column's one-thread chain (``ns_per_step``), its times by
+forced split (``ms_by_split``, K3, K5, K9 and K11) and the most registers and
+spill bytes ptxas gave its kernels (``registers``, the stepped ones),
+whose every line is printed before it. Prints the kernels' JSON line, the
+card's name and power limit, and last the line
 {"ok": true, "device": {...}}. Any failure exits non-zero, and so does a
 machine without CUDA.
 """
@@ -343,7 +355,8 @@ def phase_kernels(sc, text: bytes) -> dict:
         "ac_dense_states": (scan_dense.dense_states,
                             scan_dense.dense_states_plain,
                             (snap.dflat, sc.V, sc.halo, B, L), dense_in),
-        "ac_stepped_count": (multistep.stepped_count,
+        "ac_stepped_count": (functools.partial(multistep.stepped_count,
+                                               warm_steps=sc._warm_steps),
                              multistep.stepped_count_plain,
                              (snap.packed, st.V, st.k, st.count_bits,
                               sc._halo_steps, B, L), step_in),
@@ -351,9 +364,17 @@ def phase_kernels(sc, text: bytes) -> dict:
                             (snap.packed, st.V, st.k, st.count_bits,
                              sc._halo_steps, B, L), step_in),
     }
+    grams = sc._halo_steps + L // st.k
+    steps = {"ac_dense_count": sc.halo + L, "ac_dense_states": sc.halo + L,
+             "ac_stepped_count": grams, "ac_stepped_emit": grams}
     for name, (kernel, plain, args, ins) in cases.items():
         results[name] = compare(name, kernel, plain, args, ins,
-                                f"B={B} L={L}", need=needs(sc))
+                                f"B={B} L={L}", need=needs(sc),
+                                steps=steps[name])
+    kernel, plain, args, ins = cases["ac_stepped_count"]
+    for kind, row in split_sweep("ac_stepped_count", kernel, plain, args,
+                                 ins, grams).items():
+        results["ac_stepped_count"][kind]["ms_by_split"] = row
     return results
 
 
@@ -381,7 +402,7 @@ def stream_inputs(sc, text: bytes, halo: int, B: int, L: int,
 
 
 def compare(name, kernel, plain, args, ins, shape: str,
-            hits=False, ops=None, need=None) -> dict:
+            hits=False, ops=None, need=None, steps=None) -> dict:
     """Each input of ``ins`` through the kernel and its plain version:
     exact equality, then the kernel's mean time over 10 runs and the plain
     version's over 2 (CUDA events), and the bound: every tensor of the
@@ -390,7 +411,11 @@ def compare(name, kernel, plain, args, ins, shape: str,
     ``ops(*extra)`` int8 tensor operations (none but for K10, K11).
     With ``hits``, the plain version's output (its entries ``hits`` where
     that is a slice) must hold a match (a non-zero count), so that a
-    kernel writing zeros there cannot pass."""
+    kernel writing zeros there cannot pass. ``steps``: the dependent
+    steps of one column's one-thread chain, for the kernel's ns a step;
+    a stepped launch (K3, K5, K9, K11) also gives the sub-streams per
+    column it picked (``build.splits``)."""
+    from aho_corasick_1975_tpu_torch.ops import build
     res = {}
     for kind, extra in ins.items():
         got = kernel(*args, *extra)
@@ -407,12 +432,97 @@ def compare(name, kernel, plain, args, ins, shape: str,
         plain_ms = cuda_ms(lambda: plain(*args, *extra), 2)
         moved = moved_bytes((args, extra, got), need(*extra) if need else ())
         bound_ms, bound_by = bound(moved, ops(*extra) if ops else 0)
+        split = build.splits.get(name.split("/")[0])
         res[kind] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"kernel {name} {kind} {shape}: {ms:.4f} ms, plain "
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "split": split,
+                     "ns_per_step": ms * 1e6 / steps if steps else None}
+        print(f"kernel {name} {kind} {shape}: {ms:.4f} ms"
+              f"{f' ({ms * 1e6 / steps:.1f} ns a step)' if steps else ''}"
+              f"{f' at P={split}' if split else ''}, plain "
               f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"max_abs_err {err}, plain total {total}", flush=True)
     return res
+
+
+SPLIT_SWEEP = (1, 2, 4, 8, 16, 32)
+
+
+def split_sweep(name, kernel, plain, args, ins, steps: int) -> dict:
+    """Each input of ``ins`` through the stepped kernel forced to every P
+    of SPLIT_SWEEP (P = 1: one thread a column, the unsplit launch): exact
+    against the plain version at each, and the kernel's mean ms (CUDA
+    events, 30 runs) by P, beside the launcher's own pick (``compare``)."""
+    out = {}
+    for kind, extra in ins.items():
+        want = plain(*args, *extra)
+        row = {}
+        for P in SPLIT_SWEEP:
+            fn = functools.partial(kernel, split=P)
+            got = fn(*args, *extra)
+            torch.cuda.synchronize()
+            check(max_abs_err(got, want) == 0,
+                  f"{name} ({kind}) at split {P} equals its plain version")
+            row[P] = cuda_ms(lambda: fn(*args, *extra), 30)
+        out[kind] = row
+        print(f"kernel {name} {kind} by split (exact at each): " + ", ".join(
+            f"P={P} {ms:.4f} ms ({ms * 1e6 / steps:.1f} ns a step)"
+            for P, ms in row.items()), flush=True)
+    return out
+
+
+def ptxas_kernels(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    entry function in the build's ``-Xptxas -v`` output, demangled by
+    c++filt where the machine has it."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), *spill])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[0] = n
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return rows
+
+
+# The kernels of each stepped entry point, by a substring of their names.
+SPLIT_KERNELS = {
+    "ac_stepped_count": ("stepped_lanes_kernel", "AcPackedTable"),
+    "ac_stepped_count_many": ("stepped_cols_kernel", "AcPackedTable"),
+    "ac_stepped_count_2t": ("stepped_", "AcTwoTables"),
+    "ac_hybrid_count": ("hybrid_count_kernel", ""),
+}
+
+
+def registers_of(ptxas: list, entry: str):
+    """The most registers and spill bytes over an entry point's kernels,
+    or None for one that is not a stepped entry."""
+    if entry not in SPLIT_KERNELS:
+        return None
+    fam, table = SPLIT_KERNELS[entry]
+    rows = [r for r in ptxas if fam in r[0] and table in r[0]]
+    if not rows:
+        return None
+    return {"max": max(r[1] for r in rows),
+            "spill_bytes": max(r[2] + r[3] for r in rows),
+            "kernels": len(rows)}
 
 
 def driven(build, entries, what: str, fn):
@@ -513,29 +623,43 @@ def phase_batch_kernels(sc, docs, sc3, text: bytes) -> dict:
            "ids_i32": (snap.place(batch_tm(docs, L, np.int32, sc.encode)),
                        None)}
     shape = f"L={L} B={B} c={c} Lp={Lp}"
+    k5 = functools.partial(multistep.stepped_count_many,
+                           warm_steps=sc._warm_steps)
+    args5 = (snap.packed, st.V, st.k, st.count_bits, sc._halo_steps, c, Lp)
+    steps5 = sc._halo_steps + Lp // st.k
     res = {
         "ac_stepped_count_many": compare(
-            "ac_stepped_count_many", multistep.stepped_count_many,
-            multistep.stepped_count_many_plain,
-            (snap.packed, st.V, st.k, st.count_bits, sc._halo_steps, c, Lp),
-            ins, shape + f" k=1 halo={sc._halo_sym}", need=needs(sc)),
+            "ac_stepped_count_many", k5, multistep.stepped_count_many_plain,
+            args5, ins, shape + f" k=1 halo={sc._halo_sym}", need=needs(sc),
+            steps=steps5),
         "ac_dense_count_many": compare(
             "ac_dense_count_many", scan_dense.dense_count_many,
             scan_dense.dense_count_many_plain,
             (snap.dflat, snap.nb_out, sc.V, sc.halo, c, Lp), ins,
-            shape + f" halo={sc.halo}", need=needs(sc))}
+            shape + f" halo={sc.halo}", need=needs(sc), steps=sc.halo + Lp)}
+    for kind, row in split_sweep(
+            "ac_stepped_count_many", k5, multistep.stepped_count_many_plain,
+            args5, {"raw_u8": ins["raw_u8"]}, steps5).items():
+        res["ac_stepped_count_many"][kind]["ms_by_split"] = row
     st3, snap3 = sc3._stepped, sc3._snap
     L3 = min(len(text) // B, 1 << 18) // st3.k * st3.k
     tm3 = np.frombuffer(text[:B * L3], np.uint8).reshape(B, L3).T.copy()
     c3, Lp3 = sc3._split_for(L3, B, 128 * st3.k)
-    k3 = compare("ac_stepped_count_many", multistep.stepped_count_many,
-                 multistep.stepped_count_many_plain,
-                 (snap3.packed, st3.V, st3.k, st3.count_bits,
-                  sc3._halo_steps, c3, Lp3),
-                 {"slice_k3_raw_u8": (snap3.place(tm3),
-                                      snap3.place(sc3._get_lut("byte")[3]))},
+    k5_3 = functools.partial(multistep.stepped_count_many,
+                             warm_steps=sc3._warm_steps)
+    args3 = (snap3.packed, st3.V, st3.k, st3.count_bits, sc3._halo_steps, c3,
+             Lp3)
+    ins3 = {"slice_k3_raw_u8": (snap3.place(tm3),
+                                snap3.place(sc3._get_lut("byte")[3]))}
+    steps3 = sc3._halo_steps + Lp3 // st3.k
+    k3 = compare("ac_stepped_count_many", k5_3,
+                 multistep.stepped_count_many_plain, args3, ins3,
                  f"L={L3} B={B} c={c3} Lp={Lp3} k={st3.k} "
-                 f"halo={sc3._halo_sym}", need=needs(sc3))
+                 f"halo={sc3._halo_sym}", need=needs(sc3), steps=steps3)
+    for kind, row in split_sweep("ac_stepped_count_many", k5_3,
+                                 multistep.stepped_count_many_plain, args3,
+                                 ins3, steps3).items():
+        k3[kind]["ms_by_split"] = row
     res["ac_stepped_count_many"].update(k3)
     return res
 
@@ -1049,14 +1173,14 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         {"elided (a)": (hunt_tm, None),
          "idx (a) tensor": (hunt_ext_k, hunt_idx_k)},
         f"windows {tuple(hunt_tm.shape)}, cap={hunt_idx_k.numel()} k={k}",
-        hits=True, need=needs(sc, halo, L_blk))
+        hits=True, need=needs(sc, halo, L_blk), steps=(halo + L_blk) // k)
     kb, halob, L_b = scb._sparse_geometry()
     ext_b, idx_b = resident_windows(scb, state["tensor"], halob, L_b)
     res["ac_sparse_count_stepped"].update(compare(
         "ac_sparse_count_stepped", sparse.sparse_count_stepped,
         sparse.sparse_count_stepped_plain, stepped_args(scb),
         {"idx (b) 1e-3": (ext_b, idx_b)}, f"cap={idx_b.numel()} k={kb}",
-        need=needs(scb, halob, L_b)))
+        need=needs(scb, halob, L_b), steps=(halob + L_b) // kb))
 
     # K7 dense and K8 windows: the hunt's 1-char windows hold its matches
     hunt_hits_tm, hunt_hits_idx = elided(sc, raw, hunt_lut, sc.halo, 128)
@@ -1068,7 +1192,8 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         "ac_sparse_count", sparse.sparse_count, sparse.sparse_count_plain,
         hunt_args, {"elided (a)": (hunt_hits_tm, None),
                     "idx (a) tensor": (hunt_ext, hunt_idx)},
-        hunt_shape, hits=True, need=needs(sc, sc.halo, 128))
+        hunt_shape, hits=True, need=needs(sc, sc.halo, 128),
+        steps=sc.halo + 128)
     snap1 = scb1._snap
     ext1, idx1 = resident_windows(scb1, state["tensor"], scb1.halo, 128)
     tm1, tm1_idx = elided(scb1, state["corpora"][1e-3], None, scb1.halo, 128)
@@ -1078,7 +1203,7 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         dense_args, {"idx (b) 1e-3": (ext1, idx1),
                      "elided (b) 1e-3": (tm1, None)},
         f"cap={idx1.numel()} / windows {tuple(tm1.shape)}",
-        need=needs(scb1, scb1.halo, 128)))
+        need=needs(scb1, scb1.halo, 128), steps=scb1.halo + 128))
 
     def hits_of(fn):
         def run(*a):
@@ -1091,12 +1216,13 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         hits_of(hits.window_hits_plain), hunt_args,
         {"elided (a)": (hunt_hits_tm, hunt_hits_idx),
          "idx (a) tensor": (hunt_ext, hunt_idx)}, hunt_shape, hits=True,
-        need=needs(sc, sc.halo, 128))
+        need=needs(sc, sc.halo, 128), steps=sc.halo + 128)
     res["ac_window_hits"].update(compare(
         "ac_window_hits", hits_of(hits.window_hits),
         hits_of(hits.window_hits_plain), dense_args,
         {"idx (b) 1e-3": (ext1, idx1), "elided (b) 1e-3": (tm1, tm1_idx)},
-        f"cap={idx1.numel()}", need=needs(scb1, scb1.halo, 128)))
+        f"cap={idx1.numel()}", need=needs(scb1, scb1.halo, 128),
+        steps=scb1.halo + 128))
     slice_raw = np.frombuffer(text, np.uint8)
     ext_raw, head_ids, B, L, T = sca1._stream_ext_raw(slice_raw, None,
                                                       sca1.halo, 128)
@@ -1108,17 +1234,19 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         hits_of(hits.dense_hits_plain),
         (s1.dflat, s1.nb_out, sca1.V, sca1.halo, B, L),
         {"raw_u8": (ext_raw, lut, head_ids), "ids_i32": (ext_ids, None, None)},
-        f"B={B} L={L} (the slice, step_k=1)", hits=True, need=needs(sca1))
+        f"B={B} L={L} (the slice, step_k=1)", hits=True, need=needs(sca1),
+        steps=sca1.halo + L)
     res["ac_dense_states/seq"] = compare(
         "ac_dense_states/seq", scan_dense.sequential_states,
         scan_dense.sequential_states_plain, (s1.dflat, sca1.V),
         {"ids_i32": (t_ids[:SEQ_SYMBOLS].contiguous(),)}, f"T={SEQ_SYMBOLS}",
-        need=needs(sca1))
+        need=needs(sca1), steps=SEQ_SYMBOLS)
     tm = ext_ids[sca1.halo:].view(B, L).t().contiguous()
     res["ac_dense_states_tm"] = compare(
         "ac_dense_states_tm", scan_dense.blocked_states,
         scan_dense.blocked_states_plain, (s1.dflat, sca1.V),
-        {"ids_i32": (tm,)}, f"[L, B] = [{L}, {B}]", need=needs(sca1))
+        {"ids_i32": (tm,)}, f"[L, B] = [{L}, {B}]", need=needs(sca1),
+        steps=L)
     return res
 
 
@@ -1343,8 +1471,9 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
     """K9, K10 and K11 against their plain versions, each form, at the
     slice's kernel shapes (K9's batch form over shorter documents, which
     its plain version's per-step loop allows)."""
-    from aho_corasick_1975_tpu_torch.ops import (multistep, scan_hybrid,
-                                                 scan_mxu, sparse)
+    from aho_corasick_1975_tpu_torch.ops import (build, multistep,
+                                                 scan_hybrid, scan_mxu,
+                                                 sparse)
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {}
     B, L = N_STREAMS, KERNEL_L
@@ -1352,18 +1481,31 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
     docs2 = [d[:TWO_TABLE_DOC] for d in two["docs"]]
     st, snap = sc2._stepped, sc2._snap
     args9 = (snap.delta_k, snap.cnt_k, st.V, st.k, sc2._halo_steps, B, L)
+    k9 = functools.partial(multistep.stepped_count_2t,
+                           warm_steps=sc2._warm_steps)
+    ins9 = stream_inputs(sc2, text, sc2._halo_sym, B, L)
+    steps9 = sc2._halo_steps + L // st.k
     res["ac_stepped_count_2t"] = compare(
-        "ac_stepped_count_2t", multistep.stepped_count_2t,
-        multistep.stepped_count_2t_plain, args9,
-        stream_inputs(sc2, text, sc2._halo_sym, B, L),
-        f"B={B} L={L} k={st.k}", hits=True, need=needs(sc2))
+        "ac_stepped_count_2t", k9, multistep.stepped_count_2t_plain, args9,
+        ins9, f"B={B} L={L} k={st.k}", hits=True, need=needs(sc2),
+        steps=steps9)
     Lb = next(sc2._length_buckets(np.array([len(docs2[0])]), 128 * st.k))[0]
     tm9 = snap.place(batch_tm(docs2, Lb, np.int32, sc2.encode))
+    k9b = functools.partial(multistep.stepped_count_many_2t,
+                            warm_steps=sc2._warm_steps)
+    args9b = (snap.delta_k, snap.cnt_k, st.V, st.k)
     res["ac_stepped_count_2t"].update(compare(
-        "ac_stepped_count_2t", multistep.stepped_count_many_2t,
-        multistep.stepped_count_many_2t_plain,
-        (snap.delta_k, snap.cnt_k, st.V, st.k), {"batch": (tm9,)},
-        f"[L, B] = [{Lb}, {len(docs2)}]", hits=True, need=needs(sc2)))
+        "ac_stepped_count_2t", k9b, multistep.stepped_count_many_2t_plain,
+        args9b, {"batch": (tm9,)}, f"[L, B] = [{Lb}, {len(docs2)}]",
+        hits=True, need=needs(sc2), steps=Lb // st.k))
+    sweeps = {**split_sweep("ac_stepped_count_2t", k9,
+                            multistep.stepped_count_2t_plain, args9, ins9,
+                            steps9),
+              **split_sweep("ac_stepped_count_2t", k9b,
+                            multistep.stepped_count_many_2t_plain, args9b,
+                            {"batch": (tm9,)}, Lb // st.k)}
+    for kind, row in sweeps.items():
+        res["ac_stepped_count_2t"][kind]["ms_by_split"] = row
 
     scm, sh = mxu["sc"], mxu["sh"]
     planes, cbits, n_planes, _ = scm._mxu
@@ -1374,7 +1516,7 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
     res["ac_mxu_count"] = compare(
         "ac_mxu_count", k10, scan_mxu.mxu_count_plain, args10, ins10,
         f"B={B} L={Lm}", hits=True,
-        ops=lambda *e: mma_ops(B, scm.halo + Lm))
+        ops=lambda *e: mma_ops(B, scm.halo + Lm), steps=scm.halo + Lm)
     Lc = next(scm._length_buckets(np.array([CM_DOC_LEN]), 128))[0]
     c, Lp = scm._split_for(Lc, len(docs), 128)
     lut = scm._snap.place(scm._get_lut("byte")[3])
@@ -1386,7 +1528,8 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
         {"batch raw_u8": (scm._snap.place(batch_tm(docs, Lc, np.uint8)),
                           lut)},
         f"L={Lc} B={len(docs)} c={c} Lp={Lp}", hits=True,
-        ops=lambda *e: mma_ops(c * len(docs), scm.halo + Lp)))
+        ops=lambda *e: mma_ops(c * len(docs), scm.halo + Lp),
+        steps=scm.halo + Lp))
     hp, hcb, hnp, _ = sh._mxu
     ent = sh._get_lut("byte")
     raw = np.frombuffer(mxu["hunt"], np.uint8)
@@ -1411,7 +1554,8 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
     sth = hyb._stepped
     hplanes, cbm, hn, S_pad = hyb._hybrid
     B2 = scan_hybrid.mxu_cols(B, S_pad)
-    k11 = functools.partial(scan_hybrid.hybrid_count, planes_t=hyb._planes_t)
+    k11 = functools.partial(scan_hybrid.hybrid_count, planes_t=hyb._planes_t,
+                            warm_steps=hyb._warm_steps)
     args11 = (hyb._snap.packed, hplanes, sth.V, sth.k, sth.count_bits,
               hyb._halo_steps, hn, cbm, B - B2, B, L)
     # count()'s layout pads the corpus to B*L, and the padding is the last
@@ -1419,15 +1563,54 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
     # gives that half text, and its own matches
     ins11 = stream_inputs(hyb, text, hyb._halo_sym, B, L)
     full11 = stream_inputs(hyb, text, hyb._halo_sym, B, L, fill=True)
+    fill11 = {f"{kind} (text in every column)": v
+              for kind, v in full11.items()}
     shape11 = f"B={B} (B1={B - B2}, B2={B2}) L={L} k={sth.k}"
     ops11 = lambda *e: mma_ops(B2, hyb._halo_sym + L)
+    grams11 = hyb._halo_steps + L // sth.k
     res["ac_hybrid_count"] = compare(
         "ac_hybrid_count", k11, scan_hybrid.hybrid_count_plain, args11,
-        ins11, shape11, hits=True, need=needs(hyb), ops=ops11)
+        ins11, shape11, hits=True, need=needs(hyb), ops=ops11,
+        steps=grams11)
     res["ac_hybrid_count"].update(compare(
         "ac_hybrid_count", k11, scan_hybrid.hybrid_count_plain, args11,
-        {f"{kind} (text in every column)": v for kind, v in full11.items()},
-        shape11, hits=slice(B - B2, None), need=needs(hyb), ops=ops11))
+        fill11, shape11, hits=slice(B - B2, None), need=needs(hyb),
+        ops=ops11, steps=grams11))
+    for kind, row in split_sweep("ac_hybrid_count", k11,
+                                 scan_hybrid.hybrid_count_plain, args11,
+                                 fill11, grams11).items():
+        res["ac_hybrid_count"][kind]["ms_by_split"] = row
+    # K11 beside its two halves alone: the MMA half as K11's launch with
+    # no gather column (B1 = 0) over the B2 MMA columns, the gather half as
+    # K3's over the B1 gather columns, each equal to K11's own columns
+    k3h = functools.partial(multistep.stepped_count,
+                            warm_steps=hyb._warm_steps)
+    args_m = (hyb._snap.packed, hplanes, sth.V, sth.k, sth.count_bits,
+              hyb._halo_steps, hn, cbm, 0, B2, L)
+    args_g = (hyb._snap.packed, sth.V, sth.k, sth.count_bits,
+              hyb._halo_steps, B - B2, L)
+    for kind, (ext, lut, head) in full11.items():
+        whole = k11(*args11, ext, lut, head)
+        mma_ext = ext[(B - B2) * L:]
+        # its first column's halo rows, through the LUT, as head ids
+        mma_in = (mma_ext, lut, None if lut is None else
+                  lut[mma_ext[:hyb._halo_sym].long()].to(torch.int32))
+        check(torch.equal(k11(*args_m, *mma_in), whole[B - B2:]) and
+              torch.equal(k3h(*args_g, ext[:hyb._halo_sym + (B - B2) * L],
+                              lut, head), whole[:B - B2]),
+              f"K11's halves alone ({kind}) equal its own columns")
+        ms11 = res["ac_hybrid_count"][f"{kind} (text in every column)"]["ms"]
+        ms_m = cuda_ms(lambda: k11(*args_m, *mma_in), 10)
+        ms_g = cuda_ms(lambda: k3h(
+            *args_g, ext[:hyb._halo_sym + (B - B2) * L], lut, head), 10)
+        res["ac_hybrid_count"][f"{kind} (text in every column)"].update(
+            mma_half_ms=ms_m, gather_half_ms=ms_g)
+        print(f"K11 {kind} (text in every column) {ms11:.4f} ms beside its "
+              f"MMA half alone {ms_m:.4f} ms (K11 over its {B2} MMA "
+              f"columns, B1 = 0) and its gather half alone {ms_g:.4f} ms (K3 "
+              f"over the {B - B2} gather columns at P="
+              f"{build.splits.get('ac_stepped_count')}), B={B} L={L}",
+              flush=True)
     steps11 = hyb._halo_sym + L
     for kind in ("raw_u8", "ids_i32", "raw_u8 (text in every column)",
                  "ids_i32 (text in every column)"):
@@ -1444,7 +1627,7 @@ def phase_engine_kernels(two: dict, hyb, mxu: dict, text: bytes, docs,
     for kind, extra in ins3.items():
         ms3 = cuda_ms(lambda: multistep.stepped_count(
             scm._snap.packed, stm.V, stm.k, stm.count_bits, scm._halo_steps,
-            B, L3, *extra), 10)
+            B, L3, *extra, warm_steps=scm._warm_steps), 10)
         ms10 = res["ac_mxu_count"][kind]["ms"]
         print(f"K10 {kind} {ms10:.4f} ms ({ms10 * 1e6 / (scm.halo + Lm):.1f}"
               f" ns a symbol step) beside K3 "
@@ -1657,12 +1840,14 @@ def main() -> int:
     print(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # 1. build
+    # 1. build (its log kept: a later build, the host layer's, replaces
+    # build.last_build)
     t0 = time.perf_counter()
     build.cuda_library()
+    build_log = str(build.last_build["log"])
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
           f"{build.last_build['seconds']})", flush=True)
-    log(str(build.last_build["log"])[-3000:])
+    log(build_log[-3000:])
 
     mesh = make_mesh(devices=["cuda:0"] * MESH_SHARDS)
 
@@ -1799,7 +1984,13 @@ def main() -> int:
     launches["ac_assoc_scan"] = assoc_launches["ac_assoc_scan"]
 
     def first(entry, key):
-        return next(iter(kern[entry].values()))[key]
+        return next(iter(kern[entry].values())).get(key)
+
+    ptxas = ptxas_kernels(build_log)
+    for name, regs, st_b, ld_b in ptxas:
+        if any(f in name for f, _ in SPLIT_KERNELS.values()):
+            print(f"ptxas: {name}: {regs} registers, spill {st_b} bytes "
+                  f"stored, {ld_b} loaded", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1807,7 +1998,11 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in kern[entry].values()),
          "ms": first(entry, "ms"), "plain_ms": first(entry, "plain_ms"),
          "bound_ms": first(entry, "bound_ms"),
-         "bound_by": first(entry, "bound_by"), "library_ms": None}
+         "bound_by": first(entry, "bound_by"), "library_ms": None,
+         "split": first(entry, "split"),
+         "ns_per_step": first(entry, "ns_per_step"),
+         "ms_by_split": first(entry, "ms_by_split"),
+         "registers": registers_of(ptxas, entry)}
         for entry, (name, src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"mesh": {"device": kind, "shards": MESH_SHARDS,
                                "n_streams_per_device": MESH_STREAMS,

@@ -130,7 +130,8 @@ def main() -> int:
          (planes, scm.V, cbits, n_planes, scm.halo, B, Lm), ids10,
          scm.tables.delta, B, Lm, scm.halo, 0),
         ("K11", functools.partial(scan_hybrid.hybrid_count,
-                                  planes_t=hyb._planes_t),
+                                  planes_t=hyb._planes_t,
+                                  warm_steps=hyb._warm_steps),
          scan_hybrid.hybrid_count_plain,
          (hyb._snap.packed, hplanes, st.V, st.k, st.count_bits,
           hyb._halo_steps, hn, cbm, B - B2, B, L), ids11,

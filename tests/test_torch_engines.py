@@ -154,8 +154,9 @@ def test_refresh_rounds(engine):
 def test_kernel_bodies_read_planes_t_after_refresh(engine):
     """After a refresh() that adds states, the scanner's planes_t (made in
     _bind(), never per call) is the permute of its new planes, and K10's
-    or K11's g++ body reading it counts a text as the JAX scanner and the
-    host scan do."""
+    or K11's g++ body reading it (K11's gather half with the warm-up
+    _bind() derived) counts a text as the JAX scanner and the host scan
+    do."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     lib = build.host_library()
@@ -184,7 +185,8 @@ def test_kernel_bodies_read_planes_t_after_refresh(engine):
                       planes, sc.V, cbm, n_planes, sc._planes_t))
     if engine == "hybrid":
         fields.update(table=sc._snap.packed, Vk=st.V ** k, k=k,
-                      count_bits=st.count_bits, B1=3)
+                      count_bits=st.count_bits, B1=3,
+                      warm_steps=sc._warm_steps)
     args = build.scan_args(**fields)
     name = "ac_mxu_count" if engine == "mxu" else "ac_hybrid_count"
     assert getattr(lib, name)(ctypes.byref(args), None) == 0

@@ -19,10 +19,15 @@ layout, in every form) and K11 (the hybrid launch) are held against the
 JAX package's ``ops/multistep.py``, ``ops/scan_mxu.py``,
 ``ops/scan_hybrid.py`` and ``ops/sparse.py`` functions. K12's three phases
 (the associative scan's chunked composition) are held against the JAX
-package's ``ops/scan_assoc.py:make_assoc_scan``.
+package's ``ops/scan_assoc.py:make_assoc_scan``. The stepped counts' split
+(K3, K5, K9, K11's gather half: each column as P sub-streams, each warmed
+up over the tables' warm_steps) is forced to every P up to 32 and held
+against the plain versions and the JAX package, and the launcher's pick
+of P is held at the slice's and config 3's shapes.
 """
 
 import ctypes
+import functools
 import os
 import random
 import re
@@ -103,7 +108,7 @@ def test_stepped_kernels(lib, k, kind, shape):
     s = tc.stream(tab, kind, halo_steps * k, L)
     V, cb, packed = tab["V"], tab["count_bits"], _t(tab["packed"])
     common = dict(_common(s, halo_steps * k, L, V), Vk=V ** k, k=k,
-                  count_bits=cb)
+                  count_bits=cb, warm_steps=tab["warm_steps"])
     plain_args = (packed, V, k, cb, halo_steps, B, L, _t(s["ext"]),
                   _t(s["lut"]), _t(s["head_ids"]))
     out = torch.full((B,), -7, dtype=torch.int32)
@@ -160,7 +165,8 @@ def test_stepped_count_many_kernel(lib, k, kind, c):
     packed = _t(tab["packed"])
     out = torch.full((c * 4,), -7, dtype=torch.int32)
     _run(lib, "ac_stepped_count_many", table=packed, out=out, Vk=V ** k, k=k,
-         count_bits=cb, **_many_common(b, c, L, Lp, hs * k, V))
+         count_bits=cb, warm_steps=tab["warm_steps"],
+         **_many_common(b, c, L, Lp, hs * k, V))
     want = multistep.stepped_count_many_plain(packed, V, k, cb, hs, c, Lp,
                                               _t(b["tm"]), _t(b["lut"]))
     assert torch.equal(out, want) and int(want.sum()) > 0
@@ -378,7 +384,8 @@ def test_stepped_count_2t_kernel(lib, k, kind, shape):
     dk, ck = _two_tables(tab)
     out = torch.full((B,), -7, dtype=torch.int32)
     _run(lib, "ac_stepped_count_2t", table=_t(dk), table2=_t(ck), out=out,
-         Vk=V ** k, k=k, **_common(s, halo_steps * k, L, V))
+         Vk=V ** k, k=k, warm_steps=tab["warm_steps"],
+         **_common(s, halo_steps * k, L, V))
     args = (V, k, halo_steps, B, L, _t(s["ext"]), _t(s["lut"]),
             _t(s["head_ids"]))
     want = multistep.stepped_count_2t_plain(_t(dk), _t(ck), *args)
@@ -403,7 +410,8 @@ def test_stepped_count_2t_batch_kernel(lib, k):
     out = torch.full((5,), -7, dtype=torch.int32)
     _run(lib, "ac_stepped_count_2t", table=_t(dk), table2=_t(ck), ext=_t(tm),
          out=out, L=tm.shape[0], Vk=V ** k, B=5, V=V, halo=0, k=k,
-         doc_len=tm.shape[0], n_docs=5, layout=1)
+         doc_len=tm.shape[0], n_docs=5, layout=1,
+         warm_steps=tab["warm_steps"])
     want = multistep.stepped_count_many_2t_plain(_t(dk), _t(ck), V, k, _t(tm))
     assert torch.equal(out, want) and int(want.sum()) > 0
     jwant = jms.make_stepped_count_unpacked(V, k, V ** k, 0)(
@@ -518,7 +526,8 @@ def test_hybrid_count_kernel(lib, k, kind, B1):
     planes, pf = _planes(tab, scan_hybrid.MAX_HYBRID_STATES)
     out = torch.full((B,), -7, dtype=torch.int32)
     _run(lib, "ac_hybrid_count", table=_t(tab["packed"]), out=out, Vk=V ** k,
-         k=k, count_bits=cb, B1=B1, **_common(s, hs * k, L, V), **pf)
+         k=k, count_bits=cb, B1=B1, warm_steps=tab["warm_steps"],
+         **_common(s, hs * k, L, V), **pf)
     want = scan_hybrid.hybrid_count_plain(
         _t(tab["packed"]), _t(planes), V, k, cb, hs, pf["n_planes"],
         pf["count_bits_m"], B1, B, L, _t(s["ext"]), _t(s["lut"]),
@@ -832,7 +841,8 @@ def test_hybrid_rows_kernel(lib, k):
     planes, pf = _planes(tab, scan_hybrid.MAX_HYBRID_STATES)
     out = torch.full((B,), -7, dtype=torch.int32)
     _run(lib, "ac_hybrid_count", table=_t(tab["packed"]), out=out, Vk=V ** k,
-         k=k, count_bits=cb, B1=B1, **_common(s, hs * k, L, V), **pf)
+         k=k, count_bits=cb, B1=B1, warm_steps=tab["warm_steps"],
+         **_common(s, hs * k, L, V), **pf)
     jwant = jhybrid.make_hybrid_count_raw(
         V, k, V ** k, cb, hs, pf["S_pad"], pf["n_planes"], pf["count_bits_m"],
         B1, B - B1, L)(jnp.asarray(tab["packed"]), jnp.asarray(planes),
@@ -912,3 +922,216 @@ def test_assoc_scan_kernel(lib, chunk):
     np.testing.assert_array_equal(out.numpy(), want)
     assert torch.equal(out, scan_assoc.assoc_scan_plain(delta, _t(ids)))
     assert int(starts[0]) == 0 and (compose >= 0).all()
+
+
+# -- K3, K5, K9, K11: sub-streams ----------------------------------------------
+
+SPLITS = [1, 2, 4, 8, 16, 32]
+# (kernel, input kind, halo in symbols or None for the ceil(5/k) grams of
+# the cases above, body grams a stream); a halo of 2 symbols is shorter
+# than every warm-up (max_depth 6: 5 symbols), and a body of 2 grams is too
+# short for most splits
+SPLIT_CASES = {
+    "k3_raw_u8": ("k3", "raw_u8", 2, 40),
+    "k3_raw_i32": ("k3", "raw_i32", None, 37),
+    "k3_ids_halo0": ("k3", "ids", 0, 40),
+    "k3_short": ("k3", "raw_u8", None, 2),
+    "k5_c1": ("k5", "raw_u8", 0, 40),
+    "k5_c3": ("k5", "raw_i32", None, 40),
+    "k9_stream": ("k9", "raw_u8", 2, 40),
+    "k9_batch": ("k9_batch", "ids", 0, 37),
+    "k11_gather": ("k11", "raw_u8", 2, 40),
+    "k11_mixed": ("k11_mixed", "ids", None, 40),
+}
+
+
+@pytest.fixture(scope="module")
+def split_refs():
+    """The references of SPLIT_CASES by (case, k), made once per module:
+    the sub-stream splits of a case all hold against one."""
+    refs: dict = {}
+
+    def get(case, k):
+        if (case, k) not in refs:
+            refs[case, k] = _split_ref(case, k)
+        return refs[case, k]
+    return get
+
+
+def _split_ref(case, k):
+    """(entry point, launch fields, the plain version's totals, the JAX
+    package's per-column totals) of one SPLIT_CASES case."""
+    kernel, kind, halo, n_body = SPLIT_CASES[case]
+    tab = tc.tables(k)
+    V, cb, Vk = tab["V"], tab["count_bits"], tab["V"] ** k
+    hs = -(-5 // k) if halo is None else -(-halo // k)
+    L = n_body * k
+    packed, jpacked = _t(tab["packed"]), jnp.asarray(tab["packed"])
+    base = dict(Vk=Vk, k=k, count_bits=cb, warm_steps=tab["warm_steps"])
+    if kernel in ("k5", "k9_batch"):
+        c = 3 if case == "k5_c3" else 1
+        Lp = L
+        Ld = 3 * L - k if c == 3 else L
+        b = tc.batch(tab, kind, Ld, n_docs=5)
+        hs = hs if c > 1 else 0
+        fields = dict(base, **_many_common(b, c, Ld, Lp, hs * k, V))
+        if kernel == "k9_batch":
+            dk, ck = _two_tables(tab)
+            fields.update(table=_t(dk), table2=_t(ck), layout=1)
+            plain = multistep.stepped_count_many_2t_plain(
+                _t(dk), _t(ck), V, k, _t(b["tm"]))
+            jwant = np.asarray(jms.make_stepped_count_unpacked(V, k, Vk, 0)(
+                jnp.asarray(dk), jnp.asarray(ck), jnp.asarray(b["tm"])))
+            return "ac_stepped_count_2t", fields, plain, jwant
+        fields.update(table=packed)
+        plain = multistep.stepped_count_many_plain(
+            packed, V, k, cb, hs, c, Lp, _t(b["tm"]), _t(b["lut"]))
+        per_col, _ = _jax_many(
+            b, c, Lp, hs * k,
+            lambda h, w: jms.stepped_count_core(V, k, Vk, cb, h // k, jpacked,
+                                                w),
+            lambda raw: jms.make_stepped_count_many(V, k, Vk, cb, hs, c, Lp,
+                                                    raw),
+            (jpacked,))
+        return "ac_stepped_count_many", fields, plain, per_col
+    s = tc.stream(tab, kind, hs * k, L, seed=n_body)
+    fields = dict(base, **_common(s, hs * k, L, V))
+    args = (V, k, hs, B, L, _t(s["ext"]), _t(s["lut"]), _t(s["head_ids"]))
+    if s["lut"] is None:
+        jk3 = jms.make_stepped_count_stream(V, k, Vk, cb, hs, B, L)(
+            jpacked, jnp.asarray(s["ext"]))
+    else:
+        jk3 = jms.make_stepped_count_raw(V, k, Vk, cb, hs, B, L)(
+            jpacked, jnp.asarray(s["lut"]), jnp.asarray(s["ext"]),
+            jnp.asarray(s["head_ids"]))
+    plain = multistep.stepped_count_plain(packed, V, k, cb, *args[2:])
+    if kernel == "k9":
+        dk, ck = _two_tables(tab)
+        fields.update(table=_t(dk), table2=_t(ck))
+        assert torch.equal(plain, multistep.stepped_count_2t_plain(
+            _t(dk), _t(ck), *args))
+        return "ac_stepped_count_2t", fields, plain, np.asarray(jk3)
+    fields.update(table=packed)
+    if kernel == "k3":
+        return "ac_stepped_count", fields, plain, np.asarray(jk3)
+    # K11: every column a gather column, or 3 gather and 5 MMA columns
+    B1 = B if kernel == "k11" else 3
+    planes, pf = _planes(tab, scan_hybrid.MAX_HYBRID_STATES)
+    fields.update(B1=B1, **pf)
+    plain = scan_hybrid.hybrid_count_plain(
+        packed, _t(planes), V, k, cb, hs, pf["n_planes"], pf["count_bits_m"],
+        B1, *args[3:])
+    geo = (V, k, Vk, cb, hs, pf["S_pad"], pf["n_planes"], pf["count_bits_m"],
+           B1, B - B1, L)
+    jp = (jpacked, jnp.asarray(planes))
+    if s["lut"] is None:
+        jwant = jhybrid.make_hybrid_count_stream(*geo)(*jp,
+                                                      jnp.asarray(s["ext"]))
+    else:
+        jwant = jhybrid.make_hybrid_count_raw(*geo)(
+            *jp, jnp.asarray(s["lut"]), jnp.asarray(s["ext"]),
+            jnp.asarray(s["head_ids"]))
+    return "ac_hybrid_count", fields, plain, np.asarray(jwant)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_stepped_split_kernels(lib, split_refs, k, case, split):
+    """K3 (raw bytes, raw int32, ids at halo 0, a stream of 2 grams), K5
+    (c = 1 with halo 0, c = 3), K9's stream and batch forms and K11 (every
+    column a gather column, and a mixed split) with each column forced into
+    ``split`` sub-streams (remainders where split does not divide the body;
+    empty parts where it passes it), each warmed up over the tables'
+    warm_steps, more than the halo: every total exact against the plain
+    version and the JAX package, and the library reports the split."""
+    name, fields, plain, jwant = split_refs(case, k)
+    out = torch.full((plain.numel(),), -7, dtype=torch.int32)
+    _run(lib, name, out=out, split=split, **fields)
+    assert torch.equal(out, plain) and int(plain.sum()) > 0
+    np.testing.assert_array_equal(out.numpy(), jwant)
+    assert lib.ac_last_split() == split
+
+
+def test_stepped_split_warm_up_is_needed(lib, split_refs):
+    """The warm-up is what makes the split exact: with no warm-up, the
+    same K3 launch at 16 sub-streams a stream loses the matches that
+    straddle its sub-streams' starts."""
+    name, fields, plain, _ = split_refs("k3_raw_u8", 1)
+    assert fields["warm_steps"] == 5
+    out = torch.full((plain.numel(),), -7, dtype=torch.int32)
+    _run(lib, name, out=out, split=16, **dict(fields, warm_steps=0))
+    assert int(out.sum()) < int(plain.sum())
+
+
+def test_stepped_split_rejects_a_bad_split(lib, split_refs):
+    """A forced split that is no power of two up to 32 fails the launch
+    (the card's launcher returns cudaErrorInvalidValue), and the wrappers
+    refuse it before any launch."""
+    name, fields, plain, _ = split_refs("k3_raw_u8", 1)
+    out = torch.zeros(plain.numel(), dtype=torch.int32)
+    for bad in (3, 64, -2):
+        args = build.scan_args(out=out, split=bad, **fields)
+        assert getattr(lib, name)(ctypes.byref(args), None) != 0
+        with pytest.raises(ValueError, match="split"):
+            multistep.split_fields(4, 1, 5, bad)
+    with pytest.raises(ValueError, match="warm_steps"):
+        multistep.split_fields(4, 1, -1, 0)
+
+
+@pytest.mark.parametrize("case", ["k3_raw_u8", "k5_c3", "k9_batch",
+                                  "k11_mixed"])
+def test_stepped_launch_requires_warm_steps(lib, split_refs, case):
+    """A stepped launch whose fields leave out warm_steps (scan_args sets
+    it to -1) fails, at the launcher's pick and at every forced split, and
+    writes nothing: no launch counts without the warm-up."""
+    name, fields, plain, _ = split_refs(case, 2)
+    fields = {key: v for key, v in fields.items() if key != "warm_steps"}
+    for split in (0, 1, 16):
+        out = torch.full((plain.numel(),), -7, dtype=torch.int32)
+        args = build.scan_args(out=out, split=split, **fields)
+        assert args.warm_steps == -1
+        assert getattr(lib, name)(ctypes.byref(args), None) != 0
+        assert bool((out == -7).all())
+
+
+def _slots(threads_per_sm, sms=132):
+    return [sms * threads_per_sm] * 6
+
+
+@pytest.mark.parametrize("shape", ["slice", "config3"])
+def test_launcher_split_choice(lib, split_refs, shape):
+    """ac_pick_split at the slice's K3 launch (16,384 streams of 1,408 body
+    grams, k = 3) and config 3's K5 launch (16,384 columns of 8,192 grams,
+    k = 1): 16 sub-streams at full occupancy (one wave of 262,144 threads;
+    32 would take two waves of half the chain), 32 where the card holds
+    1,536 threads an SM (three waves of a quarter of the chain beat two of
+    a half and one of a full), above 8 for the batch launches only in one
+    wave, and fewer where the warm-up cap bites."""
+    n_body, hs, warm = {"slice": (1408, 3, 3), "config3": (8192, 10, 10)}[
+        shape]
+    pick = functools.partial(build.pick_split, lib, 16384, n_body, hs, warm)
+    assert pick(_slots(2048)) == 16
+    assert pick(_slots(1536)) == 32
+    # the batch launches (K5, K9's batch form) hold 1,024 threads an SM
+    # at P >= 16 and take it only in one wave: not for 16,384 columns,
+    # but for 256 columns of 4,096 grams (count_many of long documents)
+    assert pick(_slots(1024), wide_split=8) == 8
+    assert build.pick_split(lib, 256, 4096, 0, warm, _slots(1024),
+                            wide_split=8) == 32
+    # a chain that fills the card alone stays one thread a stream
+    assert build.pick_split(lib, 270336, n_body, hs, warm, _slots(2048)) == 1
+    # each sub-stream's body at least 4x its warm-up: 1408 / 32 = 44 >= 40
+    assert build.pick_split(lib, 64, n_body, hs, n_body // 128,
+                            _slots(2048)) == 32
+    assert build.pick_split(lib, 64, n_body, hs, n_body // 64 + 1,
+                            _slots(2048)) == 8
+    # a stream too short for any split
+    assert build.pick_split(lib, 64, 3, 0, 1, _slots(2048)) == 1
+    # the host build picks as the card at full occupancy
+    name, fields, plain, _ = split_refs("k3_raw_u8", 1)
+    out = torch.zeros(plain.numel(), dtype=torch.int32)
+    _run(lib, name, out=out, **fields)
+    assert lib.ac_last_split() == build.pick_split(
+        lib, B, 40, 2, fields["warm_steps"], _slots(2048)) == 2
+    assert torch.equal(out, plain)

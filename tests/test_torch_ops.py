@@ -228,7 +228,7 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     tab, hs, L, s = _stepped_case(2, "raw_u8", "halo")
     args = (_t(tab["packed"]), tab["V"], 2, tab["count_bits"], hs, B, L,
             _t(s["ext"]), _t(s["lut"]), _t(s["head_ids"]))
-    assert torch.equal(multistep.stepped_count(*args),
+    assert torch.equal(multistep.stepped_count(*args, warm_steps=1),
                        multistep.stepped_count_plain(*args))
     for a, b in zip(hits.stepped_emit(*args), hits.stepped_emit_plain(*args)):
         assert torch.equal(a, b)
@@ -256,7 +256,8 @@ def test_wrappers_reject_bad_inputs(bad):
     else:
         packed = packed.long()
     with pytest.raises(ValueError):
-        multistep.stepped_count(packed, ext=ext, lut=lut, head_ids=head, **kw)
+        multistep.stepped_count(packed, ext=ext, lut=lut, head_ids=head,
+                                warm_steps=1, **kw)
 
 
 def test_count_many_wrappers_on_cpu_are_the_plain_versions():
@@ -265,7 +266,7 @@ def test_count_many_wrappers_on_cpu_are_the_plain_versions():
     tm, lut = _t(b["tm"]), _t(b["lut"])
     args = (_t(tab["packed"]), tab["V"], 2, tab["count_bits"], 3, 2, 24, tm,
             lut)
-    assert torch.equal(multistep.stepped_count_many(*args),
+    assert torch.equal(multistep.stepped_count_many(*args, warm_steps=1),
                        multistep.stepped_count_many_plain(*args))
     dargs = (_t(tab["dflat"]), _t(tab["nb_out"]), tab["V"], 5, 2, 24, tm, lut)
     assert torch.equal(scan_dense.dense_count_many(*dargs),
@@ -295,7 +296,8 @@ def test_count_many_wrappers_reject_bad_inputs(bad):
     else:
         packed = packed.long()
     with pytest.raises(ValueError):
-        multistep.stepped_count_many(packed, tm=tm, lut=lut, **kw)
+        multistep.stepped_count_many(packed, tm=tm, lut=lut, warm_steps=1,
+                                     **kw)
 
 
 # -- the sparse prefilter ----------------------------------------------------

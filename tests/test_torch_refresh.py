@@ -8,10 +8,12 @@ reference does and rebuilds where it does, and its device tables equal the
 JAX snapshot's bit for bit after the same insertions. The port's
 stepped_delta_cells equals the JAX package's. find_matches after a refresh
 goes through the per-version packed k=1 table, and counts through the
-rebound halo.
+rebound halo and the stepped kernels' rebound warm-up.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -158,6 +160,53 @@ def test_halo_growth_rebinds_the_halo(step_k):
     fresh = assert_equiv(sc, m, text, step_k=step_k)
     host = m.match_stream(m.initiate(), text, parallel=False)
     assert sc.count(text) == host == fresh.count(text) == jsc.count(text)
+
+
+@pytest.mark.parametrize("step_k", [2, 3])
+def test_refresh_grows_the_warm_up_under_a_fixed_halo(step_k):
+    """A user halo of 2 stays 2 when refresh() adds a keyword of 20
+    letters, but the stepped kernels' warm-up (``_warm_steps``) follows
+    the tables: the count equals the JAX scanner's at the same halo, and
+    K3's host build, forced to 16 sub-streams a stream over the scanner's
+    own layout and fields, equals the plain version per stream; with the
+    warm-up from before the refresh it would lose the long keyword's
+    matches that straddle a sub-stream's start."""
+    from aho_corasick_1975_tpu_torch.ops import build
+    m = Machine()
+    for w in ["he", "she"]:
+        m.insert_keyword(w)
+    sc = fresh_like(m, step_k=step_k, halo=2)
+    jsc = JaxScanner(m, n_streams=4, step_k=step_k, halo=2)
+    stale = sc._warm_steps
+    assert stale == 1
+    long_kw = "hehehehehehehehehehe"
+    m.insert_keyword(long_kw)
+    assert sc.refresh() is True and jsc.refresh() is True
+    assert sc.halo == jsc.halo == 2 and sc._halo_sym == jsc._halo_sym
+    assert sc._warm_steps == -(-(len(long_kw) - 1) // step_k)
+    text = ("x" * 37 + long_kw + "y" * 23) * 40
+    assert sc.count(text) == jsc.count(text)
+    st, snap = sc._stepped, sc._snap
+    ids = sc.encode(text)
+    B, L = sc._layout(len(ids), 128 * st.k)
+    ext = np.zeros(sc._halo_sym + B * L, np.int32)
+    ext[sc._halo_sym:sc._halo_sym + len(ids)] = ids
+    ext = torch.from_numpy(ext)
+    want = ms.stepped_count_plain(snap.packed, st.V, st.k, st.count_bits,
+                                  sc._halo_steps, B, L, ext)
+    assert int(want.sum()) == sc.count(text)
+    lib = build.host_library()
+    outs = []
+    for warm in (sc._warm_steps, stale):
+        out = torch.full((B,), -7, dtype=torch.int32)
+        args = build.scan_args(
+            table=snap.packed, ext=ext, out=out, L=L, Vk=st.Vk, B=B, V=st.V,
+            halo=sc._halo_sym, k=st.k, count_bits=st.count_bits,
+            warm_steps=warm, split=16)
+        assert lib.ac_stepped_count(ctypes.byref(args), None) == 0
+        outs.append(out)
+    assert torch.equal(outs[0], want)
+    assert int(outs[1].sum()) < int(want.sum())
 
 
 @pytest.mark.parametrize("step_k", [2, 3])

@@ -11,7 +11,8 @@ import numpy as np
 
 from aho_corasick_1975_tpu_torch import Machine
 from aho_corasick_1975_tpu_torch.models.snapshot import DeviceSnapshot
-from aho_corasick_1975_tpu_torch.ops.multistep import build_stepped, pack
+from aho_corasick_1975_tpu_torch.ops.multistep import (build_stepped, pack,
+                                                       warm_steps_for)
 from aho_corasick_1975_tpu_torch.ops.sparse import elide_windows
 
 KINDS = ("ids", "raw_u8", "raw_i32")
@@ -29,7 +30,8 @@ def machine(seed: int = 0) -> Machine:
 
 def tables(k: int, seed: int = 0) -> dict:
     """The automaton's capacity-padded tables as numpy arrays: the 1-char
-    tables, the packed k-gram table and the packed k=1 table ``pk1``."""
+    tables, the packed k-gram table and the packed k=1 table ``pk1``, and
+    the stepped kernels' warm-up in grams of k."""
     m = machine(seed)
     t = m.compile()
     snap = DeviceSnapshot(t, step_k=1, device="cpu")
@@ -40,6 +42,7 @@ def tables(k: int, seed: int = 0) -> dict:
                 dflat=snap.dflat.numpy(), nb_out=snap.nb_out.numpy(),
                 packed=st.cap_packed, cb1=cb1,
                 pk1=pack(t.delta, t.nb_outputs, 1, cb1),
+                warm_steps=warm_steps_for(t, k),
                 byte_lut=np.where(lut < snap.V, lut, 0).astype(np.int32))
 
 
