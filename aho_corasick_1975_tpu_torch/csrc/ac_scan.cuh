@@ -1,10 +1,10 @@
 // Per-stream automaton scans shared by the CUDA kernels (dense_scan.cu,
 // stepped_scan.cu, sparse_scan.cu, mxu_scan.cu) and the g++ host shim
 // (ac_scan_host.cpp) that the CPU tests run: one function per kernel,
-// computing everything one stream (one CUDA thread) does; for the MXU
-// engine (K10, K11's MMA half), everything one warp of R streams does,
-// with the tensor-core instruction and the warp's votes and shuffles
-// emulated lane by lane on the host.
+// computing everything one stream or sub-stream (one CUDA thread) does;
+// for the MXU engine (K10, K11's MMA half), everything one warp of R
+// streams does, with the tensor-core instruction and the warp's votes and
+// shuffles emulated lane by lane on the host.
 //
 // Layout: B streams of L symbols each over a contiguous ext buffer of
 // halo + B*L symbols. Window row t of stream b (t in [0, halo + L)) is
@@ -23,15 +23,18 @@
 // the previous step's gather, so a stream is a chain of dependent loads
 // (L2 or device-memory latency, not bandwidth), and one thread per stream
 // (16,384 at the slice) fills a few percent of the card's thread slots.
-// The stepped counts (K3, K5, K9, K11's gather half) therefore split each
-// stream or batch column into P sub-streams (ac_stepped_part), each
-// warmed up from the root over warm_steps grams before its body, so that
-// B*P threads fill the SMs; the symbols of the next group of steps are
-// loaded (evict-first) while this group's gathers run, and the table is
-// read through the read-only path. In the stream layout a sub-stream's
-// symbols are contiguous, and a byte stream's are loaded as 32-bit words;
-// in the batch layout neighbouring threads read neighbouring columns of
-// one row, so a warp's symbol loads coalesce.
+// The stepped counts (K3, K5, K9, K11's gather half) and the 1-char count
+// and hits (K1, K8: the same walk at k = 1 over AcDenseTable) therefore
+// split each stream or column into P sub-streams (ac_stepped_part_walk),
+// each warmed up from the root over warm_steps grams before its body, so
+// that B*P threads fill the SMs; the symbols of the next group of steps
+// are loaded (evict-first) while this group's gathers run, and the table
+// is read through the read-only path, or for K1 and K8 from shared memory
+// where it fits (ac_dense_stage). In the stream layout a sub-stream's
+// symbols are contiguous: a byte stream's are loaded as 32-bit words, and
+// at k = 1 every stream's as 16-byte vectors; in the batch layout
+// neighbouring threads read neighbouring columns of one row, so a warp's
+// symbol loads coalesce.
 #pragma once
 
 #include <stdint.h>
@@ -56,9 +59,10 @@ struct AcScanArgs {
   const int32_t* head_ids;  // [halo] letter ids of stream 0's warm-up rows (raw)
   int32_t* out;             // K1, K3, K5, K6: [B] totals; K2: [B*L] states;
                             // K4: [B, L/k] emit
-  int32_t* n_hits;          // K4, K8 pass 1: [B] matches per stream
+  int32_t* n_hits;          // K4: [B] matches per stream; K8 pass 1:
+                            // [B*P] matches per sub-stream
   int32_t* n_live;          // K4: [B] grams with a match per stream;
-                            // K8 pass 1: [B] hit positions per stream
+                            // K8 pass 1: [B*P] hit positions per sub-stream
   int64_t L;                // symbols per stream or block (a multiple of k)
   int64_t Vk;               // V^k
   int32_t B, V, halo;       // B streams or columns; halo in symbols
@@ -75,11 +79,11 @@ struct AcScanArgs {
   const int32_t* idx;       // [B] block index of each column
   int64_t col_stride, row_stride;
   int32_t gather;           // 1: ext is the stream; 0: ext holds the windows
-  // K8 pass 2 (null in pass 1): each column writes its hits, stream order,
-  // from slot hit_off[c] on.
+  // K8 pass 2 (null in pass 1): each sub-stream writes its hits, stream
+  // order, from slot hit_off[g] on.
   int32_t* hit_pos;         // positions
   int32_t* hit_state;       // states after the symbol at each position
-  const int64_t* hit_off;   // [B] first slot of each column
+  const int64_t* hit_off;   // [B*P] first slot of each sub-stream
   // K9: cnt_k [cap*V^k], the k-gram counts beside table = delta_k.
   const int32_t* table2;
   // K10, K11's MMA half: the digit planes keyed by (state, letter), int8
@@ -92,16 +96,20 @@ struct AcScanArgs {
   // K12: table = delta [n_states, V], ext = ids int32 [doc_len], out =
   // states [doc_len], cut into B chunks of L symbols; compose [B, n_states]
   // each chunk's composed transition function, starts [B] each chunk's
-  // start state.
+  // start state. K1, K8: the tables' real rows, those staged on the SM.
   int32_t* compose;
   int32_t* starts;
   int32_t n_states;
-  // K3, K5, K9, K11's gather half: the grams a sub-stream reads before its
-  // body, ceil((max_depth - 1) / k) of the tables (never the halo, which
-  // may be shorter or 0), and the sub-streams per column, a power of two
-  // up to AC_MAX_SPLIT; 0 lets the launcher pick (ac_pick_split).
+  // K1, K3, K5, K8, K9, K11's gather half: the grams a sub-stream reads
+  // before its body, ceil((max_depth - 1) / k) of the tables (never the
+  // halo, which may be shorter or 0; symbols at k = 1), and the
+  // sub-streams per column, a power of two up to AC_MAX_SPLIT; 0 lets the
+  // launcher pick (ac_pick_split).
   int32_t warm_steps;
   int32_t split;
+  // K1, K8: 1 reads the 1-char tables through the read-only path even
+  // where rows [0, n_states) fit on the SM (ac_dense_smem_bytes).
+  int32_t global_table;
 };
 
 // Loads with an evict-first, streaming hint (the corpus, read once), so
@@ -136,7 +144,7 @@ AC_HD uint32_t ac_funnel(uint32_t lo, uint32_t hi, int sh) {
 }
 
 // Gram steps whose symbols the stepped counts load one group ahead
-// (ac_stepped_sub), per layout: a stream's contiguous symbols and a
+// (ac_stepped_walk), per layout: a stream's contiguous symbols and a
 // batch's or windows' rows, each a multiple of 4 so that a group of a
 // byte stream is whole 32-bit words at every k. Chosen on the card: a
 // stream group of 4 and a batch group of 8 were slower (PERF.md).
@@ -273,11 +281,14 @@ AC_HD int64_t ac_gram(const Syms& sym, int64_t t0, int32_t V, int32_t k) {
   return g;
 }
 
-// K1 (ops/scan_pallas.py:make_pallas_blocked_count, which computes
-// ops/scan_xla.py:blocked_count_core) and K6 (ops/scan_xla.py:_count_many_body):
-// s <- dflat[s*V + c]; matches of the rows past the halo. Sums wrap like
-// the JAX int32 accumulator; the scanner's _guard_acc keeps them from
-// doing so.
+// K6 (ops/scan_xla.py:_count_many_body) and K7 dense, one thread a
+// column: the recurrence of ops/scan_xla.py:blocked_count_core,
+// s <- dflat[s*V + c], counting the matches of the rows past the halo
+// (K1 runs it as sub-streams: ac_stepped_lanes over AcDenseTable). Sums
+// wrap like the JAX int32 accumulator; the scanner's _guard_acc keeps them
+// from doing so. The tables are read by plain loads: through the
+// read-only path (ac_ldtab) K6 took 4.38 ms at config 3 against 3.77
+// (PERF.md).
 template <typename Syms>
 AC_HD int32_t ac_dense_count_body(const AcScanArgs& a, const Syms& sym) {
   int32_t s = 0;
@@ -288,11 +299,6 @@ AC_HD int32_t ac_dense_count_body(const AcScanArgs& a, const Syms& sym) {
     tot += (uint32_t)a.nb_out[s];
   }
   return (int32_t)tot;
-}
-
-template <typename T>
-AC_HD void ac_dense_count_stream(const AcScanArgs& a, int64_t b) {
-  a.out[b] = ac_dense_count_body(a, ac_syms<T>(a, b));
 }
 
 template <typename T>
@@ -331,51 +337,6 @@ AC_HD void ac_dense_states_stream(const AcScanArgs& a, int64_t b) {
 template <typename T>
 AC_HD void ac_dense_states_tm_column(const AcScanArgs& a, int64_t j) {
   ac_dense_states_body(a, ac_batch_syms<T>(a, j), a.out + j, a.n_docs);
-}
-
-// K8 (ops/hits.py:make_blocked_hits, ops/sparse.py:_window_hits_core): the
-// K2 recurrence; a body row t hits when nb_out[s] > 0. Pass 1 (hit_pos
-// null) writes the column's matches to n_hits and its hit positions to
-// n_live; pass 2 re-runs the chain and writes (pos0 + t, s) of each hit
-// from slot hit_off[column] on, so the output holds exactly the hits.
-template <typename Syms>
-AC_HD void ac_dense_hits_body(const AcScanArgs& a, const Syms& sym,
-                              int64_t column, int64_t pos0) {
-  int32_t s = 0;
-  for (int64_t t = 0; t < a.halo; ++t) s = a.table[(int64_t)s * a.V + sym(t)];
-  int64_t slot = a.hit_pos != nullptr ? a.hit_off[column] : 0;
-  uint32_t hits = 0;
-  int32_t n_pos = 0;
-  for (int64_t t = 0; t < a.L; ++t) {
-    s = a.table[(int64_t)s * a.V + sym(a.halo + t)];
-    const int32_t nb = a.nb_out[s];
-    if (nb > 0) {
-      if (a.hit_pos != nullptr) {
-        a.hit_pos[slot] = (int32_t)(pos0 + t);
-        a.hit_state[slot] = s;
-        ++slot;
-      }
-      hits += (uint32_t)nb;
-      ++n_pos;
-    }
-  }
-  if (a.hit_pos == nullptr) {
-    a.n_hits[column] = (int32_t)hits;
-    a.n_live[column] = n_pos;
-  }
-}
-
-// K8 stream form (make_blocked_hits_stream / _raw): positions b*L + t.
-template <typename T>
-AC_HD void ac_dense_hits_stream(const AcScanArgs& a, int64_t b) {
-  ac_dense_hits_body(a, ac_syms<T>(a, b), b, b * a.L);
-}
-
-// K8 window form (make_sparse_hits[_dev], make_elided_hits): positions
-// idx[c]*L + t.
-AC_HD void ac_window_hits_column(const AcScanArgs& a, int64_t column) {
-  ac_dense_hits_body(a, ac_win_syms(a, column), column,
-                     (int64_t)a.idx[column] * a.L);
 }
 
 // Per-lane values: one register on the card, one slot per lane on the host,
@@ -474,6 +435,102 @@ AC_HD AcPackedTable ac_packed(const AcScanArgs& a) {
   return AcPackedTable::make(a);
 }
 
+// The 1-char tables (K1, K8) as a gram table at k = 1: s' = dflat[i] and
+// its matches nb_out[s'], which the next step does not wait for (it needs
+// only s'). Row int32: the tables in device memory, through the read-only
+// path; Row uint16: rows [0, n_states) staged on the SM (ac_dense_stage),
+// read by plain loads.
+template <typename Row>
+struct AcDenseTable {
+  const Row* dflat;
+  const int32_t* nb_out;
+
+  AC_HD int32_t next(int64_t i, uint32_t* count) const {
+    if constexpr (sizeof(Row) == 4) {
+      const int32_t s = ac_ldtab(dflat + i);
+      *count = (uint32_t)ac_ldtab(nb_out + s);
+      return s;
+    } else {
+      const int32_t s = dflat[i];
+      *count = (uint32_t)nb_out[s];
+      return s;
+    }
+  }
+  AC_HD static AcDenseTable make(const AcScanArgs& a) {
+    AcDenseTable t;
+    t.dflat = a.table;
+    t.nb_out = a.nb_out;
+    return t;
+  }
+};
+
+// The launch fields of a 1-char launch as a gram launch at k = 1.
+AC_HD AcScanArgs ac_dense_args(AcScanArgs a) {
+  a.k = 1;
+  a.Vk = a.V;
+  return a;
+}
+
+// LUT entries a launch serves from shared memory: all where there are at
+// most kLutSmem, else none.
+constexpr int kLutSmem = 4096;
+
+AC_HD int32_t ac_lut_entries(const AcScanArgs& a) {
+  return (a.lut != nullptr && a.n_lut <= kLutSmem) ? a.n_lut : 0;
+}
+
+// Shared memory a block can hold on an H100 (sm_90).
+#define AC_SMEM_BLOCK 232448
+
+// Threads a block of the 1-char kernels (K1, K8): their tables in device
+// memory, or on the SM.
+constexpr int kDenseThreads = 128;
+constexpr int kDenseSmThreads = 512;
+
+// Bytes of shared memory the 1-char tables take on the SM beside `beside`
+// bytes of the block's other shared memory (the LUT, K8's staged hits):
+// nb_out's rows [0, n_states) as int32, then dflat's as uint16 (a state id
+// fits 16 bits); 0 where they stay in device memory: forced
+// (global_table), n_states unset, past 65,536 states, or over the bytes a
+// block can hold. At the slice's 3,919 states and V = 12, 110 KB.
+AC_HD int64_t ac_dense_smem_bytes(const AcScanArgs& a, int64_t beside) {
+  if (a.global_table || a.n_states <= 0 || a.n_states > 65536) return 0;
+  const int64_t bytes =
+      4 * (int64_t)a.n_states + ((2 * (int64_t)a.n_states * a.V + 3) & ~3);
+  return beside + bytes <= AC_SMEM_BLOCK ? bytes : 0;
+}
+
+// Thread tid of n copies the 1-char tables' rows [0, n_states) into smem
+// (ac_dense_smem_bytes of room), dflat four entries a load where it is
+// 16-byte aligned; the table they make once every thread has copied.
+AC_HD AcDenseTable<uint16_t> ac_dense_stage(const AcScanArgs& a,
+                                            int32_t* smem, int tid, int n) {
+  const int64_t S = a.n_states, entries = S * a.V;
+  uint16_t* rows = (uint16_t*)(smem + S);
+  for (int64_t i = tid; i < S; i += n) smem[i] = ac_ldtab(a.nb_out + i);
+  const int64_t quads = ((uintptr_t)a.table & 15) ? 0 : entries / 4;
+  uint32_t* pairs = (uint32_t*)rows;
+#if defined(__CUDA_ARCH__)
+#pragma unroll 4
+#endif
+  for (int64_t i = tid; i < quads; i += n) {
+#if defined(__CUDA_ARCH__)
+    const int4 v = __ldg((const int4*)a.table + i);
+#else
+    struct { int32_t x, y, z, w; } v;
+    memcpy(&v, a.table + 4 * i, 16);
+#endif
+    pairs[2 * i] = ((uint32_t)v.x & 0xffffu) | ((uint32_t)v.y << 16);
+    pairs[2 * i + 1] = ((uint32_t)v.z & 0xffffu) | ((uint32_t)v.w << 16);
+  }
+  for (int64_t i = 4 * quads + tid; i < entries; i += n)
+    rows[i] = (uint16_t)ac_ldtab(a.table + i);
+  AcDenseTable<uint16_t> t;
+  t.dflat = rows;
+  t.nb_out = smem;
+  return t;
+}
+
 // Runs the statements with K, a compile-time gram width, the launch's k
 // for k = 1-4, else 0 (k read at run time from a.k).
 #define AC_WITH_K(k, ...)                                  \
@@ -487,13 +544,15 @@ AC_HD AcPackedTable ac_packed(const AcScanArgs& a) {
     }                                                      \
   } while (0)
 
-// The raw symbols of one group of G gram steps from gram g0 (those below
-// j1), loaded ahead of their translation: one load a symbol, through the
-// accessor.
-template <int K, int G, typename Syms>
+// The raw symbols of one group of G = Syms::kGroup gram steps from gram g0
+// (those below j1), loaded ahead of their translation: one load a symbol,
+// through the accessor. Groups may start at any gram (first).
+template <int K, typename Syms>
 struct AcGroup {
+  static constexpr int G = Syms::kGroup;
   int32_t v[G][K];
 
+  AC_HD static int64_t first(const Syms&, int64_t j) { return j; }
   AC_HD void load(const Syms& sym, int64_t g0, int64_t j1) {
     AC_UNROLL
     for (int m = 0; m < G; ++m) {
@@ -507,18 +566,21 @@ struct AcGroup {
   }
 };
 
-// A stream of bytes: a group's G*K bytes (G*K a multiple of 4, so that
-// every group of a sub-stream sits at the same offset in its words) as the
-// G*K/4 + 1 aligned 32-bit words that hold them, loaded once each where
-// they hold a byte below gram j1, and realigned by funnel shifts; a warp's
-// lanes then issue a quarter of the loads that one a byte would take.
-// Stream 0's head rows take their ids from head_ids at translation.
-template <int K, int G>
-struct AcGroup<K, G, AcSyms<uint8_t> > {
+// A stream of bytes at k >= 2: a group's G*K bytes (G*K a multiple of 4,
+// so that every group of a sub-stream sits at the same offset in its
+// words) as the G*K/4 + 1 aligned 32-bit words that hold them, loaded once
+// each where they hold a byte below gram j1, and realigned by funnel
+// shifts; a warp's lanes then issue a quarter of the loads that one a byte
+// would take. Stream 0's head rows take their ids from head_ids at
+// translation.
+template <int K>
+struct AcGroup<K, AcSyms<uint8_t> > {
+  static constexpr int G = kStreamGroup;
   static constexpr int W = G * K / 4;
   uint32_t w[W + 1];
   int sh;
 
+  AC_HD static int64_t first(const AcSyms<uint8_t>&, int64_t j) { return j; }
   AC_HD void load(const AcSyms<uint8_t>& sym, int64_t g0, int64_t j1) {
     const uintptr_t p = (uintptr_t)(sym.row + g0 * K);
     const uint32_t* base = (const uint32_t*)(p & ~(uintptr_t)3);
@@ -536,33 +598,95 @@ struct AcGroup<K, G, AcSyms<uint8_t> > {
   }
 };
 
+// Sixteen bytes from a 16-byte-aligned address, evict-first.
+AC_HD void ac_ldcs16(const void* p, uint32_t w[4]) {
+#if defined(__CUDA_ARCH__)
+  const uint4 q = __ldcs((const uint4*)p);
+  w[0] = q.x;
+  w[1] = q.y;
+  w[2] = q.z;
+  w[3] = q.w;
+#else
+  memcpy(w, p, 16);
+#endif
+}
+
+// A stream at k = 1 (K1, K8, and the stepped counts of 1-char tables): a
+// group is kVecs 16-byte vectors (16 bytes or 8 int32 symbols) from a
+// 16-byte-aligned address, each loaded where it holds a symbol below j1.
+// The walk takes the steps before the first aligned symbol one by one
+// (first), so every vector is one aligned load: a warp's lanes issue one
+// load for 16 bytes of their sub-streams, where a word a load took four.
+template <typename T>
+struct AcVecGroup {
+  static constexpr int kVecs = sizeof(T) == 1 ? 1 : 2;
+  static constexpr int kPer = 16 / (int)sizeof(T);   // symbols a vector
+  static constexpr int G = kVecs * kPer;
+  uint32_t w[4 * kVecs];
+
+  AC_HD static int64_t first(const AcSyms<T>& sym, int64_t j) {
+    const uintptr_t p = (uintptr_t)(sym.row + j);
+    return j + (int64_t)(((16 - (p & 15)) & 15) / sizeof(T));
+  }
+  AC_HD void load(const AcSyms<T>& sym, int64_t g0, int64_t j1) {
+    AC_UNROLL
+    for (int v = 0; v < kVecs; ++v) {
+      if (g0 + v * kPer < j1) {
+        ac_ldcs16(sym.row + g0 + v * kPer, w + 4 * v);
+      } else {
+        w[4 * v] = w[4 * v + 1] = w[4 * v + 2] = w[4 * v + 3] = 0u;
+      }
+    }
+  }
+  AC_HD int32_t id(const AcSyms<T>& sym, int64_t g0, int m, int) const {
+    const int32_t v =
+        sizeof(T) == 1 ? (int32_t)((w[m >> 2] >> (8 * (m & 3))) & 255u)
+                       : (int32_t)w[m];
+    return sym.id_of_row(g0 + m, v);
+  }
+};
+
+template <>
+struct AcGroup<1, AcSyms<uint8_t> > : AcVecGroup<uint8_t> {};
+template <>
+struct AcGroup<1, AcSyms<int32_t> > : AcVecGroup<int32_t> {};
+
 // The stepped recurrence of one column over gram steps [start, j1) from
-// the root, counting the grams from j0 on: s <- table[s*V^k + gram]. The
-// table index is 64-bit: s*V^k can pass 2^31 where JAX's int32 would
-// wrap. At K > 0 the steps run in groups of Syms::kGroup: a group's
-// symbols, loaded during the group before, are translated and combined
-// into grams first, then the next group's loads are issued, then the
-// group's gathers run, so that each step's dependent chain is the gather
-// alone (every register index fixed at compile time). K = 0 is the plain
-// loop over the run-time k.
-template <int K, typename Syms, typename Table>
-AC_HD uint32_t ac_stepped_sub(const Syms& sym, const Table& table, int32_t V,
-                              int32_t k, int64_t Vk, int64_t start,
-                              int64_t j0, int64_t j1) {
+// the root, s <- table[s*V^k + gram], handing each gram from j0 on to
+// emit(j, s, c): its index, the state after it and its count (AcSum sums
+// the counts; K8's AcHitsEmit writes the hits). The table index is 64-bit:
+// s*V^k can pass 2^31 where JAX's int32 would wrap. At K > 0 the steps run
+// in groups of AcGroup's G, from its first gram on (the steps before it
+// one by one): a group's symbols, loaded during the group before, are
+// translated and combined into grams first, then the next group's loads
+// are issued, then the group's gathers run, so that each step's dependent
+// chain is the gather alone (every register index fixed at compile time).
+// K = 0 is the plain loop over the run-time k.
+template <int K, typename Syms, typename Table, typename Emit>
+AC_HD void ac_stepped_walk(const Syms& sym, const Table& table, int32_t V,
+                           int32_t k, int64_t Vk, int64_t start, int64_t j0,
+                           int64_t j1, Emit& emit) {
   int32_t s = 0;
-  uint32_t tot = 0;
   if constexpr (K == 0) {
     for (int64_t j = start; j < j1; ++j) {
       uint32_t c;
       s = table.next((int64_t)s * Vk + ac_gram(sym, j * k, V, k), &c);
-      if (j >= j0) tot += c;
+      if (j >= j0) emit(j, s, c);
     }
   } else {
     (void)k;
-    constexpr int G = Syms::kGroup;
-    AcGroup<K, G, Syms> nxt;
-    nxt.load(sym, start, j1);
-    for (int64_t g0 = start; g0 < j1; g0 += G) {
+    typedef AcGroup<K, Syms> Group;
+    constexpr int G = Group::G;
+    const int64_t a0 = Group::first(sym, start);
+    int64_t g0 = start;
+    for (; g0 < j1 && g0 < a0; ++g0) {
+      uint32_t c;
+      s = table.next((int64_t)s * Vk + ac_gram(sym, g0 * K, V, K), &c);
+      if (g0 >= j0) emit(g0, s, c);
+    }
+    Group nxt;
+    nxt.load(sym, g0, j1);
+    for (; g0 < j1; g0 += G) {
       uint32_t gram[G];
       AC_UNROLL
       for (int m = 0; m < G; ++m) {
@@ -579,12 +703,18 @@ AC_HD uint32_t ac_stepped_sub(const Syms& sym, const Table& table, int32_t V,
         if (j >= j1) break;
         uint32_t c;
         s = table.next((int64_t)s * Vk + gram[m], &c);
-        if (j >= j0) tot += c;
+        if (j >= j0) emit(j, s, c);
       }
     }
   }
-  return tot;
 }
+
+// The count hook: the grams' counts summed in uint32 (wrapping like JAX's
+// int32 accumulator).
+struct AcSum {
+  uint32_t tot = 0;
+  AC_HD void operator()(int64_t, int32_t, uint32_t c) { tot += c; }
+};
 
 // Sub-streams per column: a power of two up to AC_MAX_SPLIT. The
 // launchers of the batch forms (K5, K9's batch) pick a P above
@@ -596,7 +726,7 @@ AC_HD uint32_t ac_stepped_sub(const Syms& sym, const Table& table, int32_t V,
 #define AC_SPLITS 6   // P = 1, 2, 4, ..., AC_MAX_SPLIT
 #define AC_COLS_SPLIT 8
 
-// The P of the last stepped launch of a library (K3, K5, K9, K11), read
+// The P of the last split launch of a library (K1, K3, K5, K8, K9, K11), read
 // through its ac_last_split() to report it.
 inline int g_ac_last_split = 0;
 
@@ -605,7 +735,7 @@ AC_HD bool ac_valid_split(int P) {
 }
 
 // Sub-stream p of P of a column of halo_steps = a.halo / K halo grams and
-// n_body = a.L / K body grams: it counts body grams [j0, j1), j0 = halo_steps
+// n_body = a.L / K body grams: it emits body grams [j0, j1), j0 = halo_steps
 // + n_body*p/P, j1 = halo_steps + n_body*(p+1)/P (the last takes the
 // remainder). Sub-stream 0 runs from gram 0 as the one-thread body does;
 // sub-stream p > 0 starts from the root warm_steps grams before j0, or at
@@ -613,17 +743,28 @@ AC_HD bool ac_valid_split(int P) {
 // from the root put every state from j0's first symbol on at the longest
 // suffix of the column's rows that is a trie node, as the column's run
 // from gram 0 does (ops/blocking.py's halo argument, inside the column), so
-// the P parts sum to the one-thread total, whatever the halo.
-template <int K, typename Syms, typename Table>
-AC_HD uint32_t ac_stepped_part(const AcScanArgs& a, const Syms& sym,
-                               const Table& table, int p, int P) {
+// the P parts emit what the one-thread run does, states included,
+// whatever the halo.
+template <int K, typename Syms, typename Table, typename Emit>
+AC_HD void ac_stepped_part_walk(const AcScanArgs& a, const Syms& sym,
+                                const Table& table, int p, int P,
+                                Emit& emit) {
   const int64_t k = K ? K : a.k;
   const int64_t hs = a.halo / k, n_body = a.L / k;
   const int64_t j0 = hs + n_body * p / P, j1 = hs + n_body * (p + 1) / P;
-  if (p > 0 && j0 >= j1) return 0;
+  if (p > 0 && j0 >= j1) return;
   const int64_t start =
       p == 0 ? 0 : (j0 > a.warm_steps ? j0 - a.warm_steps : 0);
-  return ac_stepped_sub<K>(sym, table, a.V, (int32_t)k, a.Vk, start, j0, j1);
+  ac_stepped_walk<K>(sym, table, a.V, (int32_t)k, a.Vk, start, j0, j1, emit);
+}
+
+// The count of sub-stream p of P.
+template <int K, typename Syms, typename Table>
+AC_HD uint32_t ac_stepped_part(const AcScanArgs& a, const Syms& sym,
+                               const Table& table, int p, int P) {
+  AcSum sum;
+  ac_stepped_part_walk<K>(a, sym, table, p, P, sum);
+  return sum.tot;
 }
 
 // K3 (ops/multistep.py:stepped_count_core), K9's stream form and K11's
@@ -665,6 +806,118 @@ AC_HD uint32_t ac_stepped_column(const AcScanArgs& a, const Table& table,
   uint32_t tot = 0;
   for (int p = 0; p < P; ++p) tot += ac_stepped_part<K>(a, sym, table, p, P);
   return tot;
+}
+
+// Sixteen bytes to a 16-byte-aligned address, streaming (written once).
+AC_HD void ac_stcs16(void* p, const int32_t w[4]) {
+#if defined(__CUDA_ARCH__)
+  __stcs((int4*)p, make_int4(w[0], w[1], w[2], w[3]));
+#else
+  memcpy(p, w, 16);
+#endif
+}
+
+// Hits a K8 thread stages before it writes them: one 32-byte sector of
+// positions and one of states.
+constexpr int kHitStage = 8;
+
+// K8's hooks: a body row hits where its state's count is non-zero.
+// Pass 1: the matches and the hit positions, counted.
+struct AcHitsCount {
+  uint32_t hits = 0;
+  int32_t n_pos = 0;
+
+  AC_HD void operator()(int64_t, int32_t, uint32_t c) {
+    hits += c;
+    n_pos += c != 0;
+  }
+};
+
+// Pass 2: each hit's position (base + row) and state, from slot on. With
+// a stage, the hits are staged: entry k's position at stage[k*stride], its
+// state at stage[(kHitStage + k)*stride] (shared memory on the card, the
+// block's threads interleaved, so that a warp's lanes never share a
+// bank), and the kHitStage hits of each kHitStage-aligned run of slots go
+// out as two 16-byte stores an array, whole sectors; those of a run
+// covered only in part (the first and the last) one by one. Without one
+// (stage null) each hit is written as it comes.
+struct AcHitsEmit {
+  int32_t* pos;
+  int32_t* state;
+  int32_t* stage;
+  int stride, staged = 0;
+  int64_t slot, base;
+
+  AC_HD void operator()(int64_t j, int32_t s, uint32_t c) {
+    if (c == 0) return;
+    if (stage == nullptr) {
+      pos[slot] = (int32_t)(base + j);
+      state[slot] = s;
+      ++slot;
+      return;
+    }
+    stage[staged * stride] = (int32_t)(base + j);
+    stage[(kHitStage + staged) * stride] = s;
+    ++staged;
+    ++slot;
+    if (slot % kHitStage == 0) flush();
+  }
+  // The staged hits, slots [slot - staged, slot), to the outputs.
+  AC_HD void flush() {
+    const int64_t s0 = slot - staged;
+    if (staged == kHitStage && ((uintptr_t)(pos + s0) & 15) == 0 &&
+        ((uintptr_t)(state + s0) & 15) == 0) {
+      int32_t w[2 * kHitStage];
+      AC_UNROLL
+      for (int k = 0; k < 2 * kHitStage; ++k) w[k] = stage[k * stride];
+      ac_stcs16(pos + s0, w);
+      ac_stcs16(pos + s0 + 4, w + 4);
+      ac_stcs16(state + s0, w + kHitStage);
+      ac_stcs16(state + s0 + 4, w + kHitStage + 4);
+    } else {
+      for (int k = 0; k < staged; ++k) {
+        pos[s0 + k] = stage[k * stride];
+        state[s0 + k] = stage[(kHitStage + k) * stride];
+      }
+    }
+    staged = 0;
+  }
+};
+
+// K8 (ops/hits.py:make_blocked_hits, ops/sparse.py:_window_hits_core),
+// sub-stream g of the launch: sub-stream g % P of column g / P, the 1-char
+// recurrence over AcDenseTable. Pass 1 (Write false) writes its matches
+// to n_hits[g] and its hit positions to n_live[g]; pass 2 (Write), at the
+// same P, re-runs it and writes (position, state) of each hit from slot
+// hit_off[g] on, staged in 2 * kHitStage words from stage on, stride
+// apart, where stage is not null (AcHitsEmit). A column's sub-streams
+// cover consecutive rows, so slots from the exclusive prefix sum of pass
+// 1's n_live over g hold the hits in stream order, exactly as many as
+// there are. Row t of column c is at position Layout::pos0(a, c) + t -
+// halo.
+template <bool Write, typename Layout, typename Table>
+AC_HD void ac_dense_hits_sub(const AcScanArgs& a, const Table& table,
+                             int64_t g, int P, int32_t* stage, int stride) {
+  const int64_t col = g / P;
+  const typename Layout::Syms sym = Layout::make(a, col);
+  if constexpr (Write) {
+    AcHitsEmit e;
+    e.pos = a.hit_pos;
+    e.state = a.hit_state;
+    e.stage = stage;
+    e.stride = stride;
+    e.slot = a.hit_off[g];
+    e.base = Layout::pos0(a, col) - a.halo;
+    ac_stepped_part_walk<1>(a, sym, table, (int)(g % P), P, e);
+    if (stage != nullptr) e.flush();
+  } else {
+    (void)stage;
+    (void)stride;
+    AcHitsCount e;
+    ac_stepped_part_walk<1>(a, sym, table, (int)(g % P), P, e);
+    a.n_hits[g] = (int32_t)e.hits;
+    a.n_live[g] = e.n_pos;
+  }
 }
 
 // The launcher's P for n_cols columns of n_body body grams, halo_steps halo
@@ -936,6 +1189,10 @@ struct AcStreamLayout {
   AC_HD static Syms make(const AcScanArgs& a, int64_t c) {
     return ac_syms<T>(a, c);
   }
+  // position of body row 0 of column c (K8)
+  AC_HD static int64_t pos0(const AcScanArgs& a, int64_t c) {
+    return c * a.L;
+  }
 };
 
 template <typename T>
@@ -950,6 +1207,9 @@ struct AcWinLayout {
   typedef AcWinSyms Syms;
   AC_HD static Syms make(const AcScanArgs& a, int64_t c) {
     return ac_win_syms(a, c);
+  }
+  AC_HD static int64_t pos0(const AcScanArgs& a, int64_t c) {
+    return (int64_t)a.idx[c] * a.L;
   }
 };
 
@@ -1120,7 +1380,8 @@ AC_HD void ac_assoc_states_chunk(const AcScanArgs& a, const int32_t* delta,
 
 #if defined(__CUDACC__)
 // ---------------------------------------------------------------------------
-// What the CUDA launchers share (stepped_scan.cu, mxu_scan.cu).
+// What the CUDA launchers share (dense_scan.cu, stepped_scan.cu,
+// sparse_scan.cu, mxu_scan.cu).
 #include <cuda_runtime.h>
 
 #include <map>
@@ -1132,14 +1393,6 @@ AC_HD void ac_assoc_states_chunk(const AcScanArgs& a, const int32_t* delta,
     const cudaError_t e_ = (x);            \
     if (e_ != cudaSuccess) return e_;      \
   } while (0)
-
-constexpr int kLutSmem = 4096;   // LUT entries served from shared memory
-
-// The LUT entries a launch copies to shared memory: all where there are
-// at most kLutSmem, else none.
-inline int32_t ac_lut_entries(const AcScanArgs& a) {
-  return (a.lut != nullptr && a.n_lut <= kLutSmem) ? a.n_lut : 0;
-}
 
 // The LUT into shared memory (lut_n > 0 entries), by every thread of the
 // block; the block then reads it there.
@@ -1192,5 +1445,87 @@ cudaError_t ac_slots(Kernel kernel, int threads, int64_t smem,
   AC_TRY(ac_occupancy((const void*)kernel, threads, smem, &occ));
   *slots = (int64_t)occ.sms * occ.blocks * threads;
   return cudaSuccess;
+}
+
+// The 1-char launches (K1, K8). A kernel of this type reads the LUT's
+// lut_n entries from shared memory, the 1-char tables from the tab_words
+// words behind them (staged once a block: ac_dense_sm_table) or through
+// the read-only path, and runs the launch's B*P sub-streams over a grid of
+// at most one wave, each block looping over them; K8's pass 2 stages its
+// hits in the shared memory after the tables on the SM (2 * kHitStage
+// words a thread).
+typedef void (*AcDenseKernel)(AcScanArgs, int32_t P, int32_t lut_n,
+                              int32_t tab_words);
+
+// The block's copy of the 1-char tables (ac_dense_stage), once every
+// thread has taken part.
+__device__ __forceinline__ AcDenseTable<uint16_t> ac_dense_sm_table(
+    const AcScanArgs& a, int32_t* smem) {
+  const AcDenseTable<uint16_t> t =
+      ac_dense_stage(a, smem, threadIdx.x, blockDim.x);
+  __syncthreads();
+  return t;
+}
+
+// Launch a 1-char kernel over a's B columns, P sub-streams each: on_sm
+// where the tables fit on the SM beside the LUT (ac_dense_smem_bytes,
+// within the card's opt-in limit, with room for stage_words more words a
+// thread: K8's staged hits), one block of kDenseSmThreads an SM, else
+// global. The staging words are allocated only on the SM and in K8's
+// pass 2 (hit_pos set): a global block keeps its L1 for the tables, and
+// both passes take the same path. P is the launch's split field where
+// set, else ac_pick_split over the kernel's occupancy; with pick
+// non-null, only P is written and nothing is launched (K8's two passes
+// take one P).
+inline cudaError_t ac_dense_launch(const AcScanArgs& args,
+                                   AcDenseKernel on_sm, AcDenseKernel global,
+                                   int stage_words, cudaStream_t st,
+                                   int* pick) {
+  const AcScanArgs a = ac_dense_args(args);
+  const int32_t lut_n = ac_lut_entries(a);
+  int dev = 0, optin = 0;
+  AC_TRY(cudaGetDevice(&dev));
+  AC_TRY(cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  const int64_t beside =
+      4 * ((int64_t)lut_n + (int64_t)stage_words * kDenseSmThreads);
+  int64_t tab = ac_dense_smem_bytes(a, beside);
+  if (beside + tab > optin) tab = 0;
+  const AcDenseKernel kernel = tab > 0 ? on_sm : global;
+  const int threads = tab > 0 ? kDenseSmThreads : kDenseThreads;
+  // On the SM, one block an SM: the request passes half the SM's shared
+  // memory, so that the rest of its 256 KB stays L1 for the stream's
+  // symbols (two blocks of the slice's 110 KB would leave it 28 KB, and an
+  // int32 stream then ran slower than through the read-only path).
+  int per_sm = 0;
+  AC_TRY(cudaDeviceGetAttribute(
+      &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev));
+  const bool staged = tab > 0 && a.hit_pos != nullptr;
+  int64_t smem = 4 * ((int64_t)lut_n +
+                      (staged ? (int64_t)stage_words * threads : 0)) + tab;
+  if (tab > 0 && smem <= per_sm / 2) smem = per_sm / 2 + 1;
+  if (smem > 48 * 1024)
+    AC_TRY(cudaFuncSetAttribute((const void*)kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem));
+  AcOccupancy occ;
+  AC_TRY(ac_occupancy((const void*)kernel, threads, smem, &occ));
+  if (occ.blocks < 1) return cudaErrorInvalidConfiguration;
+  int64_t slots[AC_SPLITS];
+  for (int i = 0; i < AC_SPLITS; ++i)
+    slots[i] = (int64_t)occ.sms * occ.blocks * threads;
+  const int P = ac_launch_split(a, a.B, slots, AC_MAX_SPLIT);
+  if (P == 0) return cudaErrorInvalidValue;
+  if (pick != nullptr) {
+    *pick = P;
+    return cudaSuccess;
+  }
+  const int64_t need = ((int64_t)a.B * P + threads - 1) / threads;
+  const int64_t wave = (int64_t)occ.sms * occ.blocks;
+  const int64_t grid = need < wave ? need : wave;
+  if (grid == 0) return cudaSuccess;
+  kernel<<<(unsigned)grid, threads, smem, st>>>(a, P, lut_n,
+                                                 (int32_t)(tab / 4));
+  return cudaGetLastError();
 }
 #endif  // __CUDACC__

@@ -1,11 +1,17 @@
 // Host build of the per-thread scans in ac_scan.cuh, with the same C entry
 // points as the CUDA kernels: each loops over the streams (or batch
 // columns, or windows) one by one, the stepped counts over their
-// sub-streams, and the MXU kernels and K3's split over their warps, each
-// warp's 32 lanes in turn with the tensor-core instruction and the warp's
-// votes and shuffles emulated.
+// sub-streams, and the MXU kernels and K1's and K3's split over their
+// warps, each warp's 32 lanes in turn with the tensor-core instruction and
+// the warp's votes and shuffles emulated. K1 and K8 read the 1-char
+// tables as the card does: a uint16 copy staged by ac_dense_stage where
+// ac_dense_smem_bytes gives it room (the card's shared memory), else in
+// place.
 // Built with g++ by the CPU tests, so that the logic the H100 kernels run
 // is tested where there is no GPU; the scanner never loads it.
+#include <type_traits>
+#include <vector>
+
 #include "ac_scan.cuh"
 
 namespace {
@@ -32,15 +38,53 @@ int split_of(const AcScanArgs& a, int64_t n_cols, int wide_split) {
   return ac_launch_split(a, n_cols, slots, wide_split);
 }
 
-// K3, K9's stream form, K11's gather half: the warps of the card's launch
-// over columns [0, n_cols), P lanes a column, each warp's lanes in turn.
+// K1, K3, K9's stream form, K11's gather half: the warps of the card's
+// launch over columns [0, n_cols), P lanes a column, each warp's lanes in
+// turn.
 template <int K, typename Layout, typename Table>
-int lanes(const AcScanArgs& a, int64_t n_cols) {
+int lanes(const AcScanArgs& a, const Table& table, int64_t n_cols) {
   const int P = split_of(a, n_cols, AC_MAX_SPLIT);
   if (P == 0) return 1;
   for (int64_t g0 = 0; g0 < n_cols * P; g0 += 32)
-    ac_stepped_lanes<K, Layout>(a, Table::make(a), n_cols, P, g0, 0);
+    ac_stepped_lanes<K, Layout>(a, table, n_cols, P, g0, 0);
   return 0;
+}
+
+// K8: the launch's B*P sub-streams one after another, each staging its
+// hits in one stage of 2 * kHitStage words where the tables are on "the
+// SM" (the card stages them in shared memory there).
+template <typename Layout, typename Table>
+int hits(const AcScanArgs& a, const Table& table) {
+  const int P = split_of(a, a.B, AC_MAX_SPLIT);
+  if (P == 0) return 1;
+  int32_t stage[2 * kHitStage];
+  const bool on_sm = std::is_same<Table, AcDenseTable<uint16_t> >::value;
+  for (int64_t g = 0; g < (int64_t)a.B * P; ++g) {
+    if (a.hit_pos != nullptr)
+      ac_dense_hits_sub<true, Layout>(a, table, g, P,
+                                      on_sm ? stage : nullptr, 1);
+    else
+      ac_dense_hits_sub<false, Layout>(a, table, g, P, nullptr, 1);
+  }
+  return 0;
+}
+
+// fn(table) over the 1-char tables of a K1 or K8 launch (whose block
+// holds stage_words more words a thread), as the card reads them.
+template <typename Fn>
+int with_dense_table(const AcScanArgs& a, int stage_words, Fn fn) {
+  const int64_t bytes = ac_dense_smem_bytes(
+      a, 4 * ((int64_t)ac_lut_entries(a) + stage_words * kDenseSmThreads));
+  if (bytes == 0) return fn(AcDenseTable<int32_t>::make(a));
+  std::vector<int32_t> smem(bytes / 4);
+  return fn(ac_dense_stage(a, smem.data(), 0, 1));
+}
+
+int stream_hits(const AcScanArgs& a) {
+  return with_dense_table(a, 2 * kHitStage, [&](const auto& table) {
+    return a.ext_u8 ? hits<AcStreamLayout<uint8_t>>(a, table)
+                    : hits<AcStreamLayout<int32_t>>(a, table);
+  });
 }
 
 // K5, K9's batch form: each column's P sub-streams summed.
@@ -65,8 +109,12 @@ int mxu_warps(const AcScanArgs& a, int64_t col0, int64_t end) {
 
 extern "C" {
 
-int ac_dense_count(const AcScanArgs* a, void*) {
-  return run<ac_dense_count_stream<uint8_t>, ac_dense_count_stream<int32_t>>(a);
+int ac_dense_count(const AcScanArgs* args, void*) {
+  const AcScanArgs a = ac_dense_args(*args);
+  return with_dense_table(a, 0, [&](const auto& table) {
+    return a.ext_u8 ? lanes<1, AcStreamLayout<uint8_t>>(a, table, a.B)
+                    : lanes<1, AcStreamLayout<int32_t>>(a, table, a.B);
+  });
 }
 
 int ac_dense_states(const AcScanArgs* a, void*) {
@@ -75,10 +123,10 @@ int ac_dense_states(const AcScanArgs* a, void*) {
 
 int ac_stepped_count(const AcScanArgs* a, void*) {
   if (a->ext_u8)
-    AC_WITH_K(a->k, return lanes<K, AcStreamLayout<uint8_t>, AcPackedTable>(
-                        *a, a->B));
-  AC_WITH_K(a->k, return lanes<K, AcStreamLayout<int32_t>, AcPackedTable>(
-                      *a, a->B));
+    AC_WITH_K(a->k, return lanes<K, AcStreamLayout<uint8_t>>(
+                        *a, AcPackedTable::make(*a), a->B));
+  AC_WITH_K(a->k, return lanes<K, AcStreamLayout<int32_t>>(
+                      *a, AcPackedTable::make(*a), a->B));
   return 0;
 }
 
@@ -101,11 +149,24 @@ int ac_sparse_count_stepped(const AcScanArgs* a, void*) {
 }
 
 int ac_dense_hits(const AcScanArgs* a, void*) {
-  return run<ac_dense_hits_stream<uint8_t>, ac_dense_hits_stream<int32_t>>(a);
+  return stream_hits(ac_dense_args(*a));
 }
 
-int ac_window_hits(const AcScanArgs* a, void*) {
-  return run<ac_window_hits_column, ac_window_hits_column>(a);
+int ac_window_hits(const AcScanArgs* args, void*) {
+  const AcScanArgs a = ac_dense_args(*args);
+  return with_dense_table(a, 2 * kHitStage, [&](const auto& table) {
+    return hits<AcWinLayout>(a, table);
+  });
+}
+
+// K8's P, as the card's launcher picks it at full occupancy.
+int ac_dense_hits_split(const AcScanArgs* a, int* P) {
+  *P = split_of(ac_dense_args(*a), a->B, AC_MAX_SPLIT);
+  return *P == 0;
+}
+
+int ac_window_hits_split(const AcScanArgs* a, int* P) {
+  return ac_dense_hits_split(a, P);
 }
 
 int ac_dense_count_many(const AcScanArgs* a, void*) {
@@ -125,10 +186,10 @@ int ac_stepped_count_2t(const AcScanArgs* a, void*) {
   if (a->layout == 1)
     AC_WITH_K(a->k, return cols<K, AcBatchLayout<int32_t>, AcTwoTables>(*a));
   if (a->ext_u8)
-    AC_WITH_K(a->k, return lanes<K, AcStreamLayout<uint8_t>, AcTwoTables>(
-                        *a, a->B));
-  AC_WITH_K(a->k, return lanes<K, AcStreamLayout<int32_t>, AcTwoTables>(
-                      *a, a->B));
+    AC_WITH_K(a->k, return lanes<K, AcStreamLayout<uint8_t>>(
+                        *a, AcTwoTables::make(*a), a->B));
+  AC_WITH_K(a->k, return lanes<K, AcStreamLayout<int32_t>>(
+                      *a, AcTwoTables::make(*a), a->B));
   return 0;
 }
 
@@ -147,11 +208,11 @@ int ac_hybrid_count(const AcScanArgs* a, void*) {
   constexpr int R = AC_K11_ROWS;
   int err = 0;
   if (a->ext_u8)
-    AC_WITH_K(a->k, err = lanes<K, AcStreamLayout<uint8_t>, AcPackedTable>(
-                        *a, a->B1));
+    AC_WITH_K(a->k, err = lanes<K, AcStreamLayout<uint8_t>>(
+                        *a, AcPackedTable::make(*a), a->B1));
   else
-    AC_WITH_K(a->k, err = lanes<K, AcStreamLayout<int32_t>, AcPackedTable>(
-                        *a, a->B1));
+    AC_WITH_K(a->k, err = lanes<K, AcStreamLayout<int32_t>>(
+                        *a, AcPackedTable::make(*a), a->B1));
   if (err) return err;
   if (a->ext_u8)
     return mxu_warps<R, AcStreamLayout<uint8_t>>(*a, a->B1, a->B);

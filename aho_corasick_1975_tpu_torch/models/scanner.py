@@ -310,7 +310,9 @@ class DenseScanner:
     def _bind(self) -> None:
         """Derive what depends on the snapshot and the halo: the halo in
         gram steps, the stepped kernels' warm-up (``_warm_steps``, from the
-        tables' depth whatever the halo, ``multistep.warm_steps_for``), the
+        tables' depth whatever the halo, ``multistep.warm_steps_for``) and
+        the 1-char kernels' (K1, K8: ``_warm_syms``, in symbols, whether
+        or not a stepped table exists), the
         raw-encode LUTs, whose exactness rests on the
         tables (raw_lut_entry), and the engine's digit planes, rebuilt
         from the tables (``_mxu`` and ``_hybrid``: (planes int8 tensor
@@ -324,6 +326,7 @@ class DenseScanner:
         self._halo_sym = self._halo_steps * st.k if st is not None else 0
         self._warm_steps = (warm_steps_for(self.tables, st.k)
                             if st is not None else 0)
+        self._warm_syms = warm_steps_for(self.tables, 1)
         self._lut_cache.clear()
         self._mxu = self._hybrid = self._planes_t = None
         tabs = self.tables
@@ -744,7 +747,14 @@ class DenseScanner:
                 stepped_count_2t, snap.delta_k, snap.cnt_k, st.V, st.k,
                 self._halo_steps, warm_steps=self._warm_steps)
         return self.halo, 128, functools.partial(
-            dense_count, snap.dflat, snap.nb_out, self.V, self.halo)
+            dense_count, snap.dflat, snap.nb_out, self.V, self.halo,
+            **self._dense_fields())
+
+    def _dense_fields(self) -> dict:
+        """The 1-char kernels' (K1, K8) sub-stream fields: the warm-up of
+        the current tables and their real rows."""
+        return dict(warm_steps=self._warm_syms,
+                    n_states=self.tables.n_states)
 
     def _hybrid_count(self, B: int, L: int, ext, lut=None, head_ids=None):
         """K11 over B streams: the last ``scan_hybrid.mxu_cols(B, S_pad)``
@@ -1017,7 +1027,7 @@ class DenseScanner:
                 self._guard_acc(L)
                 positions, sts, _, _ = dense_hits(
                     snap.dflat, snap.nb_out, self.V, self.halo, B, L, ext,
-                    lut, head_ids, max_hits=max_hits)
+                    lut, head_ids, max_hits=max_hits, **self._dense_fields())
                 out = self._hits_matchset(positions, sts, T, offset)
                 self._record("find_matches_device", T,
                              time.perf_counter() - t0)
@@ -1134,7 +1144,7 @@ class DenseScanner:
         self._guard_acc(self.halo + 128)
         positions, sts, _, _ = window_hits(
             self._snap.dflat, self._snap.nb_out, self.V, self.halo, 128, src,
-            idx, max_hits=max_hits)
+            idx, max_hits=max_hits, **self._dense_fields())
         return self._hits_matchset(positions, sts, T, offset)
 
     def _sparse_hits_device(self, ids: torch.Tensor, offset, head, max_hits):

@@ -11,7 +11,9 @@ with g++ for the CPU tests.
 Every launch goes through ``launch()``, which raises on a non-zero
 ``cudaGetLastError()`` and counts the launch per entry point in
 ``launches``, so that a run can show which kernels it went through, and
-keeps the sub-streams per column of each stepped launch in ``splits``.
+keeps the sub-streams per column of each split launch in ``splits``.
+``launch_split()`` asks an entry point's launcher for the P it would take,
+without launching.
 """
 
 from __future__ import annotations
@@ -50,10 +52,14 @@ ENTRY_POINTS = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
 # count_many batch; K2: "seq", one thread); only launch() adds to them.
 launches: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 form_launches: Dict[str, int] = {}
-# The stepped launches (K3, K5, K9, K11) split each column into P
+# The split launches (K1, K3, K5, K8, K9, K11) run each column as P
 # sub-streams; the P of each one's last launch, by entry point.
-SPLIT_ENTRIES = ("ac_stepped_count", "ac_stepped_count_many",
+SPLIT_ENTRIES = ("ac_dense_count", "ac_stepped_count",
+                 "ac_stepped_count_many", "ac_dense_hits", "ac_window_hits",
                  "ac_stepped_count_2t", "ac_hybrid_count")
+# Entry points whose launcher also answers ``<name>_split``: the P it
+# would take for a launch's fields (K8, whose two passes take one P).
+PICK_ENTRIES = ("ac_dense_hits", "ac_window_hits")
 MAX_SPLIT = 32
 splits: Dict[str, int] = {}
 # Seconds and compiler output of the last build this process ran (None
@@ -89,6 +95,7 @@ class AcScanArgs(ctypes.Structure):
         ("compose", ctypes.c_void_p), ("starts", ctypes.c_void_p),
         ("n_states", ctypes.c_int32),
         ("warm_steps", ctypes.c_int32), ("split", ctypes.c_int32),
+        ("global_table", ctypes.c_int32),
     ]
 
 
@@ -163,6 +170,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(AcScanArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for name in PICK_ENTRIES:
+        fn = getattr(lib, f"{name}_split")
+        fn.argtypes = [ctypes.POINTER(AcScanArgs),
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
     lib.ac_error_string.argtypes = [ctypes.c_int]
     lib.ac_error_string.restype = ctypes.c_char_p
     lib.ac_last_split.argtypes = []
@@ -233,8 +245,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def scan_args(**fields) -> AcScanArgs:
     """AcScanArgs from tensors (pointers; None for a null pointer) and
-    ints. ``warm_steps`` is -1 unless given, so that a stepped launch
-    (K3, K5, K9, K11) without it fails rather than count wrong."""
+    ints. ``warm_steps`` is -1 unless given, so that a split launch (K1,
+    K3, K5, K8, K9, K11) without it fails rather than count wrong."""
     args = AcScanArgs(warm_steps=-1)
     for key, val in fields.items():
         setattr(args, key, _ptr(val) if isinstance(val, torch.Tensor)
@@ -261,3 +273,21 @@ def launch(name: str, device: torch.device, form: Optional[str] = None,
     if form is not None:
         key = f"{name}/{form}"
         form_launches[key] = form_launches.get(key, 0) + 1
+
+
+def launch_split(name: str, device: torch.device, **fields) -> int:
+    """The sub-streams per column that entry point ``name`` (one of
+    PICK_ENTRIES) of the CUDA library takes for these fields on
+    ``device``: their ``split`` where set, else its launcher's pick over
+    the kernel's occupancy; nothing is launched. Raises where the launch
+    would fail (no ``warm_steps``, a bad split)."""
+    lib = cuda_library()
+    args = scan_args(**fields)
+    P = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = getattr(lib, f"{name}_split")(ctypes.byref(args),
+                                             ctypes.byref(P))
+    if err:
+        raise RuntimeError(f"{name}_split: CUDA error {err} "
+                           f"({lib.ac_error_string(err).decode()})")
+    return P.value

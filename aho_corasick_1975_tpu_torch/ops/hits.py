@@ -23,9 +23,11 @@ over the streams of ``ops/scan_dense.py`` (``ops/hits.py:make_blocked_hits``
 ``ops/sparse.py`` (``_window_hits_core``: ``make_sparse_hits[_dev]``,
 ``make_elided_hits``). The reference compacts a hit mask into a buffer of
 ``max_hits`` slots, which its prefilter sizes to ``pow2(n_live * L_blk)``
-(ROADMAP C4). K8 counts each column's hits in a first pass, then writes
-them at their columns' offsets (an exclusive cumsum) in a second, so its
-outputs hold exactly the hit positions: 8 bytes each.
+(ROADMAP C4). K8 runs each column as P sub-streams (K1's, warmed up over
+``warm_steps`` symbols: ``scan_dense.dense_fields``), counts each
+sub-stream's hits in a first pass, then writes them at their sub-streams'
+offsets (an exclusive cumsum) in a second at the same P, so its outputs
+hold exactly the hit positions, in stream order: 8 bytes each.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from . import build
 from .multistep import check_stepped, combine_grams
-from .scan_dense import check_stream, window
+from .scan_dense import check_stream, dense_fields, window
 from .sparse import check_windows, window_fields, window_gather
 
 
@@ -185,11 +187,13 @@ def _bounded(out, max_hits: Optional[int]):
 
 def _hits_two_pass(name: str, dev, n_cols: int, max_hits: Optional[int],
                    form: str, **fields):
-    """Run K8 entry point ``name`` twice over n_cols columns: pass 1
-    counts, pass 2 writes exactly the hits (raising past ``max_hits``
-    before it)."""
-    n_hits_c = torch.empty(n_cols, dtype=torch.int32, device=dev)
-    n_pos_c = torch.empty(n_cols, dtype=torch.int32, device=dev)
+    """Run K8 entry point ``name`` twice over n_cols columns of P
+    sub-streams, P asked of its launcher once (``build.launch_split``) and
+    forced on both passes: pass 1 counts per sub-stream, pass 2 writes
+    exactly the hits (raising past ``max_hits`` before it)."""
+    fields["split"] = P = build.launch_split(name, dev, **fields)
+    n_hits_c = torch.empty(n_cols * P, dtype=torch.int32, device=dev)
+    n_pos_c = torch.empty(n_cols * P, dtype=torch.int32, device=dev)
     build.launch(name, dev, form, n_hits=n_hits_c, n_live=n_pos_c, **fields)
     n_hits, n_hit_pos = torch.stack([n_hits_c.sum(dtype=torch.int64),
                                      n_pos_c.sum(dtype=torch.int64)]).tolist()
@@ -214,13 +218,16 @@ def dense_hits_plain(dflat, nb_out, V: int, halo: int, B: int, L: int, ext,
 
 
 def dense_hits(dflat, nb_out, V: int, halo: int, B: int, L: int, ext,
-               lut=None, head_ids=None, max_hits: Optional[int] = None):
+               lut=None, head_ids=None, max_hits: Optional[int] = None, *,
+               warm_steps: int, split: int = 0,
+               n_states: Optional[int] = None, global_table: bool = False):
     """K8 stream form over the streams of ``ops/scan_dense.py``: the hit
     positions (b*L + t, stream order; the caller trims those past the
     stream) and their states, int32 tensors of exactly n_hit_pos entries,
     with n_hits (matches) and n_hit_pos. Raises ValueError past
-    ``max_hits``."""
+    ``max_hits``. Sub-stream fields as K1's (``dense_fields``)."""
     dev = check_stream(B, L, halo, ext, lut, head_ids, dflat, nb_out)
+    sub = dense_fields(dflat, V, warm_steps, split, n_states, global_table)
     if dev.type == "cpu":
         return _bounded(dense_hits_plain(dflat, nb_out, V, halo, B, L, ext,
                                          lut, head_ids), max_hits)
@@ -229,7 +236,7 @@ def dense_hits(dflat, nb_out, V: int, halo: int, B: int, L: int, ext,
         else "ids", table=dflat, nb_out=nb_out, ext=ext, lut=lut,
         head_ids=head_ids, L=L, B=B, V=V, halo=halo,
         ext_u8=int(ext.dtype == torch.uint8),
-        n_lut=0 if lut is None else lut.numel())
+        n_lut=0 if lut is None else lut.numel(), **sub)
 
 
 def window_hits_plain(dflat, nb_out, V: int, halo: int, L_blk: int, src,
@@ -242,7 +249,9 @@ def window_hits_plain(dflat, nb_out, V: int, halo: int, L_blk: int, src,
 
 
 def window_hits(dflat, nb_out, V: int, halo: int, L_blk: int, src, idx,
-                max_hits: Optional[int] = None):
+                max_hits: Optional[int] = None, *, warm_steps: int,
+                split: int = 0, n_states: Optional[int] = None,
+                global_table: bool = False):
     """K8 window form: as ``dense_hits``, over live-block windows; idx
     [n] int32 gives each window's block (ascending, so the output is in
     stream order). Pad windows hold no hit."""
@@ -250,6 +259,7 @@ def window_hits(dflat, nb_out, V: int, halo: int, L_blk: int, src, idx,
             src.dim() == 2 and idx.numel() != src.shape[1]):
         raise ValueError("window hits need idx, int32, one per window")
     dev = check_windows(L_blk, halo, src, idx, dflat, nb_out)
+    sub = dense_fields(dflat, V, warm_steps, split, n_states, global_table)
     if dev.type == "cpu":
         return _bounded(window_hits_plain(dflat, nb_out, V, halo, L_blk, src,
                                           idx), max_hits)
@@ -257,4 +267,4 @@ def window_hits(dflat, nb_out, V: int, halo: int, L_blk: int, src, idx,
     form = fields.pop("form")
     return _hits_two_pass("ac_window_hits", dev, fields["B"], max_hits, form,
                           table=dflat, nb_out=nb_out, L=L_blk, V=V,
-                          halo=halo, **fields)
+                          halo=halo, **fields, **sub)

@@ -22,6 +22,13 @@ The count_many scans read a time-major batch ``tm`` [L, B] instead, one
 document per column, each split into c blocks of Lp symbols
 (``split_window``).
 
+On the card K1 (and K8, ``ops/hits.py``) runs each stream as P
+sub-streams, each warmed up over ``warm_steps`` symbols from the root
+before its body, with the 1-char tables staged in shared memory where
+their real rows fit (``dense_fields``). Their wrappers require
+``warm_steps``, which the scanners derive from the tables
+(``multistep.warm_steps_for(tables, 1)``) in their ``_bind()``.
+
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 device it launches the kernel or raises.
 """
@@ -167,11 +174,36 @@ def dense_states_plain(dflat, V: int, halo: int, B: int, L: int, ext,
     return torch.stack(rows, dim=1).to(torch.int32).reshape(-1)
 
 
+def dense_fields(dflat, V: int, warm_steps: int, split: int,
+                 n_states: Optional[int], global_table: bool) -> dict:
+    """The launch fields of K1's and K8's sub-streams: ``warm_steps``, the
+    symbols each sub-stream reads from the root before its body (max_depth
+    - 1 of the tables: ``multistep.warm_steps_for(tables, 1)``), ``split``,
+    the sub-streams per column (0: the launcher picks), ``n_states``, the
+    table rows that exist (all of dflat's rows when None; those the kernel
+    stages on the SM), and ``global_table``, which keeps the tables in
+    device memory even where they fit on the SM."""
+    if warm_steps < 0:
+        raise ValueError(f"warm_steps={warm_steps} < 0")
+    build.check_split(split)
+    rows = dflat.numel() // V
+    if n_states is not None:
+        if not 0 < n_states <= rows:
+            raise ValueError(f"n_states={n_states} outside (0, {rows}]")
+        rows = n_states
+    return dict(warm_steps=warm_steps, split=split, n_states=rows,
+                global_table=int(global_table))
+
+
 def dense_count(dflat, nb_out, V: int, halo: int, B: int, L: int, ext,
-                lut=None, head_ids=None) -> torch.Tensor:
+                lut=None, head_ids=None, *, warm_steps: int, split: int = 0,
+                n_states: Optional[int] = None,
+                global_table: bool = False) -> torch.Tensor:
     """K1: per-stream int32 match totals [B]; the caller sums them in
-    int64."""
+    int64. On the card each stream runs as ``split`` sub-streams
+    (``dense_fields``)."""
     dev = check_stream(B, L, halo, ext, lut, head_ids, dflat, nb_out)
+    sub = dense_fields(dflat, V, warm_steps, split, n_states, global_table)
     if dev.type == "cpu":
         return dense_count_plain(dflat, nb_out, V, halo, B, L, ext, lut,
                                  head_ids)
@@ -179,7 +211,7 @@ def dense_count(dflat, nb_out, V: int, halo: int, B: int, L: int, ext,
     build.launch("ac_dense_count", dev, table=dflat, nb_out=nb_out, ext=ext,
                  lut=lut, head_ids=head_ids, out=out, L=L, B=B, V=V,
                  halo=halo, ext_u8=int(ext.dtype == torch.uint8),
-                 n_lut=0 if lut is None else lut.numel())
+                 n_lut=0 if lut is None else lut.numel(), **sub)
     return out
 
 

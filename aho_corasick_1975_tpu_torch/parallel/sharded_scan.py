@@ -275,13 +275,17 @@ class ShardedScanner:
         """The tables on shard i's device."""
         return self._snap.replica(self.mesh.devices[i])
 
+    _dense_fields = DenseScanner._dense_fields
+
     def _replicate(self, a: np.ndarray) -> Dict[torch.device, torch.Tensor]:
         return {d: self._snap.place(a, d) for d in self._snap.devices}
 
     def _bind(self) -> None:
         """Derive what depends on the snapshot and the halo (JAX
         ``_bind_kernels``): the halo in gram steps, the stepped kernels'
-        warm-up (``_warm_steps``, from the tables' depth), the raw-encode
+        warm-up (``_warm_steps``, from the tables' depth) and the 1-char
+        kernels' (K1, K8: ``_warm_syms``, in symbols, with or without a
+        stepped table), the raw-encode
         LUTs and
         the engine's digit planes (``_mxu``, ``_hybrid``: (planes by
         device, count_bits, n_planes, S_pad)) with the kernels' copy keyed
@@ -293,6 +297,7 @@ class ShardedScanner:
         self._halo_sym = self._halo_steps * st.k if st is not None else 0
         self._warm_steps = (multistep.warm_steps_for(self.tables, st.k)
                             if st is not None else 0)
+        self._warm_syms = multistep.warm_steps_for(self.tables, 1)
         self._lut_cache.clear()
         self._mxu = self._hybrid = self._planes_t = None
         tabs = self.tables
@@ -605,7 +610,8 @@ class ShardedScanner:
         def count(i, B, L, ext, lut, head_ids):
             tab = self._tab(i)
             return scan_dense.dense_count(tab["dflat"], tab["nb_out"], self.V,
-                                          self.halo, B, L, ext, lut, head_ids)
+                                          self.halo, B, L, ext, lut, head_ids,
+                                          **self._dense_fields())
         return self.halo, lambda Tl: _dense_geometry(Tl, nspd), count
 
     def _count_stream(self, src, head) -> int:
@@ -895,7 +901,7 @@ class ShardedScanner:
                 tab = self._tab(i)
                 pos, sts, _, n_hit_pos = hits.dense_hits(
                     tab["dflat"], tab["nb_out"], self.V, self.halo, B, L,
-                    e[0])
+                    e[0], **self._dense_fields())
                 keep = pos < Tl
                 return pos[keep].long() + i * Tl, sts[keep], n_hit_pos
             out = self._on_shards(shard_hits, exts)
@@ -997,7 +1003,8 @@ class ShardedScanner:
         def shard_hits(i, src, idx):
             tab = self._tab(i)
             pos, sts, _, n_hit_pos = hits.window_hits(
-                tab["dflat"], tab["nb_out"], self.V, halo, L_blk, src, idx)
+                tab["dflat"], tab["nb_out"], self.V, halo, L_blk, src, idx,
+                **self._dense_fields())
             pos = pos.long()
             if shift is not None:
                 pos, sts = shift(i, pos, sts)

@@ -9,9 +9,11 @@ card, importing nothing of JAX:
 2. golden: the he/she/his/hers example, count and find_matches;
 3. kernels: K1-K4 each against its plain PyTorch version on the same
    inputs, at the slice's shapes (B = 16,384 streams of bench.py's
-   dictionary and corpus), exact equality (tolerance 0), with times; K3
-   also forced to every split P of SPLIT_SWEEP (sub-streams a stream; P =
-   1 is one thread a stream), exact at each, with its time by P;
+   dictionary and corpus), exact equality (tolerance 0), with times; K1
+   and K3 also forced to every split P of SPLIT_SWEEP (sub-streams a
+   stream; P = 1 is one thread a stream), exact at each, with their times
+   by P, K1 also with its tables forced through the read-only path
+   (``global_table``) where its launcher stages them on the SM;
 4. slice: bench.py's 1,000-keyword byte dictionary over its 64 MiB seeded
    corpus, through Machine.scanner(): count() against the native host
    scan, find_matches() (length equal to the count, a seeded sample of
@@ -49,7 +51,11 @@ card, importing nothing of JAX:
    K8's stream form; (d) K7, K8 and the K2 modes against their plain
    versions at those shapes; each K7 and K8 form is held at least once on
    the hunt's windows, whose plain answer must be non-zero. (The resident
-   ids, as bench_sparse.py builds them, hold no match.)
+   ids, as bench_sparse.py builds them, hold no match.) K8 is also forced
+   to every split P (the stream form at the slice, also through the
+   read-only path; the window form on the hunt's windows), exact at each,
+   and its two passes and the sync and cumsum between them are timed
+   apart (``passes``).
 10. two-table: the slice's dictionary with the two-table k-gram form
    forced (as the tests force it): count() of a letter-id tensor and of
    the bytes (K9's stream form on host-encoded ids) and count_many of 256
@@ -88,11 +94,12 @@ its listed windows), against the int8 tensor-core operations the data
 needs at least (K10, K11: one m16n8k32 product, all planes at once, per
 16 rows and step, the densest the instruction allows) over 1,979 TOPS.
 Every kernel of the JSON line also gives the sub-streams per column its
-launch picked (``split``, the stepped kernels K3, K5, K9, K11), its ns a
-step of one column's one-thread chain (``ns_per_step``), its times by
-forced split (``ms_by_split``, K3, K5, K9 and K11) and the most registers and
-spill bytes ptxas gave its kernels (``registers``, the stepped ones),
-whose every line is printed before it. Prints the kernels' JSON line, the
+launch picked (``split``, the split kernels K1, K3, K5, K8, K9, K11), its
+ns a step of one column's one-thread chain (``ns_per_step``), its times by
+forced split (``ms_by_split``, the split kernels; K1 and K8's stream form
+also ``ms_by_split_read_only``), K8's pass times (``passes``) and the most
+registers and spill bytes ptxas gave its kernels (``registers``, the split
+ones), whose every line is printed before it. Prints the kernels' JSON line, the
 card's name and power limit, and last the line
 {"ok": true, "device": {...}}. Any failure exits non-zero, and so does a
 machine without CUDA.
@@ -348,8 +355,9 @@ def phase_kernels(sc, text: bytes) -> dict:
     results = {}
     dense_in = stream_inputs(sc, text, sc.halo, B, L)
     step_in = stream_inputs(sc, text, sc._halo_sym, B, L)
+    k1 = functools.partial(scan_dense.dense_count, **sc._dense_fields())
     cases = {
-        "ac_dense_count": (scan_dense.dense_count, scan_dense.dense_count_plain,
+        "ac_dense_count": (k1, scan_dense.dense_count_plain,
                            (snap.dflat, snap.nb_out, sc.V, sc.halo, B, L),
                            dense_in),
         "ac_dense_states": (scan_dense.dense_states,
@@ -371,10 +379,15 @@ def phase_kernels(sc, text: bytes) -> dict:
         results[name] = compare(name, kernel, plain, args, ins,
                                 f"B={B} L={L}", need=needs(sc),
                                 steps=steps[name])
-    kernel, plain, args, ins = cases["ac_stepped_count"]
-    for kind, row in split_sweep("ac_stepped_count", kernel, plain, args,
-                                 ins, grams).items():
-        results["ac_stepped_count"][kind]["ms_by_split"] = row
+    for name in ("ac_stepped_count", "ac_dense_count"):
+        kernel, plain, args, ins = cases[name]
+        for kind, row in split_sweep(name, kernel, plain, args, ins,
+                                     steps[name]).items():
+            results[name][kind]["ms_by_split"] = row
+    for kind, row in split_sweep("ac_dense_count", k1, *cases[
+            "ac_dense_count"][1:], steps["ac_dense_count"],
+            global_table=True).items():
+        results["ac_dense_count"][kind]["ms_by_split_read_only"] = row
     return results
 
 
@@ -448,26 +461,31 @@ def compare(name, kernel, plain, args, ins, shape: str,
 SPLIT_SWEEP = (1, 2, 4, 8, 16, 32)
 
 
-def split_sweep(name, kernel, plain, args, ins, steps: int) -> dict:
-    """Each input of ``ins`` through the stepped kernel forced to every P
-    of SPLIT_SWEEP (P = 1: one thread a column, the unsplit launch): exact
-    against the plain version at each, and the kernel's mean ms (CUDA
-    events, 30 runs) by P, beside the launcher's own pick (``compare``)."""
+def split_sweep(name, kernel, plain, args, ins, steps: int, reps: int = 30,
+                **kw) -> dict:
+    """Each input of ``ins`` through the split kernel forced to every P
+    of SPLIT_SWEEP (P = 1: one thread a column, the unsplit launch), with
+    the keyword arguments ``kw`` (K1, K8: ``global_table=True``, the
+    tables through the read-only path): exact against the plain version at
+    each, and the kernel's mean ms (CUDA events, ``reps`` runs) by P,
+    beside the launcher's own pick (``compare``)."""
     out = {}
     for kind, extra in ins.items():
         want = plain(*args, *extra)
         row = {}
         for P in SPLIT_SWEEP:
-            fn = functools.partial(kernel, split=P)
+            fn = functools.partial(kernel, split=P, **kw)
             got = fn(*args, *extra)
             torch.cuda.synchronize()
             check(max_abs_err(got, want) == 0,
-                  f"{name} ({kind}) at split {P} equals its plain version")
-            row[P] = cuda_ms(lambda: fn(*args, *extra), 30)
+                  f"{name} ({kind}) at split {P} {kw} equals its plain "
+                  f"version")
+            row[P] = cuda_ms(lambda: fn(*args, *extra), reps)
         out[kind] = row
-        print(f"kernel {name} {kind} by split (exact at each): " + ", ".join(
-            f"P={P} {ms:.4f} ms ({ms * 1e6 / steps:.1f} ns a step)"
-            for P, ms in row.items()), flush=True)
+        print(f"kernel {name} {kind}{f' {kw}' if kw else ''} by split "
+              f"(exact at each): " + ", ".join(
+                  f"P={P} {ms:.4f} ms ({ms * 1e6 / steps:.1f} ns a step)"
+                  for P, ms in row.items()), flush=True)
     return out
 
 
@@ -502,8 +520,11 @@ def ptxas_kernels(log: str) -> list:
     return rows
 
 
-# The kernels of each stepped entry point, by a substring of their names.
+# The kernels of each split entry point, by a substring of their names.
 SPLIT_KERNELS = {
+    "ac_dense_count": ("dense_count_kernel", ""),
+    "ac_dense_hits": ("hits_kernel<AcStreamLayout", ""),
+    "ac_window_hits": ("hits_kernel<AcWinLayout", ""),
     "ac_stepped_count": ("stepped_lanes_kernel", "AcPackedTable"),
     "ac_stepped_count_many": ("stepped_cols_kernel", "AcPackedTable"),
     "ac_stepped_count_2t": ("stepped_", "AcTwoTables"),
@@ -1131,9 +1152,48 @@ def phase_gate(build, machine, text: bytes, n: int, ends) -> dict:
     return dict(sca1=sca1, t_ids=t_ids, launches=launches)
 
 
-def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
+def hit_passes(build, fn, reps: int = 10) -> dict:
+    """K8's two passes and what lies between them (the 8-byte sync of
+    pass 1's totals, the cumsum of the offsets), timed apart: CUDA events
+    around each of the wrapper's launches over ``reps`` calls of fn()
+    after one warm-up; the mean ms of pass 1, of the gap from pass 1's end
+    to pass 2's start, and of pass 2."""
+    marks = []
+    launch = build.launch
+
+    def timed(name, dev, *a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        launch(name, dev, *a, **kw)
+        e1.record()
+        marks.append((e0, e1))
+
+    build.launch = timed
+    try:
+        fn()
+        sums = [0.0, 0.0, 0.0]
+        for _ in range(reps):
+            marks.clear()
+            fn()
+            torch.cuda.synchronize()
+            check(len(marks) == 2, "K8 ran its two passes")
+            (a0, a1), (b0, b1) = marks
+            sums[0] += a0.elapsed_time(a1)
+            sums[1] += a1.elapsed_time(b0)
+            sums[2] += b0.elapsed_time(b1)
+    finally:
+        build.launch = launch
+    return dict(zip(("pass1_ms", "between_ms", "pass2_ms"),
+                    (x / reps for x in sums)))
+
+
+def phase_sparse_kernels(build, state: dict, gate: dict, text: bytes
+                         ) -> dict:
     """(d) K7, K8 and the K2 modes against their plain versions at the
-    sparse phase's shapes, exact; the kernel's mean over 10 runs."""
+    sparse phase's shapes, exact; the kernel's mean over 10 runs. K8 also
+    at every forced split (the stream form also with the tables through the
+    read-only path), each form's passes timed apart."""
     from aho_corasick_1975_tpu_torch.ops import hits, scan_dense, sparse
     sc, scb, scb1 = state["sc"], state["scb"], state["scb1"]
     sca1, t_ids = gate["sca1"], gate["t_ids"]
@@ -1206,20 +1266,34 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
         need=needs(scb1, scb1.halo, 128), steps=scb1.halo + 128))
 
     def hits_of(fn):
-        def run(*a):
-            pos, sts, n_hits, n_pos = fn(*a)
+        def run(*a, **kw):
+            pos, sts, n_hits, n_pos = fn(*a, **kw)
             return pos, sts, torch.tensor([n_hits, n_pos])
         return run
 
+    def passes(entry, kernel, args, ins):
+        for kind, extra in ins.items():
+            res[entry][kind]["passes"] = row = hit_passes(
+                build, lambda: kernel(*args, *extra))
+            print(f"kernel {entry} {kind} passes: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row.items()), flush=True)
+
+    k8w = hits_of(functools.partial(hits.window_hits, **sc._dense_fields()))
+    hunt_ins = {"elided (a)": (hunt_hits_tm, hunt_hits_idx),
+                "idx (a) tensor": (hunt_ext, hunt_idx)}
     res["ac_window_hits"] = compare(
-        "ac_window_hits", hits_of(hits.window_hits),
-        hits_of(hits.window_hits_plain), hunt_args,
-        {"elided (a)": (hunt_hits_tm, hunt_hits_idx),
-         "idx (a) tensor": (hunt_ext, hunt_idx)}, hunt_shape, hits=True,
-        need=needs(sc, sc.halo, 128), steps=sc.halo + 128)
+        "ac_window_hits", k8w, hits_of(hits.window_hits_plain), hunt_args,
+        hunt_ins, hunt_shape, hits=True, need=needs(sc, sc.halo, 128),
+        steps=sc.halo + 128)
+    passes("ac_window_hits", k8w, hunt_args, hunt_ins)
+    for kind, row in split_sweep(
+            "ac_window_hits", k8w, hits_of(hits.window_hits_plain),
+            hunt_args, hunt_ins, sc.halo + 128, reps=10).items():
+        res["ac_window_hits"][kind]["ms_by_split"] = row
+    k8w1 = hits_of(functools.partial(hits.window_hits,
+                                     **scb1._dense_fields()))
     res["ac_window_hits"].update(compare(
-        "ac_window_hits", hits_of(hits.window_hits),
-        hits_of(hits.window_hits_plain), dense_args,
+        "ac_window_hits", k8w1, hits_of(hits.window_hits_plain), dense_args,
         {"idx (b) 1e-3": (ext1, idx1), "elided (b) 1e-3": (tm1, tm1_idx)},
         f"cap={idx1.numel()}", need=needs(scb1, scb1.halo, 128),
         steps=scb1.halo + 128))
@@ -1229,13 +1303,21 @@ def phase_sparse_kernels(state: dict, gate: dict, text: bytes) -> dict:
     ext_ids = sca1._ext_device(t_ids, None, sca1.halo, 128)[0]
     lut = sca1._get_lut("byte")[0]
     s1 = sca1._snap
+    k8 = hits_of(functools.partial(hits.dense_hits, **sca1._dense_fields()))
+    k8_args = (s1.dflat, s1.nb_out, sca1.V, sca1.halo, B, L)
+    k8_ins = {"raw_u8": (ext_raw, lut, head_ids),
+              "ids_i32": (ext_ids, None, None)}
     res["ac_dense_hits"] = compare(
-        "ac_dense_hits", hits_of(hits.dense_hits),
-        hits_of(hits.dense_hits_plain),
-        (s1.dflat, s1.nb_out, sca1.V, sca1.halo, B, L),
-        {"raw_u8": (ext_raw, lut, head_ids), "ids_i32": (ext_ids, None, None)},
+        "ac_dense_hits", k8, hits_of(hits.dense_hits_plain), k8_args, k8_ins,
         f"B={B} L={L} (the slice, step_k=1)", hits=True, need=needs(sca1),
         steps=sca1.halo + L)
+    passes("ac_dense_hits", k8, k8_args, k8_ins)
+    for key, kw in (("ms_by_split", {}),
+                    ("ms_by_split_read_only", dict(global_table=True))):
+        for kind, row in split_sweep(
+                "ac_dense_hits", k8, hits_of(hits.dense_hits_plain), k8_args,
+                k8_ins, sca1.halo + L, reps=10, **kw).items():
+            res["ac_dense_hits"][kind][key] = row
     res["ac_dense_states/seq"] = compare(
         "ac_dense_states/seq", scan_dense.sequential_states,
         scan_dense.sequential_states_plain, (s1.dflat, sca1.V),
@@ -1953,7 +2035,7 @@ def main() -> int:
         "ac_dense_states/seq", "ac_dense_states_tm")})
     gate = phase_gate(build, machine, text, n, ms.ends)
     launches["ac_dense_hits"] = gate["launches"]["ac_dense_hits"]
-    kern.update(phase_sparse_kernels(state, gate, text))
+    kern.update(phase_sparse_kernels(build, state, gate, text))
 
     # 10. the two-table count, forced, on the slice's dictionary
     L2 = min(len(text) // CM_DOCS, 1 << 18)
@@ -2002,6 +2084,8 @@ def main() -> int:
          "split": first(entry, "split"),
          "ns_per_step": first(entry, "ns_per_step"),
          "ms_by_split": first(entry, "ms_by_split"),
+         "ms_by_split_read_only": first(entry, "ms_by_split_read_only"),
+         "passes": first(entry, "passes"),
          "registers": registers_of(ptxas, entry)}
         for entry, (name, src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"mesh": {"device": kind, "shards": MESH_SHARDS,

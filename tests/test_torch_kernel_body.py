@@ -19,11 +19,14 @@ layout, in every form) and K11 (the hybrid launch) are held against the
 JAX package's ``ops/multistep.py``, ``ops/scan_mxu.py``,
 ``ops/scan_hybrid.py`` and ``ops/sparse.py`` functions. K12's three phases
 (the associative scan's chunked composition) are held against the JAX
-package's ``ops/scan_assoc.py:make_assoc_scan``. The stepped counts' split
-(K3, K5, K9, K11's gather half: each column as P sub-streams, each warmed
-up over the tables' warm_steps) is forced to every P up to 32 and held
-against the plain versions and the JAX package, and the launcher's pick
-of P is held at the slice's and config 3's shapes.
+package's ``ops/scan_assoc.py:make_assoc_scan``. The split kernels (K3,
+K5, K9, K11's gather half, and at k = 1 K1 and K8's two forms: each
+column as P sub-streams, each warmed up over the tables' warm_steps) are
+forced to every P up to 32 and held against the plain versions and the
+JAX package (K1 and K8 also over the 1-char tables staged as on the SM
+and read in place, K8's positions and states element for element), and
+the launcher's pick of P is held at the slice's, config 3's and the
+step_k=1 slice's shapes.
 """
 
 import ctypes
@@ -88,7 +91,7 @@ def test_dense_kernels(lib, kind, shape):
                   _t(s["head_ids"]))
     out = torch.full((B,), -7, dtype=torch.int32)
     _run(lib, "ac_dense_count", table=dflat, nb_out=nb_out, out=out,
-         **_common(s, halo, L, V))
+         warm_steps=tab["warm_steps"], **_common(s, halo, L, V))
     want = scan_dense.dense_count_plain(dflat, nb_out, *plain_args)
     assert torch.equal(out, want) and int(want.sum()) > 0
     states = torch.full((B * L,), -7, dtype=torch.int32)
@@ -263,16 +266,23 @@ def test_sparse_count_kernels(lib, k, form):
         idx if form == "idx" else None))
 
 
-def _hits_two_pass(lib, name, n_cols, **fields):
-    """Both K8 passes through the g++ build: pass 1's per-column counts,
-    then pass 2 into buffers of exactly n_hit_pos entries plus a sentinel
-    slot that must stay untouched."""
-    n_hits = torch.full((n_cols,), -7, dtype=torch.int32)
-    n_pos = torch.full((n_cols,), -7, dtype=torch.int32)
+def _hits_two_pass(lib, name, n_cols, offset=0, **fields):
+    """Both K8 passes through the g++ build at the P its launcher gives
+    (``<name>_split``), as ops/hits.py runs them: pass 1's per-sub-stream
+    counts, then pass 2 into buffers of exactly n_hit_pos entries plus a
+    sentinel slot that must stay untouched, ``offset`` entries into their
+    allocation."""
+    P = ctypes.c_int(0)
+    args = build.scan_args(**fields)
+    assert getattr(lib, f"{name}_split")(ctypes.byref(args),
+                                         ctypes.byref(P)) == 0
+    fields = dict(fields, split=P.value)
+    n_hits = torch.full((n_cols * P.value,), -7, dtype=torch.int32)
+    n_pos = torch.full((n_cols * P.value,), -7, dtype=torch.int32)
     _run(lib, name, n_hits=n_hits, n_live=n_pos, **fields)
     total = int(n_pos.sum())
-    pos = torch.full((total + 1,), -7, dtype=torch.int32)
-    st = torch.full((total + 1,), -7, dtype=torch.int32)
+    pos = torch.full((offset + total + 1,), -7, dtype=torch.int32)[offset:]
+    st = torch.full((offset + total + 1,), -7, dtype=torch.int32)[offset:]
     off = torch.cumsum(n_pos, 0, dtype=torch.int64) - n_pos
     _run(lib, name, hit_pos=pos, hit_state=st, hit_off=off, **fields)
     assert int(pos[-1]) == int(st[-1]) == -7
@@ -291,7 +301,8 @@ def test_window_hits_kernel(lib, form):
     jt = (jnp.asarray(tab["dflat"]), jnp.asarray(tab["nb_out"]))
     got = _hits_two_pass(lib, "ac_window_hits", fields.pop("B"),
                          table=_t(tab["dflat"]), nb_out=_t(tab["nb_out"]),
-                         L=L_blk, B=idx.numel(), V=V, halo=halo, **fields)
+                         L=L_blk, B=idx.numel(), V=V, halo=halo,
+                         warm_steps=tab["warm_steps"], **fields)
     if form == "idx":
         want = jsp.make_sparse_hits(V, halo, L_blk, s["nB"], 8, 512)(
             *jt, jnp.asarray(s["ext"]), jnp.asarray(s["idx"]))
@@ -314,7 +325,9 @@ def test_dense_hits_kernel(lib, kind, shape):
     s = tc.stream(tab, kind, halo, L)
     V = tab["V"]
     got = _hits_two_pass(lib, "ac_dense_hits", B, table=_t(tab["dflat"]),
-                         nb_out=_t(tab["nb_out"]), **_common(s, halo, L, V))
+                         nb_out=_t(tab["nb_out"]),
+                         warm_steps=tab["warm_steps"],
+                         **_common(s, halo, L, V))
     jt = (jnp.asarray(tab["dflat"]), jnp.asarray(tab["nb_out"]))
     if s["lut"] is None:
         want = jhits.make_blocked_hits_stream(V, halo, 4096, B, L)(
@@ -1080,36 +1093,53 @@ def test_stepped_split_rejects_a_bad_split(lib, split_refs):
 
 
 @pytest.mark.parametrize("case", ["k3_raw_u8", "k5_c3", "k9_batch",
-                                  "k11_mixed"])
-def test_stepped_launch_requires_warm_steps(lib, split_refs, case):
-    """A stepped launch whose fields leave out warm_steps (scan_args sets
+                                  "k11_mixed", "k1_raw_u8", "k8_raw_u8",
+                                  "k8_window"])
+def test_stepped_launch_requires_warm_steps(lib, split_refs, dense_refs,
+                                            case):
+    """A split launch whose fields leave out warm_steps (scan_args sets
     it to -1) fails, at the launcher's pick and at every forced split, and
-    writes nothing: no launch counts without the warm-up."""
-    name, fields, plain, _ = split_refs(case, 2)
+    writes nothing: no launch counts without the warm-up. K8's launchers
+    also refuse to give a P for such fields."""
+    if case in DENSE_CASES:
+        name, fields, plain = dense_refs(case)[:3]
+    else:
+        name, fields, plain, _ = split_refs(case, 2)
     fields = {key: v for key, v in fields.items() if key != "warm_steps"}
+    n = plain[0].numel() if isinstance(plain, tuple) else plain.numel()
     for split in (0, 1, 16):
-        out = torch.full((plain.numel(),), -7, dtype=torch.int32)
-        args = build.scan_args(out=out, split=split, **fields)
+        outs = {key: torch.full((n * 32,), -7, dtype=torch.int32)
+                for key in (("n_hits", "n_live") if name in HITS_ENTRIES
+                            else ("out",))}
+        args = build.scan_args(split=split, **outs, **fields)
         assert args.warm_steps == -1
         assert getattr(lib, name)(ctypes.byref(args), None) != 0
-        assert bool((out == -7).all())
+        assert all(bool((o == -7).all()) for o in outs.values())
+        if name in HITS_ENTRIES:
+            P = ctypes.c_int(0)
+            assert getattr(lib, f"{name}_split")(ctypes.byref(args),
+                                                 ctypes.byref(P)) != 0
 
 
 def _slots(threads_per_sm, sms=132):
     return [sms * threads_per_sm] * 6
 
 
-@pytest.mark.parametrize("shape", ["slice", "config3"])
-def test_launcher_split_choice(lib, split_refs, shape):
+@pytest.mark.parametrize("shape", ["slice", "config3", "slice_k1"])
+def test_launcher_split_choice(lib, split_refs, dense_refs, shape):
     """ac_pick_split at the slice's K3 launch (16,384 streams of 1,408 body
-    grams, k = 3) and config 3's K5 launch (16,384 columns of 8,192 grams,
-    k = 1): 16 sub-streams at full occupancy (one wave of 262,144 threads;
-    32 would take two waves of half the chain), 32 where the card holds
-    1,536 threads an SM (three waves of a quarter of the chain beat two of
-    a half and one of a full), above 8 for the batch launches only in one
-    wave, and fewer where the warm-up cap bites."""
-    n_body, hs, warm = {"slice": (1408, 3, 3), "config3": (8192, 10, 10)}[
-        shape]
+    grams, k = 3), config 3's K5 launch (16,384 columns of 8,192 grams,
+    k = 1) and the slice's step_k=1 K1/K8 launch (16,384 streams of 4,224
+    symbols, warm-up 9): 16 sub-streams at full occupancy (one wave of
+    262,144 threads; 32 would take two waves of half the chain), 32 where
+    the card holds 1,536 threads an SM (three waves of a quarter of the
+    chain beat two of a half and one of a full), above 8 for the batch
+    launches only in one wave, and fewer where the warm-up cap bites. The
+    host build picks as the card at full occupancy (K3, K1, K8's stream
+    and window forms), and K8's ``_split`` query gives the P its launch
+    then takes."""
+    n_body, hs, warm = {"slice": (1408, 3, 3), "config3": (8192, 10, 10),
+                        "slice_k1": (4224, 9, 9)}[shape]
     pick = functools.partial(build.pick_split, lib, 16384, n_body, hs, warm)
     assert pick(_slots(2048)) == 16
     assert pick(_slots(1536)) == 32
@@ -1128,10 +1158,208 @@ def test_launcher_split_choice(lib, split_refs, shape):
                             _slots(2048)) == 8
     # a stream too short for any split
     assert build.pick_split(lib, 64, 3, 0, 1, _slots(2048)) == 1
-    # the host build picks as the card at full occupancy
+    if shape == "slice_k1":
+        # K1 and K8 with their tables on the SM: one block of 512 an SM
+        assert pick(_slots(512)) == 4
+        # the hunt's windows (128 symbols, warm-up 8) at most 4 ways
+        assert build.pick_split(lib, 2048, 128, 8, 8, _slots(512)) == 4
+        assert build.pick_split(lib, 65536, 128, 8, 8, _slots(512)) == 1
+        for case in ("k1_raw_u8", "k8_raw_u8", "k8_window"):
+            name, fields, plain, _ = dense_refs(case)
+            want = build.pick_split(lib, fields["B"], fields["L"],
+                                    fields["halo"], fields["warm_steps"],
+                                    _slots(2048))
+            assert want > 1
+            if name in HITS_ENTRIES:
+                P = ctypes.c_int(0)
+                args = build.scan_args(**fields)
+                assert getattr(lib, f"{name}_split")(ctypes.byref(args),
+                                                     ctypes.byref(P)) == 0
+                assert P.value == want
+                got = _hits_two_pass(lib, name, fields["B"], **fields)
+                assert torch.equal(got[0], plain[0])
+            else:
+                out = torch.zeros(plain.numel(), dtype=torch.int32)
+                _run(lib, name, out=out, **fields)
+                assert torch.equal(out, plain)
+            assert lib.ac_last_split() == want
+        return
     name, fields, plain, _ = split_refs("k3_raw_u8", 1)
     out = torch.zeros(plain.numel(), dtype=torch.int32)
     _run(lib, name, out=out, **fields)
     assert lib.ac_last_split() == build.pick_split(
         lib, B, 40, 2, fields["warm_steps"], _slots(2048)) == 2
     assert torch.equal(out, plain)
+
+
+# -- K1, K8: the 1-char sub-streams --------------------------------------------
+
+HITS_ENTRIES = ("ac_dense_hits", "ac_window_hits")
+# (kernel, input kind, halo in symbols, body symbols a stream) at the k = 1
+# tables (warm-up 5 symbols): a halo of 2, shorter than the warm-up, and 0;
+# remainders (37 symbols); a body of 2 symbols, too short for most splits;
+# K8's window form over the index list of tc.sparse's stream, windows of
+# 64 symbols (L_blk) behind a halo of 5
+DENSE_CASES = {
+    "k1_raw_u8": ("k1", "raw_u8", 2, 40),
+    "k1_raw_i32": ("k1", "raw_i32", 5, 37),
+    "k1_ids_halo0": ("k1", "ids", 0, 40),
+    "k1_short": ("k1", "raw_u8", 5, 2),
+    "k8_raw_u8": ("k8", "raw_u8", 2, 40),
+    "k8_raw_i32": ("k8", "raw_i32", 5, 37),
+    "k8_ids_halo0": ("k8", "ids", 0, 40),
+    "k8_short": ("k8", "raw_u8", 5, 2),
+    "k8_window": ("k8", "ids", 5, 64),
+}
+# K1's and K8's tables: staged as the card stages them on the SM (the
+# uint16 copy of ac_dense_stage; tc.tables' real rows fit), or read in
+# place as the card's read-only path does
+TABLE_PATHS = {"sm": 0, "global": 1}
+
+
+@pytest.fixture(scope="module")
+def dense_refs():
+    """The references of DENSE_CASES, made once per module."""
+    refs: dict = {}
+
+    def get(case):
+        if case not in refs:
+            refs[case] = _dense_ref(case)
+        return refs[case]
+    return get
+
+
+def _dense_ref(case):
+    """(entry point, launch fields, the plain version's output, the JAX
+    package's) of one DENSE_CASES case: K1's per-stream totals (and the
+    Pallas kernel's sum, in interpret mode, over the same windows); K8's
+    (positions, states, n_hits, n_hit_pos)."""
+    from aho_corasick_1975_tpu.ops.scan_pallas import make_pallas_blocked_count
+    kernel, kind, halo, L = DENSE_CASES[case]
+    tab = tc.tables(1)
+    V = tab["V"]
+    dflat, nb_out = _t(tab["dflat"]), _t(tab["nb_out"])
+    jt = (jnp.asarray(tab["dflat"]), jnp.asarray(tab["nb_out"]))
+    base = dict(table=dflat, nb_out=nb_out, warm_steps=tab["warm_steps"],
+                n_states=tab["n_states"])
+    if case == "k8_window":
+        s = tc.sparse(tab, halo, L)
+        src, idx, fields = _win_fields(s, "idx", L)
+        fields.update(base, L=L, V=V, halo=halo)
+        plain = hits.window_hits_plain(dflat, nb_out, V, halo, L, src, idx)
+        jwant = jsp.make_sparse_hits(V, halo, L, s["nB"], len(s["idx"]),
+                                     512)(*jt, jnp.asarray(s["ext"]),
+                                          jnp.asarray(s["idx"]))
+        return "ac_window_hits", fields, plain, jwant
+    s = tc.stream(tab, kind, halo, L, seed=L + halo)
+    fields = dict(base, **_common(s, halo, L, V))
+    args = (V, halo, B, L, _t(s["ext"]), _t(s["lut"]), _t(s["head_ids"]))
+    jext = jnp.asarray(s["ext"])
+    if kernel == "k1":
+        plain = scan_dense.dense_count_plain(dflat, nb_out, *args)
+        if s["lut"] is None:
+            jwant = jxla.make_blocked_count_stream(V, halo, B, L)(*jt, jext)
+            win = jxla.window_layout(jext, B, L, halo)
+        else:
+            jr = (jnp.asarray(s["lut"]), jext, jnp.asarray(s["head_ids"]))
+            jwant = jxla.make_blocked_count_raw(V, halo, B, L)(*jt, *jr)
+            win = jxla.raw_window(*jr, B, L, halo)
+        pallas = make_pallas_blocked_count(V, halo, interpret=True)(*jt, win)
+        assert int(pallas) == int(np.asarray(jwant).sum())
+        return "ac_dense_count", fields, plain, np.asarray(jwant)
+    plain = hits.dense_hits_plain(dflat, nb_out, *args)
+    if s["lut"] is None:
+        jwant = jhits.make_blocked_hits_stream(V, halo, 4096, B, L)(*jt, jext)
+    else:
+        jwant = jhits.make_blocked_hits_raw(V, halo, 4096, B, L)(
+            *jt, jnp.asarray(s["lut"]), jext, jnp.asarray(s["head_ids"]))
+    return "ac_dense_hits", fields, plain, jwant
+
+
+def _dense_launch(lib, name, fields, split, path):
+    """One K1 launch, or K8's two passes, through the g++ build at a
+    forced split over one table path."""
+    fields = dict(fields, split=split, global_table=TABLE_PATHS[path])
+    if name in HITS_ENTRIES:
+        return _hits_two_pass(lib, name, fields["B"], **fields)
+    out = torch.full((fields["B"],), -7, dtype=torch.int32)
+    _run(lib, name, out=out, **fields)
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(TABLE_PATHS))
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("case", sorted(DENSE_CASES))
+def test_dense_split_kernels(lib, dense_refs, case, split, path):
+    """K1 and K8 (stream form: raw bytes, raw int32 past the LUT's end
+    with head ids, ids at halo 0, a stream of 2 symbols; window form) with
+    each column forced into ``split`` sub-streams, each warmed up over the
+    tables' 5 symbols, more than a halo of 2, over the tables staged as on
+    the SM and in place: K1's totals, and K8's positions and states
+    element for element, exact against the plain version and the JAX
+    package (make_blocked_count_stream / _raw and the Pallas kernel;
+    make_blocked_hits_stream / _raw; make_sparse_hits), and the library
+    reports the split."""
+    name, fields, plain, jwant = dense_refs(case)
+    got = _dense_launch(lib, name, fields, split, path)
+    if name in HITS_ENTRIES:
+        for a, b in zip(got[:2], plain[:2]):
+            assert torch.equal(a, b)
+        assert got[2:] == plain[2:]
+        tc.same_hits(got, jwant)
+    else:
+        assert torch.equal(got, plain) and int(plain.sum()) > 0
+        np.testing.assert_array_equal(got.numpy(), jwant)
+    assert lib.ac_last_split() == split
+
+
+@pytest.mark.parametrize("case", ["k1_raw_u8", "k8_raw_u8"])
+def test_dense_split_warm_up_is_needed(lib, dense_refs, case):
+    """The warm-up is what makes K1's and K8's split exact: with none, the
+    same launch at 16 sub-streams a stream loses the matches that straddle
+    its sub-streams' starts (and K8 writes wrong states)."""
+    name, fields, plain, _ = dense_refs(case)
+    assert fields["warm_steps"] == 5
+    got = _dense_launch(lib, name, dict(fields, warm_steps=0), 16, "sm")
+    if name in HITS_ENTRIES:
+        assert got[2] < plain[2]
+        assert got[3] != plain[3] or not torch.equal(got[1], plain[1])
+    else:
+        assert int(got.sum()) < int(plain.sum())
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_k8_staged_hit_writes(lib, dense_refs, offset):
+    """K8's pass 2 stages its hits and writes each whole run of 8 aligned
+    slots as 16-byte stores, the rest one by one: output buffers 0, 4 and
+    12 bytes off their 16-byte-aligned allocation (so that every run or
+    none is aligned) hold the plain version's positions and states, and
+    nothing past them."""
+    name, fields, plain, _ = dense_refs("k8_raw_u8")
+    got = _hits_two_pass(lib, name, fields["B"], offset=offset,
+                         **dict(fields, split=2))
+    assert got[0].data_ptr() % 16 == 4 * offset
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+def test_dense_table_staging(lib, dense_refs):
+    """The copy on the SM from any table: the real rows (their entries no
+    multiple of 4, so a scalar tail follows the 16-byte loads), a table 4
+    bytes off 16-byte alignment (scalar loads throughout), and all of
+    dflat's rows (the wrapper's default); and in place with n_states unset.
+    The wrappers refuse an n_states outside dflat's rows."""
+    name, fields, plain, _ = dense_refs("k1_raw_u8")
+    dflat = fields["table"]
+    S, V = fields["n_states"], fields["V"]
+    assert (S * V) % 4 and dflat.data_ptr() % 16 == 0
+    buf = torch.zeros(dflat.numel() + 1, dtype=torch.int32)
+    buf[1:] = dflat
+    for extra in (dict(), dict(table=buf[1:]),
+                  dict(n_states=dflat.numel() // V), dict(n_states=0)):
+        out = _dense_launch(lib, name, dict(fields, **extra), 4, "sm")
+        assert torch.equal(out, plain)
+    args = (dflat, fields["nb_out"], V, 2, B, 40, fields["ext"],
+            fields["lut"], fields["head_ids"])
+    for bad in (0, dflat.numel() // V + 1):
+        with pytest.raises(ValueError, match="n_states"):
+            scan_dense.dense_count(*args, warm_steps=5, n_states=bad)

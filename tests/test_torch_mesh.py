@@ -213,6 +213,53 @@ def test_sharded_refresh_grows_the_warm_up(meshes):
     np.testing.assert_array_equal(sc.count_many(docs), jsc.count_many(docs))
 
 
+def test_sharded_refresh_grows_the_1char_warm_up(meshes, monkeypatch):
+    """A step_k=1 sharded scanner (no stepped table) derives the 1-char
+    kernels' warm-up (``_warm_syms``) in ``_bind()``, and refresh() with a
+    keyword of 21 letters grows it: count() (K1 per shard),
+    find_matches(max_hits_per_shard=...) (K8's stream form) and a prefilter
+    scanner's retrieval (K8's window form) then equal the JAX
+    ShardedScanner's, and every K1 and K8 call gets the new warm-up and the
+    real rows."""
+    from aho_corasick_1975_tpu_torch.ops import hits, scan_dense
+    seen = []
+
+    def spy(module, name):
+        fn = getattr(module, name)
+
+        def run(*args, **kw):
+            seen.append((name, kw["warm_steps"], kw["n_states"]))
+            return fn(*args, **kw)
+        monkeypatch.setattr(module, name, run)
+    spy(scan_dense, "dense_count")
+    spy(hits, "dense_hits")
+    spy(hits, "window_hits")
+    m = ac.Machine()
+    m.insert_keyword("spanner")
+    jsc, sc = _pair(m, meshes, n_streams_per_device=4, step_k=1)
+    jscp, scp = _pair(m, meshes, n_streams_per_device=4, step_k=1,
+                      prefilter="on")
+    assert sc._stepped is None and sc._warm_syms == 6
+    long_kw = "spannerspannerspanner"
+    m.insert_keyword(long_kw)
+    for s in (sc, jsc, scp, jscp):
+        s.refresh()
+    assert sc._warm_syms == scp._warm_syms == len(long_kw) - 1
+    text = ("." * 29 + long_kw + "," * 13) * 24
+    host = m.match_stream(m.initiate(), text, parallel=False)
+    assert sc.count(text) == jsc.count(text) == host > 24
+    _same(sc.find_matches(text, max_hits_per_shard=host),
+          jsc.find_matches(text, max_hits_per_shard=host))
+    sparse_text = "." * 9000 + long_kw + "." * 5000
+    got = scp.find_matches(sparse_text)
+    _same(got, jscp.find_matches(sparse_text))
+    assert len(got) > 0
+    assert {s[0] for s in seen} == {"dense_count", "dense_hits",
+                                    "window_hits"}
+    assert {s[1:] for s in seen} == {(len(long_kw) - 1,
+                                      sc.tables.n_states)}
+
+
 def test_sharded_count_beyond_int32(meshes):
     """The two-level reduction: per-stream int32 totals, an int64 sum on
     the host, exact past 2^31 (every 'a' emits 2^22 here)."""

@@ -520,11 +520,13 @@ def test_sparse_wrappers_on_cpu_are_the_plain_versions():
              _t(s["ext"]), _t(s["idx"]))
     assert torch.equal(sparse.sparse_count(*targs),
                        sparse.sparse_count_plain(*targs))
-    got, want = hits.window_hits(*targs), hits.window_hits_plain(*targs)
+    warm = tab["warm_steps"]
+    got = hits.window_hits(*targs, warm_steps=warm)
+    want = hits.window_hits_plain(*targs)
     assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))
     assert got[2:] == want[2:]
     with pytest.raises(ValueError, match="max_hits"):
-        hits.window_hits(*targs, max_hits=got[3] - 1)
+        hits.window_hits(*targs, max_hits=got[3] - 1, warm_steps=warm)
     ids = _t(tc.stream(tab, "ids", 0, 40)["ext"])
     assert torch.equal(scan_dense.sequential_states(_t(tab["dflat"]),
                                                     tab["V"], ids),

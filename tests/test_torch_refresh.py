@@ -8,7 +8,7 @@ reference does and rebuilds where it does, and its device tables equal the
 JAX snapshot's bit for bit after the same insertions. The port's
 stepped_delta_cells equals the JAX package's. find_matches after a refresh
 goes through the per-version packed k=1 table, and counts through the
-rebound halo and the stepped kernels' rebound warm-up.
+rebound halo and the stepped and 1-char kernels' rebound warm-ups.
 """
 
 from __future__ import annotations
@@ -207,6 +207,97 @@ def test_refresh_grows_the_warm_up_under_a_fixed_halo(step_k):
         outs.append(out)
     assert torch.equal(outs[0], want)
     assert int(outs[1].sum()) < int(want.sum())
+
+
+def test_refresh_grows_the_1char_warm_up_under_a_fixed_halo(monkeypatch):
+    """A step_k=1 scanner (no stepped table) with a user halo of 2 derives
+    the 1-char kernels' warm-up (``_warm_syms``) from the tables, and
+    refresh() with a keyword of 20 letters grows it: count(),
+    find_matches(max_hits=...) and a prefilter scanner's retrieval then
+    equal the JAX scanner's, K1 and K8 get the new warm-up and the real
+    rows, and K1's and K8's host builds, forced to 16 sub-streams a stream
+    over the scanner's own layout, equal the plain versions; with the
+    warm-up from before the refresh K1 loses the long keyword's matches
+    that straddle a sub-stream's start."""
+    from aho_corasick_1975_tpu_torch.models import scanner as port_scanner
+    from aho_corasick_1975_tpu_torch.ops import build, hits, scan_dense
+    seen = []
+
+    def spy(fn):
+        def run(*args, **kw):
+            seen.append((fn.__name__, kw["warm_steps"], kw["n_states"]))
+            return fn(*args, **kw)
+        return run
+    for name in ("dense_count", "dense_hits", "window_hits"):
+        monkeypatch.setattr(port_scanner, name,
+                            spy(getattr(port_scanner, name)))
+    m = Machine()
+    for w in ["he", "she"]:
+        m.insert_keyword(w)
+    sc = fresh_like(m, step_k=1, halo=2)
+    scp = fresh_like(m, step_k=1, halo=2, prefilter="on")
+    jsc = JaxScanner(m, n_streams=4, step_k=1, halo=2)
+    jscp = JaxScanner(m, n_streams=4, step_k=1, halo=2, prefilter="on")
+    assert sc._stepped is None and sc._warm_syms == 2
+    stale = sc._warm_syms
+    long_kw = "hehehehehehehehehehe"
+    m.insert_keyword(long_kw)
+    for s in (sc, scp, jsc, jscp):
+        assert s.refresh() is True
+    assert sc.halo == scp.halo == jsc.halo == 2
+    assert sc._warm_syms == scp._warm_syms == len(long_kw) - 1
+    text = ("x" * 37 + long_kw + "y" * 23) * 40
+    n = sc.count(text)
+    assert n == jsc.count(text)
+    got, want = sc.find_matches(text, max_hits=n), jsc.find_matches(
+        text, max_hits=n)
+    sparse_text = "." * 5000 + long_kw + "." * 3000
+    gotp, wantp = scp.find_matches(sparse_text), jscp.find_matches(
+        sparse_text)
+    for a, b in ((got, want), (gotp, wantp)):
+        np.testing.assert_array_equal(a.ends, b.ends)
+        np.testing.assert_array_equal(a.end_states, b.end_states)
+        np.testing.assert_array_equal(a.indices, b.indices)
+    assert len(gotp) > 0
+    assert {s[0] for s in seen} == {"dense_count", "dense_hits",
+                                    "window_hits"}
+    assert {s[1:] for s in seen} == {(len(long_kw) - 1,
+                                      sc.tables.n_states)}
+    snap, V = sc._snap, sc.V
+    ids = sc.encode(text)
+    B, L = sc._layout(len(ids), 128)
+    ext = np.zeros(sc.halo + B * L, np.int32)
+    ext[sc.halo:sc.halo + len(ids)] = ids
+    ext = torch.from_numpy(ext)
+    args = (snap.dflat, snap.nb_out, V, sc.halo, B, L, ext)
+    want_c = scan_dense.dense_count_plain(*args)
+    want_h = hits.dense_hits_plain(*args)
+    assert int(want_c.sum()) == n
+    lib = build.host_library()
+    fields = dict(table=snap.dflat, nb_out=snap.nb_out, ext=ext, L=L, B=B,
+                  V=V, halo=sc.halo, n_states=sc.tables.n_states, split=16)
+    outs = []
+    for warm in (sc._warm_syms, stale):
+        out = torch.full((B,), -7, dtype=torch.int32)
+        args_c = build.scan_args(out=out, warm_steps=warm, **fields)
+        assert lib.ac_dense_count(ctypes.byref(args_c), None) == 0
+        outs.append(out)
+    assert torch.equal(outs[0], want_c)
+    assert int(outs[1].sum()) < n
+    n_hits = torch.zeros(B * 16, dtype=torch.int32)
+    n_pos = torch.zeros(B * 16, dtype=torch.int32)
+    pass1 = build.scan_args(n_hits=n_hits, n_live=n_pos,
+                            warm_steps=sc._warm_syms, **fields)
+    assert lib.ac_dense_hits(ctypes.byref(pass1), None) == 0
+    total = int(n_pos.sum())
+    pos = torch.zeros(total, dtype=torch.int32)
+    sts = torch.zeros(total, dtype=torch.int32)
+    off = torch.cumsum(n_pos, 0, dtype=torch.int64) - n_pos
+    pass2 = build.scan_args(hit_pos=pos, hit_state=sts, hit_off=off,
+                            warm_steps=sc._warm_syms, **fields)
+    assert lib.ac_dense_hits(ctypes.byref(pass2), None) == 0
+    assert torch.equal(pos, want_h[0]) and torch.equal(sts, want_h[1])
+    assert int(n_hits.sum()) == want_h[2] == n
 
 
 @pytest.mark.parametrize("step_k", [2, 3])

@@ -30,8 +30,9 @@ def machine(seed: int = 0) -> Machine:
 
 def tables(k: int, seed: int = 0) -> dict:
     """The automaton's capacity-padded tables as numpy arrays: the 1-char
-    tables, the packed k-gram table and the packed k=1 table ``pk1``, and
-    the stepped kernels' warm-up in grams of k."""
+    tables (``n_states`` of their rows real), the packed k-gram table and
+    the packed k=1 table ``pk1``, and the stepped kernels' warm-up in grams
+    of k (at k = 1 the 1-char kernels' warm-up in symbols)."""
     m = machine(seed)
     t = m.compile()
     snap = DeviceSnapshot(t, step_k=1, device="cpu")
@@ -39,6 +40,7 @@ def tables(k: int, seed: int = 0) -> dict:
     cb1 = max(1, snap.max_nb.bit_length())
     lut = m.vocab.byte_lut()
     return dict(machine=m, V=snap.V, k=k, count_bits=st.count_bits,
+                n_states=t.n_states,
                 dflat=snap.dflat.numpy(), nb_out=snap.nb_out.numpy(),
                 packed=st.cap_packed, cb1=cb1,
                 pk1=pack(t.delta, t.nb_outputs, 1, cb1),
