@@ -23,18 +23,20 @@
 // the previous step's gather, so a stream is a chain of dependent loads
 // (L2 or device-memory latency, not bandwidth), and one thread per stream
 // (16,384 at the slice) fills a few percent of the card's thread slots.
-// The stepped counts (K3, K5, K9, K11's gather half) and the 1-char count
-// and hits (K1, K8: the same walk at k = 1 over AcDenseTable) therefore
+// The stepped counts (K3, K5, K9, K11's gather half) and the 1-char scans
+// (K1, K2, K6, K8: the same walk at k = 1 over AcDenseTable) therefore
 // split each stream or column into P sub-streams (ac_stepped_part_walk),
 // each warmed up from the root over warm_steps grams before its body, so
 // that B*P threads fill the SMs; the symbols of the next group of steps
 // are loaded (evict-first) while this group's gathers run, and the table
-// is read through the read-only path, or for K1 and K8 from shared memory
-// where it fits (ac_dense_stage). In the stream layout a sub-stream's
-// symbols are contiguous: a byte stream's are loaded as 32-bit words, and
-// at k = 1 every stream's as 16-byte vectors; in the batch layout
-// neighbouring threads read neighbouring columns of one row, so a warp's
-// symbol loads coalesce.
+// is read through the read-only path, or for the 1-char stream forms
+// (K1, K2, K8) from shared memory where it fits (ac_dense_stage). In the
+// stream layout a sub-stream's symbols are contiguous: a byte stream's are
+// loaded as 32-bit words, and at k = 1 every stream's as 16-byte vectors;
+// in the batch layout neighbouring threads read neighbouring columns of
+// one row, so a warp's symbol loads coalesce. K2's one-chain form (one
+// stream at P = 1, the sequential scan) walks chunks of ids the rest of
+// its block stages (ac_seq_walk).
 #pragma once
 
 #include <stdint.h>
@@ -51,14 +53,15 @@
 struct AcScanArgs {
   const int32_t* table;     // dflat [cap*V] (K1, K2, K6, K7 dense, K8) or
                             // packed [cap*V^k] (K3-K5, K7 stepped)
-  const int32_t* nb_out;    // [cap] matches per state (K1, K6, K7 dense, K8)
+  const int32_t* nb_out;    // [cap] matches per state (K1, K6, K7 dense,
+                            // K8); null for K2
   const void* ext;          // K1-K4, K8 stream: [halo + B*L] letter ids
                             // (int32) or raw symbols; K5, K6: the
                             // [doc_len, n_docs] batch tm; K7, K8 window: below
   const int32_t* lut;       // raw symbol -> letter id; null when ext holds ids
   const int32_t* head_ids;  // [halo] letter ids of stream 0's warm-up rows (raw)
-  int32_t* out;             // K1, K3, K5, K6: [B] totals; K2: [B*L] states;
-                            // K4: [B, L/k] emit
+  int32_t* out;             // K1, K3, K5, K6: [B] totals; K2: [B*L] states
+                            // ([L, B] time-major); K4: [B, L/k] emit
   int32_t* n_hits;          // K4: [B] matches per stream; K8 pass 1:
                             // [B*P] matches per sub-stream
   int32_t* n_live;          // K4: [B] grams with a match per stream;
@@ -96,18 +99,19 @@ struct AcScanArgs {
   // K12: table = delta [n_states, V], ext = ids int32 [doc_len], out =
   // states [doc_len], cut into B chunks of L symbols; compose [B, n_states]
   // each chunk's composed transition function, starts [B] each chunk's
-  // start state. K1, K8: the tables' real rows, those staged on the SM.
+  // start state. K1, K2, K8: the tables' real rows, those staged on the
+  // SM.
   int32_t* compose;
   int32_t* starts;
   int32_t n_states;
-  // K1, K3, K5, K8, K9, K11's gather half: the grams a sub-stream reads
+  // K1-K3, K5, K6, K8, K9, K11's gather half: the grams a sub-stream reads
   // before its body, ceil((max_depth - 1) / k) of the tables (never the
   // halo, which may be shorter or 0; symbols at k = 1), and the
   // sub-streams per column, a power of two up to AC_MAX_SPLIT; 0 lets the
   // launcher pick (ac_pick_split).
   int32_t warm_steps;
   int32_t split;
-  // K1, K8: 1 reads the 1-char tables through the read-only path even
+  // K1, K2, K8: 1 reads the 1-char tables through the read-only path even
   // where rows [0, n_states) fit on the SM (ac_dense_smem_bytes).
   int32_t global_table;
 };
@@ -281,14 +285,11 @@ AC_HD int64_t ac_gram(const Syms& sym, int64_t t0, int32_t V, int32_t k) {
   return g;
 }
 
-// K6 (ops/scan_xla.py:_count_many_body) and K7 dense, one thread a
-// column: the recurrence of ops/scan_xla.py:blocked_count_core,
-// s <- dflat[s*V + c], counting the matches of the rows past the halo
-// (K1 runs it as sub-streams: ac_stepped_lanes over AcDenseTable). Sums
-// wrap like the JAX int32 accumulator; the scanner's _guard_acc keeps them
-// from doing so. The tables are read by plain loads: through the
-// read-only path (ac_ldtab) K6 took 4.38 ms at config 3 against 3.77
-// (PERF.md).
+// K7 dense, one thread a window: the recurrence of
+// ops/scan_xla.py:blocked_count_core, s <- dflat[s*V + c], counting the
+// matches of the rows past the halo (K1 and K6 run it as sub-streams over
+// AcDenseTable). Sums wrap like the JAX int32 accumulator; the scanner's
+// _guard_acc keeps them from doing so. The tables are read by plain loads.
 template <typename Syms>
 AC_HD int32_t ac_dense_count_body(const AcScanArgs& a, const Syms& sym) {
   int32_t s = 0;
@@ -301,42 +302,11 @@ AC_HD int32_t ac_dense_count_body(const AcScanArgs& a, const Syms& sym) {
   return (int32_t)tot;
 }
 
-template <typename T>
-AC_HD void ac_dense_count_many_column(const AcScanArgs& a, int64_t column) {
-  a.out[column] = ac_dense_count_body(a, ac_batch_syms<T>(a, column));
-}
-
 // K7 dense (ops/sparse.py:make_sparse_count / _dev over _window_gather,
 // and the elided count of models/scanner.py:_elided_count_core): K1's
 // recurrence over one live-block window.
 AC_HD void ac_sparse_count_column(const AcScanArgs& a, int64_t column) {
   a.out[column] = ac_dense_count_body(a, ac_win_syms(a, column));
-}
-
-// K2: the state after each body symbol, out[t*ostride].
-template <typename Syms>
-AC_HD void ac_dense_states_body(const AcScanArgs& a, const Syms& sym,
-                                int32_t* out, int64_t ostride) {
-  int32_t s = 0;
-  for (int64_t t = 0; t < a.halo; ++t) s = a.table[(int64_t)s * a.V + sym(t)];
-  for (int64_t t = 0; t < a.L; ++t) {
-    s = a.table[(int64_t)s * a.V + sym(a.halo + t)];
-    out[t * ostride] = s;
-  }
-}
-
-// K2 (ops/scan_xla.py:make_blocked_scan_stream / _raw), written in stream
-// order; with B = 1 and halo 0 it is ops/scan_xla.py:make_sequential_scan.
-template <typename T>
-AC_HD void ac_dense_states_stream(const AcScanArgs& a, int64_t b) {
-  ac_dense_states_body(a, ac_syms<T>(a, b), a.out + b * a.L, 1);
-}
-
-// K2 time-major (ops/scan_xla.py:make_blocked_scan): column j of a
-// [L, n_docs] batch from the root, states written to out [L, n_docs].
-template <typename T>
-AC_HD void ac_dense_states_tm_column(const AcScanArgs& a, int64_t j) {
-  ac_dense_states_body(a, ac_batch_syms<T>(a, j), a.out + j, a.n_docs);
 }
 
 // Per-lane values: one register on the card, one slot per lane on the host,
@@ -435,24 +405,28 @@ AC_HD AcPackedTable ac_packed(const AcScanArgs& a) {
   return AcPackedTable::make(a);
 }
 
-// The 1-char tables (K1, K8) as a gram table at k = 1: s' = dflat[i] and
-// its matches nb_out[s'], which the next step does not wait for (it needs
-// only s'). Row int32: the tables in device memory, through the read-only
-// path; Row uint16: rows [0, n_states) staged on the SM (ac_dense_stage),
-// read by plain loads.
-template <typename Row>
+// The 1-char tables (K1, K2, K6, K8) as a gram table at k = 1: s' =
+// dflat[i] and, with Counts, its matches nb_out[s'], which the next step
+// does not wait for (it needs only s'); K2's states need no count. Row
+// int32: the tables in device memory, through the read-only path (faster
+// than plain loads for K6 at config 3, PERF.md); Row uint16: rows
+// [0, n_states) staged on the SM (ac_dense_stage), read by plain loads.
+template <typename Row, bool Counts = true>
 struct AcDenseTable {
+  // Rows on the SM: at most 65,536 states of 2-byte entries in a block's
+  // shared memory, so an entry's index fits 32 bits.
+  static constexpr bool kOnSm = sizeof(Row) == 2;
   const Row* dflat;
   const int32_t* nb_out;
 
   AC_HD int32_t next(int64_t i, uint32_t* count) const {
-    if constexpr (sizeof(Row) == 4) {
-      const int32_t s = ac_ldtab(dflat + i);
-      *count = (uint32_t)ac_ldtab(nb_out + s);
+    if constexpr (kOnSm) {
+      const int32_t s = dflat[i];
+      *count = Counts ? (uint32_t)nb_out[s] : 0u;
       return s;
     } else {
-      const int32_t s = dflat[i];
-      *count = (uint32_t)nb_out[s];
+      const int32_t s = ac_ldtab(dflat + i);
+      *count = Counts ? (uint32_t)ac_ldtab(nb_out + s) : 0u;
       return s;
     }
   }
@@ -482,32 +456,37 @@ AC_HD int32_t ac_lut_entries(const AcScanArgs& a) {
 // Shared memory a block can hold on an H100 (sm_90).
 #define AC_SMEM_BLOCK 232448
 
-// Threads a block of the 1-char kernels (K1, K8): their tables in device
-// memory, or on the SM.
+// Threads a block of the 1-char stream kernels (K1, K2, K8): their tables
+// in device memory, or on the SM (and K2's one-chain block).
 constexpr int kDenseThreads = 128;
 constexpr int kDenseSmThreads = 512;
 
 // Bytes of shared memory the 1-char tables take on the SM beside `beside`
-// bytes of the block's other shared memory (the LUT, K8's staged hits):
-// nb_out's rows [0, n_states) as int32, then dflat's as uint16 (a state id
-// fits 16 bits); 0 where they stay in device memory: forced
-// (global_table), n_states unset, past 65,536 states, or over the bytes a
-// block can hold. At the slice's 3,919 states and V = 12, 110 KB.
+// bytes of the block's other shared memory (the LUT, staged outputs, K2's
+// chunks): nb_out's rows [0, n_states) as int32 where the launch has
+// nb_out (K2 has none), then dflat's as uint16 (a state id fits 16 bits);
+// 0 where they stay in device memory: forced (global_table), n_states
+// unset, past 65,536 states, or over the bytes a block can hold. At the
+// slice's 3,919 states and V = 12, 110 KB (94 KB without nb_out).
 AC_HD int64_t ac_dense_smem_bytes(const AcScanArgs& a, int64_t beside) {
   if (a.global_table || a.n_states <= 0 || a.n_states > 65536) return 0;
-  const int64_t bytes =
-      4 * (int64_t)a.n_states + ((2 * (int64_t)a.n_states * a.V + 3) & ~3);
+  const int64_t bytes = (a.nb_out != nullptr ? 4 * (int64_t)a.n_states : 0) +
+                        ((2 * (int64_t)a.n_states * a.V + 3) & ~3);
   return beside + bytes <= AC_SMEM_BLOCK ? bytes : 0;
 }
 
 // Thread tid of n copies the 1-char tables' rows [0, n_states) into smem
-// (ac_dense_smem_bytes of room), dflat four entries a load where it is
-// 16-byte aligned; the table they make once every thread has copied.
-AC_HD AcDenseTable<uint16_t> ac_dense_stage(const AcScanArgs& a,
-                                            int32_t* smem, int tid, int n) {
+// (ac_dense_smem_bytes of room; nb_out first, with Counts), dflat four
+// entries a load where it is 16-byte aligned; the table they make once
+// every thread has copied.
+template <bool Counts = true>
+AC_HD AcDenseTable<uint16_t, Counts> ac_dense_stage(const AcScanArgs& a,
+                                                    int32_t* smem, int tid,
+                                                    int n) {
   const int64_t S = a.n_states, entries = S * a.V;
-  uint16_t* rows = (uint16_t*)(smem + S);
-  for (int64_t i = tid; i < S; i += n) smem[i] = ac_ldtab(a.nb_out + i);
+  uint16_t* rows = (uint16_t*)(smem + (Counts ? S : 0));
+  if constexpr (Counts)
+    for (int64_t i = tid; i < S; i += n) smem[i] = ac_ldtab(a.nb_out + i);
   const int64_t quads = ((uintptr_t)a.table & 15) ? 0 : entries / 4;
   uint32_t* pairs = (uint32_t*)rows;
 #if defined(__CUDA_ARCH__)
@@ -525,9 +504,9 @@ AC_HD AcDenseTable<uint16_t> ac_dense_stage(const AcScanArgs& a,
   }
   for (int64_t i = 4 * quads + tid; i < entries; i += n)
     rows[i] = (uint16_t)ac_ldtab(a.table + i);
-  AcDenseTable<uint16_t> t;
+  AcDenseTable<uint16_t, Counts> t;
   t.dflat = rows;
-  t.nb_out = smem;
+  t.nb_out = Counts ? smem : nullptr;
   return t;
 }
 
@@ -918,6 +897,141 @@ AC_HD void ac_dense_hits_sub(const AcScanArgs& a, const Table& table,
     a.n_hits[g] = (int32_t)e.hits;
     a.n_live[g] = e.n_pos;
   }
+}
+
+// States a K2 thread stages before it writes them: one 32-byte sector.
+constexpr int kStateStage = 8;
+
+// K2's stream hook: the state after body row j at out[base + j], staged:
+// entry k at stage[k*stride] (shared memory on the card, the block's
+// threads interleaved, so that a warp's lanes never share a bank), and the
+// kStateStage states of each kStateStage-aligned run of out go out as two
+// 16-byte stores, a whole sector; those of a run covered only in part (a
+// sub-stream's first and last) one by one. A warp's lanes write 32
+// separate runs, so one state a store would touch 32 sectors for 4 bytes
+// each.
+struct AcStatesEmit {
+  int32_t* out;
+  int32_t* stage;
+  int stride, staged = 0;
+  int64_t base, end = 0;   // end: one past the last staged state's index
+
+  AC_HD void operator()(int64_t j, int32_t s, uint32_t) {
+    stage[staged * stride] = s;
+    ++staged;
+    end = base + j + 1;
+    if ((end & (kStateStage - 1)) == 0) flush();
+  }
+  // The staged states, out[end - staged, end), to the output.
+  AC_HD void flush() {
+    const int64_t s0 = end - staged;
+    if (staged == kStateStage && ((uintptr_t)(out + s0) & 15) == 0) {
+      int32_t w[kStateStage];
+      AC_UNROLL
+      for (int k = 0; k < kStateStage; ++k) w[k] = stage[k * stride];
+      ac_stcs16(out + s0, w);
+      ac_stcs16(out + s0 + 4, w + 4);
+    } else {
+      for (int k = 0; k < staged; ++k) out[s0 + k] = stage[k * stride];
+    }
+    staged = 0;
+  }
+};
+
+// K2 (ops/scan_xla.py:make_blocked_scan_stream / _raw), sub-stream g of
+// the launch: sub-stream g % P of stream g / P, the 1-char recurrence over
+// AcDenseTable without counts, writing the state after each of its body
+// rows, [j0 - halo, j1 - halo) of the stream's L, through AcStatesEmit
+// (kStateStage words from stage on, stride apart). From its first body
+// symbol on, a warmed-up sub-stream's states are the one-thread run's
+// (ac_stepped_part_walk), so the P parts write what it does.
+template <typename Layout, typename Table>
+AC_HD void ac_dense_states_sub(const AcScanArgs& a, const Table& table,
+                               int64_t g, int P, int32_t* stage,
+                               int stride) {
+  const int64_t col = g / P;
+  AcStatesEmit e;
+  e.out = a.out;
+  e.stage = stage;
+  e.stride = stride;
+  e.base = col * a.L - a.halo;
+  ac_stepped_part_walk<1>(a, Layout::make(a, col), table, (int)(g % P), P,
+                          e);
+  e.flush();
+}
+
+// K2's time-major hook (ops/scan_xla.py:make_blocked_scan): the state
+// after body row j of a batch column at out[(j - hs) * stride], out at
+// the column's first row; a warp's 32 neighbouring columns write one
+// 128-byte row.
+struct AcColStates {
+  int32_t* out;
+  int64_t stride, hs;
+
+  AC_HD void operator()(int64_t j, int32_t s, uint32_t) {
+    out[(j - hs) * stride] = s;
+  }
+};
+
+// K2's time-major column col (halo 0 in make_blocked_scan), its
+// sub-stream p of P.
+template <typename Layout, typename Table>
+AC_HD void ac_col_states_part(const AcScanArgs& a, const Table& table,
+                              const typename Layout::Syms& sym, int64_t col,
+                              int p, int P) {
+  AcColStates e;
+  e.out = a.out + col;
+  e.stride = a.B;
+  e.hs = a.halo;
+  ac_stepped_part_walk<1>(a, sym, table, p, P, e);
+}
+
+// K2's one-chain form: a launch of one stream kept at P = 1
+// (make_sequential_scan through scan_states_sequential, the conformance
+// oracle of the split scans, forces it; any stream launch of B = 1 whose
+// launcher picks one sub-stream takes it too). Its window rows run in
+// chunks of kSeqChunk: on the card one thread walks a chunk over letter
+// ids in shared memory, writing its states there, while the block's other
+// warps translate the next chunk's symbols into ids and write the last
+// chunk's states out (a warp's stores one 128-byte row), so the chain is
+// the table gather alone; its tables on the SM where they fit. The host
+// runs the chunks in turn.
+constexpr int kSeqChunk = 2048;
+
+// Rows [t0, t0 + n) of stream 0's window as letter ids, ids[k] for row
+// t0 + k, by thread tid of nth.
+template <typename T>
+AC_HD void ac_seq_load(const AcSyms<T>& sym, int64_t t0, int n,
+                       int32_t* ids, int tid, int nth) {
+  for (int k = tid; k < n; k += nth) ids[k] = sym(t0 + k);
+}
+
+// The chain over n ids from state s: st[k] the state after ids[k];
+// returns the last. On the SM the index is 32-bit arithmetic, one
+// multiply-add on the chain.
+template <typename Table>
+AC_HD int32_t ac_seq_walk(const Table& table, int32_t V, const int32_t* ids,
+                          int32_t* st, int n, int32_t s) {
+#if defined(__CUDA_ARCH__)
+#pragma unroll 8
+#endif
+  for (int k = 0; k < n; ++k) {
+    uint32_t c;
+    const int64_t i =
+        Table::kOnSm ? (int64_t)((uint32_t)s * (uint32_t)V + (uint32_t)ids[k])
+                     : (int64_t)s * V + ids[k];
+    s = table.next(i, &c);
+    st[k] = s;
+  }
+  return s;
+}
+
+// The states st of rows [t0, t0 + n) to out, those past the halo (row t
+// at out[t - halo]), by thread tid of nth.
+AC_HD void ac_seq_store(const AcScanArgs& a, int64_t t0, int n,
+                        const int32_t* st, int tid, int nth) {
+  for (int k = tid; k < n; k += nth)
+    if (t0 + k >= a.halo) a.out[t0 + k - a.halo] = st[k];
 }
 
 // The launcher's P for n_cols columns of n_body body grams, halo_steps halo
@@ -1447,85 +1561,207 @@ cudaError_t ac_slots(Kernel kernel, int threads, int64_t smem,
   return cudaSuccess;
 }
 
-// The 1-char launches (K1, K8). A kernel of this type reads the LUT's
-// lut_n entries from shared memory, the 1-char tables from the tab_words
-// words behind them (staged once a block: ac_dense_sm_table) or through
-// the read-only path, and runs the launch's B*P sub-streams over a grid of
-// at most one wave, each block looping over them; K8's pass 2 stages its
-// hits in the shared memory after the tables on the SM (2 * kHitStage
-// words a thread).
+// The 1-char launches of the stream forms (K1, K2, K8). A kernel of this
+// type reads the LUT's lut_n entries from shared memory, the 1-char tables
+// from the tab_words words behind them (staged once a block:
+// ac_dense_sm_table) or through the read-only path, and runs the launch's
+// B*P sub-streams over a grid of at most one wave, each block looping over
+// them; K8's pass 2 (on the SM) and K2 (on both paths) stage their outputs
+// in the shared memory after the tables (AcDenseStage).
 typedef void (*AcDenseKernel)(AcScanArgs, int32_t P, int32_t lut_n,
                               int32_t tab_words);
 
 // The block's copy of the 1-char tables (ac_dense_stage), once every
 // thread has taken part.
-__device__ __forceinline__ AcDenseTable<uint16_t> ac_dense_sm_table(
+template <bool Counts = true>
+__device__ __forceinline__ AcDenseTable<uint16_t, Counts> ac_dense_sm_table(
     const AcScanArgs& a, int32_t* smem) {
-  const AcDenseTable<uint16_t> t =
-      ac_dense_stage(a, smem, threadIdx.x, blockDim.x);
+  const AcDenseTable<uint16_t, Counts> t =
+      ac_dense_stage<Counts>(a, smem, threadIdx.x, blockDim.x);
   __syncthreads();
   return t;
 }
 
-// Launch a 1-char kernel over a's B columns, P sub-streams each: on_sm
-// where the tables fit on the SM beside the LUT (ac_dense_smem_bytes,
-// within the card's opt-in limit, with room for stage_words more words a
-// thread: K8's staged hits), one block of kDenseSmThreads an SM, else
-// global. The staging words are allocated only on the SM and in K8's
-// pass 2 (hit_pos set): a global block keeps its L1 for the tables, and
-// both passes take the same path. P is the launch's split field where
-// set, else ac_pick_split over the kernel's occupancy; with pick
-// non-null, only P is written and nothing is launched (K8's two passes
-// take one P).
-inline cudaError_t ac_dense_launch(const AcScanArgs& args,
-                                   AcDenseKernel on_sm, AcDenseKernel global,
-                                   int stage_words, cudaStream_t st,
-                                   int* pick) {
-  const AcScanArgs a = ac_dense_args(args);
-  const int32_t lut_n = ac_lut_entries(a);
+// The bytes of the 1-char tables on the SM beside `beside` bytes of the
+// block's other shared memory (ac_dense_smem_bytes, within the card's
+// opt-in limit), or 0: they stay in device memory.
+inline cudaError_t ac_dense_tab(const AcScanArgs& a, int64_t beside,
+                                int64_t* tab) {
   int dev = 0, optin = 0;
   AC_TRY(cudaGetDevice(&dev));
   AC_TRY(cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  const int64_t beside =
-      4 * ((int64_t)lut_n + (int64_t)stage_words * kDenseSmThreads);
-  int64_t tab = ac_dense_smem_bytes(a, beside);
-  if (beside + tab > optin) tab = 0;
-  const AcDenseKernel kernel = tab > 0 ? on_sm : global;
-  const int threads = tab > 0 ? kDenseSmThreads : kDenseThreads;
-  // On the SM, one block an SM: the request passes half the SM's shared
-  // memory, so that the rest of its 256 KB stays L1 for the stream's
-  // symbols (two blocks of the slice's 110 KB would leave it 28 KB, and an
-  // int32 stream then ran slower than through the read-only path).
-  int per_sm = 0;
-  AC_TRY(cudaDeviceGetAttribute(
-      &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev));
-  const bool staged = tab > 0 && a.hit_pos != nullptr;
-  int64_t smem = 4 * ((int64_t)lut_n +
-                      (staged ? (int64_t)stage_words * threads : 0)) + tab;
-  if (tab > 0 && smem <= per_sm / 2) smem = per_sm / 2 + 1;
-  if (smem > 48 * 1024)
-    AC_TRY(cudaFuncSetAttribute((const void*)kernel,
+  *tab = ac_dense_smem_bytes(a, beside);
+  if (beside + *tab > optin) *tab = 0;
+  return cudaSuccess;
+}
+
+// A block of `threads` with `used` bytes of dynamic shared memory, the
+// tables on the SM where on_sm: its request (*smem) and occupancy. On the
+// SM, one block an SM: the request passes half the SM's shared memory, so
+// that the rest of its 256 KB stays L1 for the stream's symbols (two
+// blocks of the slice's 110 KB would leave it 28 KB, and an int32 stream
+// then ran slower than through the read-only path).
+inline cudaError_t ac_dense_block(const void* kernel, int threads,
+                                  int64_t used, bool on_sm, int64_t* smem,
+                                  AcOccupancy* occ) {
+  *smem = used;
+  if (on_sm) {
+    int dev = 0, per_sm = 0;
+    AC_TRY(cudaGetDevice(&dev));
+    AC_TRY(cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev));
+    if (*smem <= per_sm / 2) *smem = per_sm / 2 + 1;
+  }
+  if (*smem > 48 * 1024)
+    AC_TRY(cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem));
+                                (int)*smem));
+  AC_TRY(ac_occupancy(kernel, threads, *smem, occ));
+  return occ->blocks < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// The shared-memory words a thread that a stream-form kernel pair stages
+// its outputs in: `fit` beside the tables when deciding whether they go on
+// the SM (K8's two passes both reserve pass 2's, so that they take the
+// same path), `on_sm` and `global` what each kernel of the pair is given
+// (K8's pass 2 stages on the SM only: a global block keeps its L1 for the
+// tables; K2 on both, its states being its traffic).
+struct AcDenseStage {
+  int fit, on_sm, global;
+};
+
+// A stream-form launch, planned (ac_dense_plan) and then run
+// (ac_dense_run).
+struct AcDensePlan {
+  AcScanArgs a;
+  AcDenseKernel kernel;
+  int threads;
+  int64_t smem, grid;
+  int32_t P, lut_n, tab_words;
+};
+
+// Plan a stream-form 1-char launch over a's B columns, P sub-streams
+// each: on_sm where the tables fit on the SM beside the LUT and
+// stage.fit words a thread (ac_dense_tab), one block of kDenseSmThreads
+// an SM, else global. P is the launch's split field where set, else
+// ac_pick_split over the kernel's occupancy; the grid is at most one
+// wave.
+inline cudaError_t ac_dense_plan(const AcScanArgs& args, AcDenseKernel on_sm,
+                                 AcDenseKernel global, AcDenseStage stage,
+                                 AcDensePlan* plan) {
+  AcDensePlan& p = *plan;
+  p.a = ac_dense_args(args);
+  p.lut_n = ac_lut_entries(p.a);
+  int64_t tab = 0;
+  AC_TRY(ac_dense_tab(
+      p.a, 4 * ((int64_t)p.lut_n + (int64_t)stage.fit * kDenseSmThreads),
+      &tab));
+  p.tab_words = (int32_t)(tab / 4);
+  p.kernel = tab > 0 ? on_sm : global;
+  p.threads = tab > 0 ? kDenseSmThreads : kDenseThreads;
+  const int words = tab > 0 ? stage.on_sm : stage.global;
   AcOccupancy occ;
-  AC_TRY(ac_occupancy((const void*)kernel, threads, smem, &occ));
-  if (occ.blocks < 1) return cudaErrorInvalidConfiguration;
+  AC_TRY(ac_dense_block(
+      (const void*)p.kernel, p.threads,
+      4 * ((int64_t)p.lut_n + (int64_t)words * p.threads) + tab, tab > 0,
+      &p.smem, &occ));
   int64_t slots[AC_SPLITS];
   for (int i = 0; i < AC_SPLITS; ++i)
-    slots[i] = (int64_t)occ.sms * occ.blocks * threads;
-  const int P = ac_launch_split(a, a.B, slots, AC_MAX_SPLIT);
-  if (P == 0) return cudaErrorInvalidValue;
-  if (pick != nullptr) {
-    *pick = P;
-    return cudaSuccess;
-  }
-  const int64_t need = ((int64_t)a.B * P + threads - 1) / threads;
+    slots[i] = (int64_t)occ.sms * occ.blocks * p.threads;
+  p.P = ac_launch_split(p.a, p.a.B, slots, AC_MAX_SPLIT);
+  if (p.P == 0) return cudaErrorInvalidValue;
+  const int64_t need = ((int64_t)p.a.B * p.P + p.threads - 1) / p.threads;
   const int64_t wave = (int64_t)occ.sms * occ.blocks;
-  const int64_t grid = need < wave ? need : wave;
-  if (grid == 0) return cudaSuccess;
-  kernel<<<(unsigned)grid, threads, smem, st>>>(a, P, lut_n,
-                                                 (int32_t)(tab / 4));
+  p.grid = need < wave ? need : wave;
+  return cudaSuccess;
+}
+
+inline cudaError_t ac_dense_run(const AcDensePlan& p, cudaStream_t st) {
+  if (p.grid == 0) return cudaSuccess;
+  p.kernel<<<(unsigned)p.grid, p.threads, p.smem, st>>>(p.a, p.P, p.lut_n,
+                                                        p.tab_words);
   return cudaGetLastError();
 }
+
+inline cudaError_t ac_dense_launch(const AcScanArgs& args,
+                                   AcDenseKernel on_sm, AcDenseKernel global,
+                                   AcDenseStage stage, cudaStream_t st) {
+  AcDensePlan p;
+  AC_TRY(ac_dense_plan(args, on_sm, global, stage, &p));
+  return ac_dense_run(p, st);
+}
+
+// ---------------------------------------------------------------------------
+// The batch forms (K5, K6, K9's batch form, K2's time-major form), over
+// tables in device memory read through Table: a block of 32 * groups
+// columns, a warp's lanes over 32 consecutive columns, so that each row's
+// symbol loads (and K2's state stores, one 128-byte row a warp)
+// coalesce, and column group w / P's sub-stream w % P in warp w. A
+// column's counts meet in uint32 in shared memory after the LUT and its
+// first warp writes the total; K2's states go out as they come
+// (ac_col_states_part). MaxThreads bounds the block: 256 up to P =
+// AC_COLS_SPLIT, so that the compiler is not held to 64 registers (at
+// 1,024 threads it spills at k >= 2), 1,024 above.
+namespace {
+
+template <typename Layout, typename Table, int K, bool States,
+          int MaxThreads>
+__global__ void __launch_bounds__(MaxThreads)
+    ac_cols_kernel(AcScanArgs a, int32_t P, int32_t lut_n) {
+  extern __shared__ int32_t ac_cols_smem[];
+  ac_lut_to_smem(a, lut_n, ac_cols_smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = warp % P, grp = warp / P;
+  const int groups = blockDim.x / (32 * P);
+  const int64_t col = ((int64_t)blockIdx.x * groups + grp) * 32 + lane;
+  if constexpr (States) {
+    if (col < a.B)
+      ac_col_states_part<Layout>(a, Table::make(a), Layout::make(a, col),
+                                 col, p, P);
+  } else {
+    uint32_t* part = (uint32_t*)(ac_cols_smem + lut_n);
+    part[threadIdx.x] =
+        col < a.B ? ac_stepped_part<K>(a, Layout::make(a, col),
+                                       Table::make(a), p, P)
+                  : 0u;
+    __syncthreads();
+    if (p == 0 && col < a.B) {
+      uint32_t tot = 0;
+      for (int q = 0; q < P; ++q) tot += part[(grp * P + q) * 32 + lane];
+      a.out[col] = (int32_t)tot;
+    }
+  }
+}
+
+// P warps a column group, at least 4 warps; P from ac_launch_split over
+// each P's slots, above AC_COLS_SPLIT only where the launch fits one wave.
+int ac_cols_threads(int P) { return 32 * P < 128 ? 128 : 32 * P; }
+
+template <typename Layout, typename Table, int K, bool States>
+cudaError_t ac_launch_cols(const AcScanArgs& a, cudaStream_t st) {
+  const auto small =
+      ac_cols_kernel<Layout, Table, K, States, 32 * AC_COLS_SPLIT>;
+  const auto large = ac_cols_kernel<Layout, Table, K, States,
+                                    32 * AC_MAX_SPLIT>;
+  const int32_t lut_n = ac_lut_entries(a);
+  int64_t slots[AC_SPLITS];
+  for (int i = 0; i < AC_SPLITS; ++i) {
+    const int threads = ac_cols_threads(1 << i);
+    AC_TRY(ac_slots((1 << i) <= AC_COLS_SPLIT ? small : large, threads,
+                    4 * (lut_n + threads), &slots[i]));
+  }
+  const int P = ac_launch_split(a, a.B, slots, AC_COLS_SPLIT);
+  if (P == 0) return cudaErrorInvalidValue;
+  const int threads = ac_cols_threads(P);
+  const int64_t cols = 32 * (threads / (32 * P));
+  const int64_t grid = (a.B + cols - 1) / cols;
+  if (grid == 0) return cudaSuccess;
+  (P <= AC_COLS_SPLIT ? small : large)<<<(unsigned)grid, threads,
+                                          4 * (lut_n + threads), st>>>(
+      a, P, lut_n);
+  return cudaGetLastError();
+}
+
+}  // namespace
 #endif  // __CUDACC__

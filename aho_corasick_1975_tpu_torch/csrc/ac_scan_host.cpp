@@ -1,14 +1,17 @@
 // Host build of the per-thread scans in ac_scan.cuh, with the same C entry
 // points as the CUDA kernels: each loops over the streams (or batch
-// columns, or windows) one by one, the stepped counts over their
-// sub-streams, and the MXU kernels and K1's and K3's split over their
-// warps, each warp's 32 lanes in turn with the tensor-core instruction and
-// the warp's votes and shuffles emulated. K1 and K8 read the 1-char
-// tables as the card does: a uint16 copy staged by ac_dense_stage where
-// ac_dense_smem_bytes gives it room (the card's shared memory), else in
-// place.
+// columns, or windows) one by one, the split kernels over their
+// sub-streams at the P the card's launcher would pick at full occupancy,
+// and the MXU kernels and K1's and K3's lanes over their warps, each
+// warp's 32 lanes in turn with the tensor-core instruction and the warp's
+// votes and shuffles emulated. K1, K2's stream forms and K8 read the
+// 1-char tables as the card does: a uint16 copy staged by ac_dense_stage
+// where ac_dense_smem_bytes gives it room (the card's shared memory), else
+// in place (K6 and K2's time-major form always); K2 stages its states, and
+// its one-chain form its chunks of ids and states, as the card does.
 // Built with g++ by the CPU tests, so that the logic the H100 kernels run
 // is tested where there is no GPU; the scanner never loads it.
+#include <algorithm>
 #include <type_traits>
 #include <vector>
 
@@ -18,15 +21,9 @@ namespace {
 
 template <void (*U8)(const AcScanArgs&, int64_t),
           void (*I32)(const AcScanArgs&, int64_t)>
-int run(const AcScanArgs* a, int64_t n) {
-  for (int64_t b = 0; b < n; ++b) (a->ext_u8 ? U8 : I32)(*a, b);
-  return 0;
-}
-
-template <void (*U8)(const AcScanArgs&, int64_t),
-          void (*I32)(const AcScanArgs&, int64_t)>
 int run(const AcScanArgs* a) {
-  return run<U8, I32>(a, a->B);
+  for (int64_t b = 0; b < a->B; ++b) (a->ext_u8 ? U8 : I32)(*a, b);
+  return 0;
 }
 
 // P of a stepped launch (ac_launch_split) for an H100 at full occupancy,
@@ -69,31 +66,74 @@ int hits(const AcScanArgs& a, const Table& table) {
   return 0;
 }
 
-// fn(table) over the 1-char tables of a K1 or K8 launch (whose block
-// holds stage_words more words a thread), as the card reads them.
-template <typename Fn>
-int with_dense_table(const AcScanArgs& a, int stage_words, Fn fn) {
+// fn(table) over the 1-char tables of a K1, K2 or K8 launch (whose block
+// holds beside_words more words beside the LUT), as the card reads them;
+// with Counts, the tables give each state's matches.
+template <bool Counts, typename Fn>
+int with_dense_table(const AcScanArgs& a, int64_t beside_words, Fn fn) {
   const int64_t bytes = ac_dense_smem_bytes(
-      a, 4 * ((int64_t)ac_lut_entries(a) + stage_words * kDenseSmThreads));
-  if (bytes == 0) return fn(AcDenseTable<int32_t>::make(a));
+      a, 4 * ((int64_t)ac_lut_entries(a) + beside_words));
+  if (bytes == 0) return fn(AcDenseTable<int32_t, Counts>::make(a));
   std::vector<int32_t> smem(bytes / 4);
-  return fn(ac_dense_stage(a, smem.data(), 0, 1));
+  return fn(ac_dense_stage<Counts>(a, smem.data(), 0, 1));
 }
 
 int stream_hits(const AcScanArgs& a) {
-  return with_dense_table(a, 2 * kHitStage, [&](const auto& table) {
+  return with_dense_table<true>(
+      a, 2 * kHitStage * kDenseSmThreads, [&](const auto& table) {
     return a.ext_u8 ? hits<AcStreamLayout<uint8_t>>(a, table)
                     : hits<AcStreamLayout<int32_t>>(a, table);
   });
 }
 
-// K5, K9's batch form: each column's P sub-streams summed.
+// K5, K6, K9's batch form: each column's P sub-streams summed.
 template <int K, typename Layout, typename Table>
-int cols(const AcScanArgs& a) {
+int cols(const AcScanArgs& a, const Table& table) {
   const int P = split_of(a, a.B, AC_COLS_SPLIT);
   if (P == 0) return 1;
   for (int64_t c = 0; c < a.B; ++c)
-    a.out[c] = (int32_t)ac_stepped_column<K, Layout>(a, Table::make(a), c, P);
+    a.out[c] = (int32_t)ac_stepped_column<K, Layout>(a, table, c, P);
+  return 0;
+}
+
+// K2's stream form at P: the launch's B*P sub-streams one after another,
+// each staging its states in one stage of kStateStage words.
+template <typename Layout, typename Table>
+int states(const AcScanArgs& a, const Table& table, int P) {
+  int32_t stage[kStateStage];
+  for (int64_t g = 0; g < (int64_t)a.B * P; ++g)
+    ac_dense_states_sub<Layout>(a, table, g, P, stage, 1);
+  return 0;
+}
+
+// K2's one-chain form: the window's rows in chunks of kSeqChunk, each
+// translated, walked and stored in turn.
+template <typename T, typename Table>
+int one_chain(const AcScanArgs& a, const Table& table) {
+  std::vector<int32_t> ids(kSeqChunk), st(kSeqChunk);
+  const AcSyms<T> sym = ac_syms<T>(a, 0);
+  const int64_t rows = (int64_t)a.halo + a.L;
+  int32_t s = 0;
+  for (int64_t t0 = 0; t0 < rows; t0 += kSeqChunk) {
+    const int n = (int)std::min<int64_t>(kSeqChunk, rows - t0);
+    ac_seq_load(sym, t0, n, ids.data(), 0, 1);
+    s = ac_seq_walk(table, a.V, ids.data(), st.data(), n, s);
+    ac_seq_store(a, t0, n, st.data(), 0, 1);
+  }
+  return 0;
+}
+
+// K2's time-major form: each column's P sub-streams one after another,
+// the tables in place (the card's read-only path).
+int states_tm(const AcScanArgs& a) {
+  typedef AcBatchLayout<int32_t> Layout;
+  const int P = split_of(a, a.B, AC_COLS_SPLIT);
+  if (P == 0) return 1;
+  const AcDenseTable<int32_t, false> table =
+      AcDenseTable<int32_t, false>::make(a);
+  for (int64_t c = 0; c < a.B; ++c)
+    for (int p = 0; p < P; ++p)
+      ac_col_states_part<Layout>(a, table, Layout::make(a, c), c, p, P);
   return 0;
 }
 
@@ -111,14 +151,27 @@ extern "C" {
 
 int ac_dense_count(const AcScanArgs* args, void*) {
   const AcScanArgs a = ac_dense_args(*args);
-  return with_dense_table(a, 0, [&](const auto& table) {
+  return with_dense_table<true>(a, 0, [&](const auto& table) {
     return a.ext_u8 ? lanes<1, AcStreamLayout<uint8_t>>(a, table, a.B)
                     : lanes<1, AcStreamLayout<int32_t>>(a, table, a.B);
   });
 }
 
-int ac_dense_states(const AcScanArgs* a, void*) {
-  return run<ac_dense_states_stream<uint8_t>, ac_dense_states_stream<int32_t>>(a);
+int ac_dense_states(const AcScanArgs* args, void*) {
+  const AcScanArgs a = ac_dense_args(*args);
+  const int P = split_of(a, a.B, AC_MAX_SPLIT);
+  if (P == 0) return 1;
+  if (a.B == 1 && P == 1)
+    return with_dense_table<false>(
+        a, 4 * kSeqChunk, [&](const auto& table) {
+          return a.ext_u8 ? one_chain<uint8_t>(a, table)
+                          : one_chain<int32_t>(a, table);
+        });
+  return with_dense_table<false>(
+      a, kStateStage * kDenseSmThreads, [&](const auto& table) {
+        return a.ext_u8 ? states<AcStreamLayout<uint8_t>>(a, table, P)
+                        : states<AcStreamLayout<int32_t>>(a, table, P);
+      });
 }
 
 int ac_stepped_count(const AcScanArgs* a, void*) {
@@ -134,9 +187,8 @@ int ac_stepped_emit(const AcScanArgs* a, void*) {
   return run<ac_stepped_emit_stream<uint8_t>, ac_stepped_emit_stream<int32_t>>(a);
 }
 
-int ac_dense_states_tm(const AcScanArgs* a, void*) {
-  return run<ac_dense_states_tm_column<uint8_t>,
-             ac_dense_states_tm_column<int32_t>>(a, a->n_docs);
+int ac_dense_states_tm(const AcScanArgs* args, void*) {
+  return states_tm(ac_dense_args(*args));
 }
 
 int ac_sparse_count(const AcScanArgs* a, void*) {
@@ -154,7 +206,8 @@ int ac_dense_hits(const AcScanArgs* a, void*) {
 
 int ac_window_hits(const AcScanArgs* args, void*) {
   const AcScanArgs a = ac_dense_args(*args);
-  return with_dense_table(a, 2 * kHitStage, [&](const auto& table) {
+  return with_dense_table<true>(
+      a, 2 * kHitStage * kDenseSmThreads, [&](const auto& table) {
     return hits<AcWinLayout>(a, table);
   });
 }
@@ -169,22 +222,27 @@ int ac_window_hits_split(const AcScanArgs* a, int* P) {
   return ac_dense_hits_split(a, P);
 }
 
-int ac_dense_count_many(const AcScanArgs* a, void*) {
-  return run<ac_dense_count_many_column<uint8_t>,
-             ac_dense_count_many_column<int32_t>>(a);
+int ac_dense_count_many(const AcScanArgs* args, void*) {
+  const AcScanArgs a = ac_dense_args(*args);
+  const AcDenseTable<int32_t> table = AcDenseTable<int32_t>::make(a);
+  return a.ext_u8 ? cols<1, AcBatchLayout<uint8_t>>(a, table)
+                  : cols<1, AcBatchLayout<int32_t>>(a, table);
 }
 
 int ac_stepped_count_many(const AcScanArgs* a, void*) {
   if (a->ext_u8)
     AC_WITH_K(a->k,
-              return cols<K, AcBatchLayout<uint8_t>, AcPackedTable>(*a));
-  AC_WITH_K(a->k, return cols<K, AcBatchLayout<int32_t>, AcPackedTable>(*a));
+              return cols<K, AcBatchLayout<uint8_t>>(
+                  *a, AcPackedTable::make(*a)));
+  AC_WITH_K(a->k, return cols<K, AcBatchLayout<int32_t>>(
+                      *a, AcPackedTable::make(*a)));
   return 0;
 }
 
 int ac_stepped_count_2t(const AcScanArgs* a, void*) {
   if (a->layout == 1)
-    AC_WITH_K(a->k, return cols<K, AcBatchLayout<int32_t>, AcTwoTables>(*a));
+    AC_WITH_K(a->k, return cols<K, AcBatchLayout<int32_t>>(
+                        *a, AcTwoTables::make(*a)));
   if (a->ext_u8)
     AC_WITH_K(a->k, return lanes<K, AcStreamLayout<uint8_t>>(
                         *a, AcTwoTables::make(*a), a->B));

@@ -20,7 +20,7 @@
 // output is exactly 8 bytes per matching position. Its sub-streams are
 // K1's: warmed up over warm_steps symbols from the root, symbols loaded a
 // group ahead, the LUT and, where they fit, the 1-char tables on the SM
-// (ac_dense_launch); there pass 2 stages its hits in shared memory and
+// (ac_dense_plan); there pass 2 stages its hits in shared memory and
 // writes whole 32-byte sectors (AcHitsEmit).
 //
 // Bound: a dependent chain of gathers per symbol (dflat, then nb_out; one
@@ -79,9 +79,17 @@ __global__ void __launch_bounds__(OnSm ? kDenseSmThreads : kDenseThreads)
 // staged hits, so that they stage the tables alike.
 template <typename Layout, bool Write>
 int hits_pass(const AcScanArgs* a, void* stream, int* pick) {
-  return (int)ac_dense_launch(*a, hits_kernel<Layout, true, Write>,
-                              hits_kernel<Layout, false, Write>,
-                              2 * kHitStage, (cudaStream_t)stream, pick);
+  AcDensePlan p;
+  AC_TRY(ac_dense_plan(*a, hits_kernel<Layout, true, Write>,
+                       hits_kernel<Layout, false, Write>,
+                       AcDenseStage{2 * kHitStage, Write ? 2 * kHitStage : 0,
+                                    0},
+                       &p));
+  if (pick != nullptr) {
+    *pick = p.P;
+    return 0;
+  }
+  return (int)ac_dense_run(p, (cudaStream_t)stream);
 }
 
 template <typename Layout>

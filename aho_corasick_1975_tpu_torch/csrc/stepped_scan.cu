@@ -29,7 +29,8 @@
 //   each row's symbol loads coalesce, and the P sub-streams over P warps
 //   of the block, reduced through shared memory; a block holds at least
 //   four warps, and the launcher picks P above AC_COLS_SPLIT only where
-//   the launch fits one wave.
+//   the launch fits one wave (ac_launch_cols in ac_scan.cuh, whose blocks
+//   K6 and K2's time-major form share).
 // Every launch writes each column's total once; the raw LUT is read from
 // shared memory where it has at most kLutSmem entries. K4 keeps one thread
 // per stream: its emit is written in stream order.
@@ -47,33 +48,6 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   ac_stepped_lanes<K, Layout>(a, Table::make(a), a.B, P, t & ~(int64_t)31,
                               threadIdx.x & 31);
-}
-
-// A block of 32 * groups columns, each column's P sub-streams in P warps
-// (warp w: sub-stream w % P of column group w / P); the totals meet in
-// shared memory after the LUT. MaxThreads bounds the block: 256 up to P =
-// 8, so that the compiler is not held to 64 registers (at 1,024 threads
-// it spills at k >= 2), 1,024 above.
-template <typename Layout, typename Table, int K, int MaxThreads>
-__global__ void __launch_bounds__(MaxThreads)
-    stepped_cols_kernel(AcScanArgs a, int32_t P, int32_t lut_n) {
-  extern __shared__ int32_t smem[];
-  ac_lut_to_smem(a, lut_n, smem);
-  uint32_t* part = (uint32_t*)(smem + lut_n);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = warp % P, grp = warp / P;
-  const int groups = blockDim.x / (32 * P);
-  const int64_t col = ((int64_t)blockIdx.x * groups + grp) * 32 + lane;
-  part[threadIdx.x] =
-      col < a.B ? ac_stepped_part<K>(a, Layout::make(a, col),
-                                     Table::make(a), p, P)
-                : 0u;
-  __syncthreads();
-  if (p == 0 && col < a.B) {
-    uint32_t tot = 0;
-    for (int q = 0; q < P; ++q) tot += part[(grp * P + q) * 32 + lane];
-    a.out[col] = (int32_t)tot;
-  }
 }
 
 template <typename T>
@@ -94,36 +68,6 @@ cudaError_t launch_lanes(const AcScanArgs& a, cudaStream_t st) {
   const int64_t grid = ((int64_t)a.B * P + kThreads - 1) / kThreads;
   if (grid == 0) return cudaSuccess;
   kernel<<<(unsigned)grid, kThreads, 4 * lut_n, st>>>(a, P, lut_n);
-  return cudaGetLastError();
-}
-
-// K5's and K9's batch blocks: P warps a column group, at least 4 warps;
-// the kernel bounded to 256 threads up to P = AC_COLS_SPLIT, else to
-// 1,024.
-constexpr int kColsSplit = AC_COLS_SPLIT;
-int cols_threads(int P) { return 32 * P < kThreads ? kThreads : 32 * P; }
-
-template <typename Layout, typename Table, int K>
-cudaError_t launch_cols(const AcScanArgs& a, cudaStream_t st) {
-  const auto small = stepped_cols_kernel<Layout, Table, K, 32 * kColsSplit>;
-  const auto large =
-      stepped_cols_kernel<Layout, Table, K, 32 * AC_MAX_SPLIT>;
-  const int32_t lut_n = ac_lut_entries(a);
-  int64_t slots[AC_SPLITS];
-  for (int i = 0; i < AC_SPLITS; ++i) {
-    const int threads = cols_threads(1 << i);
-    AC_TRY(ac_slots((1 << i) <= kColsSplit ? small : large, threads,
-                    4 * (lut_n + threads), &slots[i]));
-  }
-  const int P = ac_launch_split(a, a.B, slots, kColsSplit);
-  if (P == 0) return cudaErrorInvalidValue;
-  const int threads = cols_threads(P);
-  const int64_t cols = 32 * (threads / (32 * P));
-  const int64_t grid = (a.B + cols - 1) / cols;
-  if (grid == 0) return cudaSuccess;
-  (P <= kColsSplit ? small : large)<<<(unsigned)grid, threads,
-                                       4 * (lut_n + threads), st>>>(a, P,
-                                                                    lut_n);
   return cudaGetLastError();
 }
 
@@ -152,18 +96,18 @@ extern "C" int ac_stepped_emit(const AcScanArgs* a, void* stream) {
 extern "C" int ac_stepped_count_many(const AcScanArgs* a, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (a->ext_u8)
-    AC_WITH_K(a->k, return (int)launch_cols<AcBatchLayout<uint8_t>,
-                                            AcPackedTable, K>(*a, st));
-  AC_WITH_K(a->k, return (int)launch_cols<AcBatchLayout<int32_t>,
-                                          AcPackedTable, K>(*a, st));
+    AC_WITH_K(a->k, return (int)ac_launch_cols<AcBatchLayout<uint8_t>,
+                                            AcPackedTable, K, false>(*a, st));
+  AC_WITH_K(a->k, return (int)ac_launch_cols<AcBatchLayout<int32_t>,
+                                          AcPackedTable, K, false>(*a, st));
   return 0;
 }
 
 extern "C" int ac_stepped_count_2t(const AcScanArgs* a, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (a->layout == 1)
-    AC_WITH_K(a->k, return (int)launch_cols<AcBatchLayout<int32_t>,
-                                            AcTwoTables, K>(*a, st));
+    AC_WITH_K(a->k, return (int)ac_launch_cols<AcBatchLayout<int32_t>,
+                                            AcTwoTables, K, false>(*a, st));
   if (a->ext_u8)
     AC_WITH_K(a->k, return (int)launch_lanes<AcStreamLayout<uint8_t>,
                                              AcTwoTables, K>(*a, st));

@@ -311,8 +311,8 @@ class DenseScanner:
         """Derive what depends on the snapshot and the halo: the halo in
         gram steps, the stepped kernels' warm-up (``_warm_steps``, from the
         tables' depth whatever the halo, ``multistep.warm_steps_for``) and
-        the 1-char kernels' (K1, K8: ``_warm_syms``, in symbols, whether
-        or not a stepped table exists), the
+        the 1-char kernels' (K1, K2, K6, K8: ``_warm_syms``, in symbols,
+        whether or not a stepped table exists), the
         raw-encode LUTs, whose exactness rests on the
         tables (raw_lut_entry), and the engine's digit planes, rebuilt
         from the tables (``_mxu`` and ``_hybrid``: (planes int8 tensor
@@ -505,7 +505,7 @@ class DenseScanner:
             ext, lut, head_ids, B, L, T = self._stage(signs, raw, head,
                                                       self.halo, 128)
             out = dense_states(self._snap.dflat, self.V, self.halo, B, L,
-                               ext, lut, head_ids)
+                               ext, lut, head_ids, **self._dense_fields())
             out = out[:T].cpu().numpy()
         self._record("scan_states", T, time.perf_counter() - t0)
         return out
@@ -751,8 +751,8 @@ class DenseScanner:
             **self._dense_fields())
 
     def _dense_fields(self) -> dict:
-        """The 1-char kernels' (K1, K8) sub-stream fields: the warm-up of
-        the current tables and their real rows."""
+        """The 1-char stream kernels' (K1, K2, K8) sub-stream fields: the
+        warm-up of the current tables and their real rows."""
         return dict(warm_steps=self._warm_syms,
                     n_states=self.tables.n_states)
 
@@ -959,7 +959,8 @@ class DenseScanner:
         else:
             c, Lp = self._split_for(L, B, 128)
             per = dense_count_many(snap.dflat, snap.nb_out, self.V,
-                                   self.halo if c > 1 else 0, c, Lp, tm, lut)
+                                   self.halo if c > 1 else 0, c, Lp, tm, lut,
+                                   warm_steps=self._warm_syms)
         return per.view(c, B).sum(dim=0, dtype=torch.int64).cpu().numpy()
 
     # -- retrieval -----------------------------------------------------------
@@ -1214,8 +1215,9 @@ class DenseScanner:
         if len(ids) == 0:
             return np.zeros(0, dtype=np.int32)
         with self._dispatch:
-            return sequential_states(self._snap.dflat, self.V,
-                                     self._snap.place(ids)).cpu().numpy()
+            return sequential_states(
+                self._snap.dflat, self.V, self._snap.place(ids),
+                n_states=self.tables.n_states).cpu().numpy()
 
     def _record(self, op: str, n_symbols: int, seconds: float) -> None:
         self.stats["last_op"] = op

@@ -22,12 +22,14 @@ The count_many scans read a time-major batch ``tm`` [L, B] instead, one
 document per column, each split into c blocks of Lp symbols
 (``split_window``).
 
-On the card K1 (and K8, ``ops/hits.py``) runs each stream as P
-sub-streams, each warmed up over ``warm_steps`` symbols from the root
-before its body, with the 1-char tables staged in shared memory where
-their real rows fit (``dense_fields``). Their wrappers require
-``warm_steps``, which the scanners derive from the tables
-(``multistep.warm_steps_for(tables, 1)``) in their ``_bind()``.
+On the card every kernel here (and K8, ``ops/hits.py``) runs each stream
+or batch column as P sub-streams, each warmed up over ``warm_steps``
+symbols from the root before its body; the stream forms stage the 1-char
+tables in shared memory where their real rows fit (``dense_fields``), the
+batch forms read them in device memory (``batch_fields``). Their
+wrappers require ``warm_steps``, which the scanners derive from the
+tables (``multistep.warm_steps_for(tables, 1)``) in their ``_bind()``.
+K2's one-thread form is one chain from the root (P = 1) and takes none.
 
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 device it launches the kernel or raises.
@@ -174,24 +176,31 @@ def dense_states_plain(dflat, V: int, halo: int, B: int, L: int, ext,
     return torch.stack(rows, dim=1).to(torch.int32).reshape(-1)
 
 
-def dense_fields(dflat, V: int, warm_steps: int, split: int,
-                 n_states: Optional[int], global_table: bool) -> dict:
-    """The launch fields of K1's and K8's sub-streams: ``warm_steps``, the
-    symbols each sub-stream reads from the root before its body (max_depth
-    - 1 of the tables: ``multistep.warm_steps_for(tables, 1)``), ``split``,
-    the sub-streams per column (0: the launcher picks), ``n_states``, the
-    table rows that exist (all of dflat's rows when None; those the kernel
-    stages on the SM), and ``global_table``, which keeps the tables in
-    device memory even where they fit on the SM."""
+def batch_fields(warm_steps: int, split: int) -> dict:
+    """The launch fields of sub-streams over 1-char tables in device
+    memory (K6, K2's time-major form): ``warm_steps``, the symbols each
+    sub-stream reads from the root before its body (max_depth - 1 of the
+    tables: ``multistep.warm_steps_for(tables, 1)``), and ``split``, the
+    sub-streams per column (0: the launcher picks)."""
     if warm_steps < 0:
         raise ValueError(f"warm_steps={warm_steps} < 0")
     build.check_split(split)
+    return dict(warm_steps=warm_steps, split=split)
+
+
+def dense_fields(dflat, V: int, warm_steps: int, split: int,
+                 n_states: Optional[int], global_table: bool) -> dict:
+    """``batch_fields`` of the 1-char stream kernels (K1, K2, K8), whose
+    tables go on the SM where they fit, with ``n_states``, the table rows
+    that exist (all of dflat's rows when None; those the kernel stages on
+    the SM), and ``global_table``, which keeps the tables in device memory
+    even where they fit on the SM."""
     rows = dflat.numel() // V
     if n_states is not None:
         if not 0 < n_states <= rows:
             raise ValueError(f"n_states={n_states} outside (0, {rows}]")
         rows = n_states
-    return dict(warm_steps=warm_steps, split=split, n_states=rows,
+    return dict(batch_fields(warm_steps, split), n_states=rows,
                 global_table=int(global_table))
 
 
@@ -216,26 +225,34 @@ def dense_count(dflat, nb_out, V: int, halo: int, B: int, L: int, ext,
 
 
 def dense_states(dflat, V: int, halo: int, B: int, L: int, ext, lut=None,
-                 head_ids=None) -> torch.Tensor:
-    """K2: int32 state after every body symbol, stream order [B*L]."""
+                 head_ids=None, *, warm_steps: int, split: int = 0,
+                 n_states: Optional[int] = None,
+                 global_table: bool = False) -> torch.Tensor:
+    """K2: int32 state after every body symbol, stream order [B*L]. On
+    the card each stream runs as ``split`` sub-streams
+    (``dense_fields``)."""
     dev = check_stream(B, L, halo, ext, lut, head_ids, dflat)
+    sub = dense_fields(dflat, V, warm_steps, split, n_states, global_table)
     if dev.type == "cpu":
         return dense_states_plain(dflat, V, halo, B, L, ext, lut, head_ids)
     out = torch.empty(B * L, dtype=torch.int32, device=dev)
     build.launch("ac_dense_states", dev, table=dflat, ext=ext, lut=lut,
                  head_ids=head_ids, out=out, L=L, B=B, V=V, halo=halo,
                  ext_u8=int(ext.dtype == torch.uint8),
-                 n_lut=0 if lut is None else lut.numel())
+                 n_lut=0 if lut is None else lut.numel(), **sub)
     return out
 
 
 def dense_count_many(dflat, nb_out, V: int, halo: int, c: int, Lp: int, tm,
-                     lut=None) -> torch.Tensor:
+                     lut=None, *, warm_steps: int,
+                     split: int = 0) -> torch.Tensor:
     """K6: int32 match totals per batch column [c*B] of the time-major
     batch ``tm`` [L, B] (int32 ids, or raw uint8/int32 symbols with
     ``lut``) split into c blocks of Lp with a ``halo`` from the same
-    document; the caller sums each document's c blocks in int64."""
+    document; the caller sums each document's c blocks in int64. On the
+    card each column runs as ``split`` sub-streams (``batch_fields``)."""
     dev = check_batch(c, Lp, tm, lut, dflat, nb_out)
+    sub = batch_fields(warm_steps, split)
     if dev.type == "cpu":
         return dense_count_many_plain(dflat, nb_out, V, halo, c, Lp, tm, lut)
     L, B = tm.shape
@@ -246,7 +263,7 @@ def dense_count_many(dflat, nb_out, V: int, halo: int, c: int, Lp: int, tm,
                  ext=tm, lut=lut, out=out, L=Lp, B=c * B, V=V, halo=halo,
                  ext_u8=int(tm.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), doc_len=L,
-                 n_docs=B)
+                 n_docs=B, **sub)
     return out
 
 
@@ -255,18 +272,22 @@ def sequential_states_plain(dflat, V: int, ids) -> torch.Tensor:
     return dense_states_plain(dflat, V, 0, 1, ids.numel(), ids)
 
 
-def sequential_states(dflat, V: int, ids) -> torch.Tensor:
+def sequential_states(dflat, V: int, ids, *, n_states: Optional[int] = None,
+                      global_table: bool = False) -> torch.Tensor:
     """K2 in one thread: int32 state after each of the int32 letter ids
     [T], the literal recurrence (``scan_states_sequential``): K2 with
-    B = 1 and no halo, counted as its form "seq"."""
+    B = 1, no halo and one sub-stream, one chain from the root (no
+    warm-up), counted as its form "seq"; its block stages the tables on
+    the SM where ``n_states`` rows fit (``dense_fields``)."""
     T = ids.numel()
     dev = check_stream(1, T, 0, ids, None, None, dflat)
+    sub = dense_fields(dflat, V, 0, 1, n_states, global_table)
     if dev.type == "cpu":
         return sequential_states_plain(dflat, V, ids)
     out = torch.empty(T, dtype=torch.int32, device=dev)
     if T:
         build.launch("ac_dense_states", dev, form="seq", table=dflat,
-                     ext=ids, out=out, L=T, B=1, V=V, halo=0)
+                     ext=ids, out=out, L=T, B=1, V=V, halo=0, **sub)
     return out
 
 
@@ -280,17 +301,20 @@ def blocked_states_plain(dflat, V: int, tm) -> torch.Tensor:
     return out
 
 
-def blocked_states(dflat, V: int, tm) -> torch.Tensor:
+def blocked_states(dflat, V: int, tm, *, warm_steps: int,
+                   split: int = 0) -> torch.Tensor:
     """K2 over a time-major [L, B] batch of int32 letter ids, every column
-    from the root: int32 states [L, B]."""
+    from the root: int32 states [L, B]. On the card each column runs as
+    ``split`` sub-streams (``batch_fields``)."""
     if tm.dim() != 2:
         raise ValueError(f"tm must be [L, B] (got shape {tuple(tm.shape)})")
     dev = _check_inputs(tm, None, (dflat,))
+    sub = batch_fields(warm_steps, split)
     if dev.type == "cpu":
         return blocked_states_plain(dflat, V, tm)
     L, B = tm.shape
     out = torch.empty((L, B), dtype=torch.int32, device=dev)
     if out.numel():
         build.launch("ac_dense_states_tm", dev, table=dflat, ext=tm, out=out,
-                     L=L, B=B, V=V, halo=0, doc_len=L, n_docs=B)
+                     L=L, B=B, V=V, halo=0, doc_len=L, n_docs=B, **sub)
     return out

@@ -284,8 +284,8 @@ class ShardedScanner:
         """Derive what depends on the snapshot and the halo (JAX
         ``_bind_kernels``): the halo in gram steps, the stepped kernels'
         warm-up (``_warm_steps``, from the tables' depth) and the 1-char
-        kernels' (K1, K8: ``_warm_syms``, in symbols, with or without a
-        stepped table), the raw-encode
+        kernels' (K1, K2, K6, K8: ``_warm_syms``, in symbols, with or
+        without a stepped table), the raw-encode
         LUTs and
         the engine's digit planes (``_mxu``, ``_hybrid``: (planes by
         device, count_bits, n_planes, S_pad)) with the kernels' copy keyed
@@ -793,8 +793,8 @@ class ShardedScanner:
             B, L = _dense_geometry(Tl, self._n_streams_per_device)
             exts = self._shard_exts(src, self.halo, B * L, head)
             per = self._on_shards(lambda i, e: scan_dense.dense_states(
-                self._tab(i)["dflat"], self.V, self.halo, B, L, e[0])[:Tl],
-                exts)
+                self._tab(i)["dflat"], self.V, self.halo, B, L, e[0],
+                **self._dense_fields())[:Tl], exts)
             return np.concatenate(self._gather(per))[:src[2]]
 
     def session(self) -> StreamSession:
@@ -1188,7 +1188,8 @@ class ShardedScanner:
                 c, Lp = self._split_for(L, B_local, 128)
                 per = scan_dense.dense_count_many(
                     tab["dflat"], tab["nb_out"], self.V,
-                    self.halo if c > 1 else 0, c, Lp, tm, lut)
+                    self.halo if c > 1 else 0, c, Lp, tm, lut,
+                    warm_steps=self._warm_syms)
             return per.view(c, B_local).sum(dim=0, dtype=torch.int64)
         return np.concatenate(self._gather(self._on_shards(count, shards),
                                            torch.int64))

@@ -9,11 +9,11 @@ card, importing nothing of JAX:
 2. golden: the he/she/his/hers example, count and find_matches;
 3. kernels: K1-K4 each against its plain PyTorch version on the same
    inputs, at the slice's shapes (B = 16,384 streams of bench.py's
-   dictionary and corpus), exact equality (tolerance 0), with times; K1
-   and K3 also forced to every split P of SPLIT_SWEEP (sub-streams a
+   dictionary and corpus), exact equality (tolerance 0), with times; K1,
+   K2 and K3 also forced to every split P of SPLIT_SWEEP (sub-streams a
    stream; P = 1 is one thread a stream), exact at each, with their times
-   by P, K1 also with its tables forced through the read-only path
-   (``global_table``) where its launcher stages them on the SM;
+   by P, K1 and K2 also with their tables forced through the read-only
+   path (``global_table``) where their launcher stages them on the SM;
 4. slice: bench.py's 1,000-keyword byte dictionary over its 64 MiB seeded
    corpus, through Machine.scanner(): count() against the native host
    scan, find_matches() (length equal to the count, a seeded sample of
@@ -21,8 +21,9 @@ card, importing nothing of JAX:
    and K2) giving the same count and match ends;
 5. batch kernels: K5 and K6 against their plain versions, exact, at
    BASELINE config 3's count_many shapes (k = 1, 64 blocks of 8,192 + 10
-   of 256 documents), and K5 at the slice's k = 3 tables, with times; K5
-   also forced to every split P, exact at each, with its time by P;
+   of 256 documents), K5 at the slice's k = 3 tables and K6 at its
+   step_k=1 tables (256 documents cut from the slice), with times; K5 and
+   K6 also forced to every split P, exact at each, with their times by P;
 6. count_many: BASELINE config 3 as benchmarks/bench_count_many.py builds
    it (10,000 keywords, 256 documents of 400,000 bytes): raw, id-path and
    resident-tensor batches give equal counts, every document equals the
@@ -55,7 +56,9 @@ card, importing nothing of JAX:
    to every split P (the stream form at the slice, also through the
    read-only path; the window form on the hunt's windows), exact at each,
    and its two passes and the sync and cumsum between them are timed
-   apart (``passes``).
+   apart (``passes``); K2's time-major form is forced to every split P,
+   and its one-thread form (one chain, P = 1) also runs with its tables
+   through the read-only path (``ms_read_only``).
 10. two-table: the slice's dictionary with the two-table k-gram form
    forced (as the tests force it): count() of a letter-id tensor and of
    the bytes (K9's stream form on host-encoded ids) and count_many of 256
@@ -94,19 +97,23 @@ its listed windows), against the int8 tensor-core operations the data
 needs at least (K10, K11: one m16n8k32 product, all planes at once, per
 16 rows and step, the densest the instruction allows) over 1,979 TOPS.
 Every kernel of the JSON line also gives the sub-streams per column its
-launch picked (``split``, the split kernels K1, K3, K5, K8, K9, K11), its
-ns a step of one column's one-thread chain (``ns_per_step``), its times by
-forced split (``ms_by_split``, the split kernels; K1 and K8's stream form
-also ``ms_by_split_read_only``), K8's pass times (``passes``) and the most
-registers and spill bytes ptxas gave its kernels (``registers``, the split
-ones), whose every line is printed before it. Prints the kernels' JSON line, the
-card's name and power limit, and last the line
-{"ok": true, "device": {...}}. Any failure exits non-zero, and so does a
-machine without CUDA.
+launch picked (``split``, the split kernels K1-K3, K5, K6, K8, K9, K11),
+its ns a step of one column's one-thread chain (``ns_per_step``), its
+times by forced split (``ms_by_split``, the split kernels; K1's, K2's
+and K8's stream forms also ``ms_by_split_read_only``), K2's one-thread form
+through the read-only path (``ms_read_only``), K8's pass times
+(``passes``) and the most registers and spill bytes ptxas gave its
+kernels (``registers``, the split ones), whose every line is printed
+before it. Prints the kernels' JSON line, a {"plain_ops": ...} line (the
+plain-torch steps no kernel replaces, each with its card time a call and
+bytes bound: ``plain_ops``), the mesh line, the card's name and power
+limit, and last the line {"ok": true, "device": {...}}. Any failure exits
+non-zero, and so does a machine without CUDA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
 import json
@@ -344,6 +351,91 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+# The plain-torch steps that no kernel replaces, on the paths that run
+# them: the device block filter (prefilter counts of a resident tensor),
+# the refresh's row scatter, and find_matches' refinement of live grams
+# (both forms). name -> {"calls", "ms", "bytes"}, summed over the calls
+# timed by plain_ops.
+PLAIN_OPS: dict = {}
+
+
+@contextlib.contextmanager
+def plain_ops(*expect: str):
+    """Times every call of the plain-torch steps inside the block with
+    CUDA events around it (the host work and syncs inside the call
+    count), into PLAIN_OPS, with the bytes it must move: each tensor
+    argument read once (the tables whole: their capacity rows), each
+    output written once; the block filter reads the body and writes the
+    order; the scatter uploads its rows and values and writes the values
+    into the table. Fails unless each step named in `expect` was timed
+    in the block, so that a renamed or rebound step cannot drop its row
+    unnoticed."""
+    from aho_corasick_1975_tpu_torch.models import scanner as msc
+    from aho_corasick_1975_tpu_torch.models import snapshot as msnap
+    from aho_corasick_1975_tpu_torch.ops import sparse
+    marks = []
+
+    def refine_bytes(a, out):
+        return sum(nbytes(x) for x in a[5:] if isinstance(x, torch.Tensor)
+                   and x.dim() > 0) + nbytes(out[:2])
+
+    def filter_bytes(a, out):
+        _, nB, L_blk, _ = a
+        return 4 * nB * L_blk + nbytes(out[0])
+
+    def scatter_bytes(a, out):
+        rows, vals = np.asarray(a[2]), np.asarray(a[3])
+        return 8 * rows.size + 2 * 4 * vals.size
+
+    def timed(name, orig, moved):
+        def fn(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = orig(*a, **k)
+            e1.record()
+            marks.append((name, e0, e1, moved(a, out)))
+            return out
+        return fn
+
+    patches = [(msc, "hits_extract", refine_bytes),
+               (msc, "hits_extract_dense", refine_bytes),
+               (sparse, "block_filter", filter_bytes),
+               (msnap.DeviceSnapshot, "_scatter", scatter_bytes)]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
+             patches]
+    try:
+        for owner, attr, moved in patches:
+            setattr(owner, attr, timed(attr, getattr(owner, attr), moved))
+        yield
+    finally:
+        for owner, attr, orig in saved:
+            setattr(owner, attr, orig)
+        torch.cuda.synchronize()
+        for name, e0, e1, moved in marks:
+            row = PLAIN_OPS.setdefault(name, {"calls": 0, "ms": 0.0,
+                                              "bytes": 0})
+            row["calls"] += 1
+            row["ms"] += e0.elapsed_time(e1)
+            row["bytes"] += moved
+    timed_here = {name for name, *_ in marks}
+    for name in expect:
+        check(name in timed_here, f"plain_ops timed {name} in its block "
+              f"(timed: {sorted(timed_here)})")
+
+
+def plain_ops_line() -> dict:
+    """PLAIN_OPS with each step's ms a call and bound (bytes)."""
+    out = {}
+    for name, row in PLAIN_OPS.items():
+        n = row["calls"]
+        out[name] = {"calls": n, "ms": row["ms"] / n,
+                     "bytes": row["bytes"] / n,
+                     "bound_ms": bound(row["bytes"] / n, 0)[0],
+                     "bound_by": "bytes"}
+    return out
+
+
 def phase_kernels(sc, text: bytes) -> dict:
     """K1-K4 against their plain versions at the slice's shapes, on the
     slice's tables and corpus: raw uint8 and int32 letter-id inputs,
@@ -356,12 +448,12 @@ def phase_kernels(sc, text: bytes) -> dict:
     dense_in = stream_inputs(sc, text, sc.halo, B, L)
     step_in = stream_inputs(sc, text, sc._halo_sym, B, L)
     k1 = functools.partial(scan_dense.dense_count, **sc._dense_fields())
+    k2 = functools.partial(scan_dense.dense_states, **sc._dense_fields())
     cases = {
         "ac_dense_count": (k1, scan_dense.dense_count_plain,
                            (snap.dflat, snap.nb_out, sc.V, sc.halo, B, L),
                            dense_in),
-        "ac_dense_states": (scan_dense.dense_states,
-                            scan_dense.dense_states_plain,
+        "ac_dense_states": (k2, scan_dense.dense_states_plain,
                             (snap.dflat, sc.V, sc.halo, B, L), dense_in),
         "ac_stepped_count": (functools.partial(multistep.stepped_count,
                                                warm_steps=sc._warm_steps),
@@ -379,15 +471,15 @@ def phase_kernels(sc, text: bytes) -> dict:
         results[name] = compare(name, kernel, plain, args, ins,
                                 f"B={B} L={L}", need=needs(sc),
                                 steps=steps[name])
-    for name in ("ac_stepped_count", "ac_dense_count"):
+    for name in ("ac_stepped_count", "ac_dense_count", "ac_dense_states"):
         kernel, plain, args, ins = cases[name]
         for kind, row in split_sweep(name, kernel, plain, args, ins,
                                      steps[name]).items():
             results[name][kind]["ms_by_split"] = row
-    for kind, row in split_sweep("ac_dense_count", k1, *cases[
-            "ac_dense_count"][1:], steps["ac_dense_count"],
-            global_table=True).items():
-        results["ac_dense_count"][kind]["ms_by_split_read_only"] = row
+    for name in ("ac_dense_count", "ac_dense_states"):
+        for kind, row in split_sweep(name, *cases[name], steps[name],
+                                     global_table=True).items():
+            results[name][kind]["ms_by_split_read_only"] = row
     return results
 
 
@@ -520,15 +612,20 @@ def ptxas_kernels(log: str) -> list:
     return rows
 
 
-# The kernels of each split entry point, by a substring of their names.
+# The kernels of each split entry point, by a pattern of their demangled
+# names.
 SPLIT_KERNELS = {
-    "ac_dense_count": ("dense_count_kernel", ""),
-    "ac_dense_hits": ("hits_kernel<AcStreamLayout", ""),
-    "ac_window_hits": ("hits_kernel<AcWinLayout", ""),
-    "ac_stepped_count": ("stepped_lanes_kernel", "AcPackedTable"),
-    "ac_stepped_count_many": ("stepped_cols_kernel", "AcPackedTable"),
-    "ac_stepped_count_2t": ("stepped_", "AcTwoTables"),
-    "ac_hybrid_count": ("hybrid_count_kernel", ""),
+    "ac_dense_count": r"dense_count_kernel",
+    "ac_dense_states": r"dense_states_kernel",
+    "ac_dense_states/seq": r"dense_seq_kernel",
+    "ac_dense_count_many": r"ac_cols_kernel<[^(]*AcDenseTable<int, true>",
+    "ac_dense_states_tm": r"ac_cols_kernel<[^(]*AcDenseTable<int, false>",
+    "ac_dense_hits": r"hits_kernel<AcStreamLayout",
+    "ac_window_hits": r"hits_kernel<AcWinLayout",
+    "ac_stepped_count": r"stepped_lanes_kernel<[^(]*AcPackedTable",
+    "ac_stepped_count_many": r"ac_cols_kernel<[^(]*AcPackedTable",
+    "ac_stepped_count_2t": r"AcTwoTables",
+    "ac_hybrid_count": r"hybrid_count_kernel",
 }
 
 
@@ -537,8 +634,7 @@ def registers_of(ptxas: list, entry: str):
     or None for one that is not a stepped entry."""
     if entry not in SPLIT_KERNELS:
         return None
-    fam, table = SPLIT_KERNELS[entry]
-    rows = [r for r in ptxas if fam in r[0] and table in r[0]]
+    rows = [r for r in ptxas if re.search(SPLIT_KERNELS[entry], r[0])]
     if not rows:
         return None
     return {"max": max(r[1] for r in rows),
@@ -628,11 +724,12 @@ def batch_tm(docs, L: int, dtype, encode=None) -> np.ndarray:
     return tm
 
 
-def phase_batch_kernels(sc, docs, sc3, text: bytes) -> dict:
+def phase_batch_kernels(sc, docs, sc3, sc1, text: bytes) -> dict:
     """K5 and K6 against their plain versions at config 3's count_many
     shapes (its L bucket of 524,288 split into c blocks of Lp with the
     halo of 10), raw uint8 and int32 ids; K5 also on the slice's k = 3
-    tables over 256 documents cut from the slice corpus."""
+    tables and K6 on its step_k=1 tables (sc1), each over 256 documents
+    cut from the slice corpus; K5 and K6 also at every forced split."""
     from aho_corasick_1975_tpu_torch.ops import multistep, scan_dense
     st, snap = sc._stepped, sc._snap
     check(st is not None and st.k == 1, "config 3's packed table has k=1")
@@ -648,20 +745,27 @@ def phase_batch_kernels(sc, docs, sc3, text: bytes) -> dict:
                            warm_steps=sc._warm_steps)
     args5 = (snap.packed, st.V, st.k, st.count_bits, sc._halo_steps, c, Lp)
     steps5 = sc._halo_steps + Lp // st.k
+    k6 = functools.partial(scan_dense.dense_count_many,
+                           warm_steps=sc._warm_syms)
+    args6 = (snap.dflat, snap.nb_out, sc.V, sc.halo, c, Lp)
     res = {
         "ac_stepped_count_many": compare(
             "ac_stepped_count_many", k5, multistep.stepped_count_many_plain,
             args5, ins, shape + f" k=1 halo={sc._halo_sym}", need=needs(sc),
             steps=steps5),
         "ac_dense_count_many": compare(
-            "ac_dense_count_many", scan_dense.dense_count_many,
-            scan_dense.dense_count_many_plain,
-            (snap.dflat, snap.nb_out, sc.V, sc.halo, c, Lp), ins,
-            shape + f" halo={sc.halo}", need=needs(sc), steps=sc.halo + Lp)}
-    for kind, row in split_sweep(
-            "ac_stepped_count_many", k5, multistep.stepped_count_many_plain,
-            args5, {"raw_u8": ins["raw_u8"]}, steps5).items():
-        res["ac_stepped_count_many"][kind]["ms_by_split"] = row
+            "ac_dense_count_many", k6, scan_dense.dense_count_many_plain,
+            args6, ins, shape + f" halo={sc.halo}", need=needs(sc),
+            steps=sc.halo + Lp)}
+    for name, fn, plain, args, steps in (
+            ("ac_stepped_count_many", k5, multistep.stepped_count_many_plain,
+             args5, steps5),
+            ("ac_dense_count_many", k6, scan_dense.dense_count_many_plain,
+             args6, sc.halo + Lp)):
+        for kind, row in split_sweep(name, fn, plain, args,
+                                     {"raw_u8": ins["raw_u8"]},
+                                     steps).items():
+            res[name][kind]["ms_by_split"] = row
     st3, snap3 = sc3._stepped, sc3._snap
     L3 = min(len(text) // B, 1 << 18) // st3.k * st3.k
     tm3 = np.frombuffer(text[:B * L3], np.uint8).reshape(B, L3).T.copy()
@@ -682,6 +786,25 @@ def phase_batch_kernels(sc, docs, sc3, text: bytes) -> dict:
                                  ins3, steps3).items():
         k3[kind]["ms_by_split"] = row
     res["ac_stepped_count_many"].update(k3)
+    # K6 at the slice's step_k=1 batch: its tables fit on the SM
+    snap1 = sc1._snap
+    c1, Lp1 = sc1._split_for(L3, B, 128)
+    k6_1 = functools.partial(scan_dense.dense_count_many,
+                             warm_steps=sc1._warm_syms)
+    args1 = (snap1.dflat, snap1.nb_out, sc1.V, sc1.halo if c1 > 1 else 0,
+             c1, Lp1)
+    ins1 = {"slice_k1_raw_u8": (snap1.place(tm3),
+                                snap1.place(sc1._get_lut("byte")[3]))}
+    steps1 = args1[3] + Lp1
+    k6s = compare("ac_dense_count_many", k6_1,
+                  scan_dense.dense_count_many_plain, args1, ins1,
+                  f"L={L3} B={B} c={c1} Lp={Lp1} halo={args1[3]}",
+                  need=needs(sc1), steps=steps1)
+    for kind, row in split_sweep("ac_dense_count_many", k6_1,
+                                 scan_dense.dense_count_many_plain, args1,
+                                 ins1, steps1).items():
+        k6s[kind]["ms_by_split"] = row
+    res["ac_dense_count_many"].update(k6s)
     return res
 
 
@@ -1004,7 +1127,8 @@ def phase_sparse(act, build):
         # [TM_SIDE, TM_SIDE] batch of the resident ids
         tm = torch.from_numpy(corpora[1e-2][:TM_SIDE ** 2]).to("cuda")
         states_tm = scan_dense.blocked_states(scb1._snap.dflat, scb1.V,
-                                              tm.view(TM_SIDE, TM_SIDE))
+                                              tm.view(TM_SIDE, TM_SIDE),
+                                              warm_steps=scb1._warm_syms)
         return hunt, resident, seq, states_tm.shape
 
     (hunt, resident, seq, tm_shape), launches = driven(
@@ -1025,6 +1149,9 @@ def phase_sparse(act, build):
     (n1, path_1, k1_s), (n1_t, path_1t, k1t_s) = (hunt["k1 count"],
                                                   hunt["k1 tensor count"])
     n_off = off.count(text)
+    with plain_ops("hits_extract"):   # the hunt's few live grams' refinement
+        check(len(off.find_matches(text)) == n_off, "timed find_matches "
+              "of the hunt, prefilter off")
     check(n == n_t == n1 == n1_t == oracle == n_off,
           f"sparse count {n} (tensor {n_t}; step_k=1 {n1}, tensor {n1_t}) "
           f"equals the host oracle {oracle} and prefilter=off {n_off}")
@@ -1109,6 +1236,9 @@ def phase_sparse(act, build):
                   f"{cs * 1e3:.1f} ms; find_matches [{pf}] {fs * 1e3:.1f} ms",
                   flush=True)
     tensor = torch.from_numpy(corpora[1e-3]).to("cuda")
+    with plain_ops("block_filter"):   # the device block filter
+        check(scb.count(tensor) == mr._b.match_bulk(0, corpora[1e-3])[1],
+              "timed prefilter count of a resident tensor")
     print(f"sparse (b) density 0.001 tensor count() profile: "
           f"{device_busy(lambda: scb.count(tensor))}", flush=True)
     return dict(sc=sc, text=text, hunt_ids=hunt_ids, scb=scb, scb1=scb1,
@@ -1191,9 +1321,10 @@ def hit_passes(build, fn, reps: int = 10) -> dict:
 def phase_sparse_kernels(build, state: dict, gate: dict, text: bytes
                          ) -> dict:
     """(d) K7, K8 and the K2 modes against their plain versions at the
-    sparse phase's shapes, exact; the kernel's mean over 10 runs. K8 also
-    at every forced split (the stream form also with the tables through the
-    read-only path), each form's passes timed apart."""
+    sparse phase's shapes, exact; the kernel's mean over 10 runs. K8 and
+    K2's time-major form also at every forced split (K8's stream form also
+    with the tables through the read-only path), K8's passes timed apart,
+    K2's one-thread form also through the read-only path."""
     from aho_corasick_1975_tpu_torch.ops import hits, scan_dense, sparse
     sc, scb, scb1 = state["sc"], state["scb"], state["scb1"]
     sca1, t_ids = gate["sca1"], gate["t_ids"]
@@ -1318,17 +1449,32 @@ def phase_sparse_kernels(build, state: dict, gate: dict, text: bytes
                 "ac_dense_hits", k8, hits_of(hits.dense_hits_plain), k8_args,
                 k8_ins, sca1.halo + L, reps=10, **kw).items():
             res["ac_dense_hits"][kind][key] = row
-    res["ac_dense_states/seq"] = compare(
-        "ac_dense_states/seq", scan_dense.sequential_states,
-        scan_dense.sequential_states_plain, (s1.dflat, sca1.V),
-        {"ids_i32": (t_ids[:SEQ_SYMBOLS].contiguous(),)}, f"T={SEQ_SYMBOLS}",
-        need=needs(sca1), steps=SEQ_SYMBOLS)
+    # K2's one-thread form: one chain from the root, its tables on the SM
+    # and through the read-only path
+    seq_in = {"ids_i32": (t_ids[:SEQ_SYMBOLS].contiguous(),)}
+    seq = []
+    for kw in ({}, dict(global_table=True)):
+        seq.append(compare("ac_dense_states/seq", functools.partial(
+            scan_dense.sequential_states, n_states=sca1.tables.n_states,
+            **kw), scan_dense.sequential_states_plain, (s1.dflat, sca1.V),
+            seq_in, f"T={SEQ_SYMBOLS}{f' {kw}' if kw else ''}",
+            need=needs(sca1), steps=SEQ_SYMBOLS))
+        check(build.splits.get("ac_dense_states") == 1,
+              "K2's one-thread form runs one chain")
+    seq[0]["ids_i32"]["ms_read_only"] = seq[1]["ids_i32"]["ms"]
+    res["ac_dense_states/seq"] = seq[0]
     tm = ext_ids[sca1.halo:].view(B, L).t().contiguous()
+    k2tm = functools.partial(scan_dense.blocked_states,
+                             warm_steps=sca1._warm_syms)
+    tm_in = {"ids_i32": (tm,)}
     res["ac_dense_states_tm"] = compare(
-        "ac_dense_states_tm", scan_dense.blocked_states,
-        scan_dense.blocked_states_plain, (s1.dflat, sca1.V),
-        {"ids_i32": (tm,)}, f"[L, B] = [{L}, {B}]", need=needs(sca1),
+        "ac_dense_states_tm", k2tm, scan_dense.blocked_states_plain,
+        (s1.dflat, sca1.V), tm_in, f"[L, B] = [{L}, {B}]", need=needs(sca1),
         steps=L)
+    for kind, row in split_sweep(
+            "ac_dense_states_tm", k2tm, scan_dense.blocked_states_plain,
+            (s1.dflat, sca1.V), tm_in, L, reps=10).items():
+        res["ac_dense_states_tm"][kind]["ms_by_split"] = row
     return res
 
 
@@ -1995,6 +2141,8 @@ def main() -> int:
         t0 = time.perf_counter()
         check(len(sc.find_matches(text)) == n, "repeat find_matches")
         find_times.append(time.perf_counter() - t0)
+    with plain_ops("hits_extract_dense"):   # the slice's refinement
+        check(len(sc.find_matches(text)) == n, "timed find_matches")
     mib = len(text) / 2 ** 20
     print(f"slice: count {n} == host oracle ({oracle_s:.2f} s); "
           f"count() first {count_s:.4f} s, then "
@@ -2012,7 +2160,7 @@ def main() -> int:
           f"step_k={sc_cm.step_k}, halo={sc_cm.halo}, packed "
           f"{sc_cm._snap.packed.numel() * 4} bytes, set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    kern.update(phase_batch_kernels(sc_cm, docs, sc, text))
+    kern.update(phase_batch_kernels(sc_cm, docs, sc, sc1, text))
     del sc_cm
 
     # 6. count_many at config 3
@@ -2025,8 +2173,9 @@ def main() -> int:
     phase_sessions(act, build, machine, sc, text, n, ms.ends,
                    min(count_times))
 
-    # 8. refresh at bench_refresh.py's shape
-    phase_refresh(act, build)
+    # 8. refresh at bench_refresh.py's shape (its row scatters timed)
+    with plain_ops("_scatter"):
+        phase_refresh(act, build)
 
     # 9. the sparse prefilter: (a)-(b), (c) the auto gate, (d) kernels
     state, sparse_launches = phase_sparse(act, build)
@@ -2070,7 +2219,7 @@ def main() -> int:
 
     ptxas = ptxas_kernels(build_log)
     for name, regs, st_b, ld_b in ptxas:
-        if any(f in name for f, _ in SPLIT_KERNELS.values()):
+        if any(re.search(p, name) for p in SPLIT_KERNELS.values()):
             print(f"ptxas: {name}: {regs} registers, spill {st_b} bytes "
                   f"stored, {ld_b} loaded", flush=True)
 
@@ -2085,9 +2234,11 @@ def main() -> int:
          "ns_per_step": first(entry, "ns_per_step"),
          "ms_by_split": first(entry, "ms_by_split"),
          "ms_by_split_read_only": first(entry, "ms_by_split_read_only"),
+         "ms_read_only": first(entry, "ms_read_only"),
          "passes": first(entry, "passes"),
          "registers": registers_of(ptxas, entry)}
         for entry, (name, src, rep) in KERNELS.items()]}), flush=True)
+    print(json.dumps({"plain_ops": plain_ops_line()}), flush=True)
     print(json.dumps({"mesh": {"device": kind, "shards": MESH_SHARDS,
                                "n_streams_per_device": MESH_STREAMS,
                                "paths": MESH_PATHS}}), flush=True)

@@ -20,13 +20,14 @@ JAX package's ``ops/multistep.py``, ``ops/scan_mxu.py``,
 ``ops/scan_hybrid.py`` and ``ops/sparse.py`` functions. K12's three phases
 (the associative scan's chunked composition) are held against the JAX
 package's ``ops/scan_assoc.py:make_assoc_scan``. The split kernels (K3,
-K5, K9, K11's gather half, and at k = 1 K1 and K8's two forms: each
-column as P sub-streams, each warmed up over the tables' warm_steps) are
-forced to every P up to 32 and held against the plain versions and the
-JAX package (K1 and K8 also over the 1-char tables staged as on the SM
-and read in place, K8's positions and states element for element), and
-the launcher's pick of P is held at the slice's, config 3's and the
-step_k=1 slice's shapes.
+K5, K9, K11's gather half, and at k = 1 K1, K2's stream and time-major
+forms, K6 and K8's two forms: each column as P sub-streams, each warmed
+up over the tables' warm_steps) are forced to every P up to 32 and held
+against the plain versions and the JAX package (the 1-char kernels also
+over the 1-char tables staged as on the SM and read in place, K2's states
+and K8's positions and states element for element, K2's staged state
+writes at every alignment), and the launcher's pick of P is held at the
+slice's, config 3's and the step_k=1 slice's shapes.
 """
 
 import ctypes
@@ -96,7 +97,7 @@ def test_dense_kernels(lib, kind, shape):
     assert torch.equal(out, want) and int(want.sum()) > 0
     states = torch.full((B * L,), -7, dtype=torch.int32)
     _run(lib, "ac_dense_states", table=dflat, out=states,
-         **_common(s, halo, L, V))
+         warm_steps=tab["warm_steps"], **_common(s, halo, L, V))
     assert torch.equal(states, scan_dense.dense_states_plain(dflat,
                                                              *plain_args))
 
@@ -196,7 +197,7 @@ def test_dense_count_many_kernel(lib, kind, c):
     dflat, nb_out = _t(tab["dflat"]), _t(tab["nb_out"])
     out = torch.full((c * 4,), -7, dtype=torch.int32)
     _run(lib, "ac_dense_count_many", table=dflat, nb_out=nb_out, out=out,
-         **_many_common(b, c, L, Lp, halo, V))
+         warm_steps=tab["warm_steps"], **_many_common(b, c, L, Lp, halo, V))
     want = scan_dense.dense_count_many_plain(dflat, nb_out, V, halo, c, Lp,
                                              _t(b["tm"]), _t(b["lut"]))
     assert torch.equal(out, want) and int(want.sum()) > 0
@@ -347,7 +348,7 @@ def test_k2_mode_kernels(lib):
     ids = tc.stream(tab, "ids", 0, 40)["ext"]
     out = torch.full((len(ids),), -7, dtype=torch.int32)
     _run(lib, "ac_dense_states", table=dflat, ext=_t(ids), out=out,
-         L=len(ids), B=1, V=V, halo=0)
+         L=len(ids), B=1, V=V, halo=0, split=1, warm_steps=0)
     _, want = jxla.make_sequential_scan(V)(jnp.asarray(tab["dflat"]),
                                           jnp.asarray(ids), jnp.int32(0))
     np.testing.assert_array_equal(out.numpy(), np.asarray(want))
@@ -355,7 +356,7 @@ def test_k2_mode_kernels(lib):
     out = torch.full(tm.shape, -7, dtype=torch.int32)
     _run(lib, "ac_dense_states_tm", table=dflat, ext=_t(tm), out=out,
          L=tm.shape[0], B=tm.shape[1], V=V, halo=0, doc_len=tm.shape[0],
-         n_docs=tm.shape[1])
+         n_docs=tm.shape[1], warm_steps=tab["warm_steps"])
     np.testing.assert_array_equal(out.numpy(), np.asarray(
         jxla.make_blocked_scan(V)(jnp.asarray(tab["dflat"]),
                                   jnp.asarray(tm))))
@@ -1094,7 +1095,8 @@ def test_stepped_split_rejects_a_bad_split(lib, split_refs):
 
 @pytest.mark.parametrize("case", ["k3_raw_u8", "k5_c3", "k9_batch",
                                   "k11_mixed", "k1_raw_u8", "k8_raw_u8",
-                                  "k8_window"])
+                                  "k8_window", "k2_raw_u8", "k2_tm",
+                                  "k6_c3"])
 def test_stepped_launch_requires_warm_steps(lib, split_refs, dense_refs,
                                             case):
     """A split launch whose fields leave out warm_steps (scan_args sets
@@ -1135,9 +1137,9 @@ def test_launcher_split_choice(lib, split_refs, dense_refs, shape):
     the card holds 1,536 threads an SM (three waves of a quarter of the
     chain beat two of a half and one of a full), above 8 for the batch
     launches only in one wave, and fewer where the warm-up cap bites. The
-    host build picks as the card at full occupancy (K3, K1, K8's stream
-    and window forms), and K8's ``_split`` query gives the P its launch
-    then takes."""
+    host build picks as the card at full occupancy (K3, K1, K2's and
+    K8's stream forms, K8's window form), and K8's ``_split`` query gives
+    the P its launch then takes."""
     n_body, hs, warm = {"slice": (1408, 3, 3), "config3": (8192, 10, 10),
                         "slice_k1": (4224, 9, 9)}[shape]
     pick = functools.partial(build.pick_split, lib, 16384, n_body, hs, warm)
@@ -1164,7 +1166,7 @@ def test_launcher_split_choice(lib, split_refs, dense_refs, shape):
         # the hunt's windows (128 symbols, warm-up 8) at most 4 ways
         assert build.pick_split(lib, 2048, 128, 8, 8, _slots(512)) == 4
         assert build.pick_split(lib, 65536, 128, 8, 8, _slots(512)) == 1
-        for case in ("k1_raw_u8", "k8_raw_u8", "k8_window"):
+        for case in ("k1_raw_u8", "k8_raw_u8", "k8_window", "k2_raw_u8"):
             name, fields, plain, _ = dense_refs(case)
             want = build.pick_split(lib, fields["B"], fields["L"],
                                     fields["halo"], fields["warm_steps"],
@@ -1195,11 +1197,16 @@ def test_launcher_split_choice(lib, split_refs, dense_refs, shape):
 # -- K1, K8: the 1-char sub-streams --------------------------------------------
 
 HITS_ENTRIES = ("ac_dense_hits", "ac_window_hits")
-# (kernel, input kind, halo in symbols, body symbols a stream) at the k = 1
-# tables (warm-up 5 symbols): a halo of 2, shorter than the warm-up, and 0;
-# remainders (37 symbols); a body of 2 symbols, too short for most splits;
-# K8's window form over the index list of tc.sparse's stream, windows of
-# 64 symbols (L_blk) behind a halo of 5
+# K2's entry points: states, one per body symbol, not totals
+STATE_ENTRIES = ("ac_dense_states", "ac_dense_states_tm")
+# (kernel, input kind, halo in symbols, body symbols a stream or batch
+# block) at the k = 1 tables (warm-up 5 symbols): a halo of 2, shorter
+# than the warm-up, and 0; remainders (37 symbols); a body of 2 symbols,
+# too short for most splits; K8's window form over the index list of
+# tc.sparse's stream, windows of 64 symbols (L_blk) behind a halo of 5;
+# K2's time-major form over 5 columns of 37 ids from the root; K6 over 4
+# documents, whole (c = 1) or in 3 blocks of 24 behind a halo of 5, the
+# last block short (61 symbols)
 DENSE_CASES = {
     "k1_raw_u8": ("k1", "raw_u8", 2, 40),
     "k1_raw_i32": ("k1", "raw_i32", 5, 37),
@@ -1210,8 +1217,15 @@ DENSE_CASES = {
     "k8_ids_halo0": ("k8", "ids", 0, 40),
     "k8_short": ("k8", "raw_u8", 5, 2),
     "k8_window": ("k8", "ids", 5, 64),
+    "k2_raw_u8": ("k2", "raw_u8", 2, 40),
+    "k2_raw_i32": ("k2", "raw_i32", 5, 37),
+    "k2_ids_halo0": ("k2", "ids", 0, 40),
+    "k2_short": ("k2", "raw_u8", 5, 2),
+    "k2_tm": ("k2_tm", "ids", 0, 37),
+    "k6_c1": ("k6", "raw_u8", 0, 24),
+    "k6_c3": ("k6", "raw_i32", 5, 24),
 }
-# K1's and K8's tables: staged as the card stages them on the SM (the
+# The 1-char tables: staged as the card stages them on the SM (the
 # uint16 copy of ac_dense_stage; tc.tables' real rows fit), or read in
 # place as the card's read-only path does
 TABLE_PATHS = {"sm": 0, "global": 1}
@@ -1233,7 +1247,9 @@ def _dense_ref(case):
     """(entry point, launch fields, the plain version's output, the JAX
     package's) of one DENSE_CASES case: K1's per-stream totals (and the
     Pallas kernel's sum, in interpret mode, over the same windows); K8's
-    (positions, states, n_hits, n_hit_pos)."""
+    (positions, states, n_hits, n_hit_pos); K2's states, stream order or
+    [L, B]; K6's totals per batch column (the JAX package's count over
+    split_docs_layout)."""
     from aho_corasick_1975_tpu.ops.scan_pallas import make_pallas_blocked_count
     kernel, kind, halo, L = DENSE_CASES[case]
     tab = tc.tables(1)
@@ -1242,6 +1258,26 @@ def _dense_ref(case):
     jt = (jnp.asarray(tab["dflat"]), jnp.asarray(tab["nb_out"]))
     base = dict(table=dflat, nb_out=nb_out, warm_steps=tab["warm_steps"],
                 n_states=tab["n_states"])
+    if kernel == "k2_tm":
+        tm = tc.batch(tab, kind, L, n_docs=5)["tm"]
+        fields = dict(base, nb_out=None, ext=_t(tm), L=L, B=5, V=V, halo=0,
+                      doc_len=L, n_docs=5)
+        plain = scan_dense.blocked_states_plain(dflat, V, _t(tm))
+        jwant = jxla.make_blocked_scan(V)(jt[0], jnp.asarray(tm))
+        return "ac_dense_states_tm", fields, plain, np.asarray(jwant)
+    if kernel == "k6":
+        c = 3 if case == "k6_c3" else 1
+        Ld = 3 * L - 11 if c == 3 else L
+        b = tc.batch(tab, kind, Ld)
+        fields = dict(base, **_many_common(b, c, Ld, L, halo, V))
+        plain = scan_dense.dense_count_many_plain(dflat, nb_out, V, halo, c,
+                                                  L, _t(b["tm"]),
+                                                  _t(b["lut"]))
+        per_col, _ = _jax_many(
+            b, c, L, halo,
+            lambda h, w: jxla.blocked_count_core(V, h, *jt, w),
+            lambda raw: jxla.make_blocked_count_many(V, halo, c, L, raw), jt)
+        return "ac_dense_count_many", fields, plain, per_col
     if case == "k8_window":
         s = tc.sparse(tab, halo, L)
         src, idx, fields = _win_fields(s, "idx", L)
@@ -1255,6 +1291,16 @@ def _dense_ref(case):
     fields = dict(base, **_common(s, halo, L, V))
     args = (V, halo, B, L, _t(s["ext"]), _t(s["lut"]), _t(s["head_ids"]))
     jext = jnp.asarray(s["ext"])
+    if kernel == "k2":
+        plain = scan_dense.dense_states_plain(dflat, V, *args[1:])
+        if s["lut"] is None:
+            jwant = jxla.make_blocked_scan_stream(V, halo, B, L)(jt[0], jext)
+        else:
+            jwant = jxla.make_blocked_scan_raw(V, halo, B, L)(
+                jt[0], jnp.asarray(s["lut"]), jext,
+                jnp.asarray(s["head_ids"]))
+        return ("ac_dense_states", dict(fields, nb_out=None), plain,
+                np.asarray(jwant))
     if kernel == "k1":
         plain = scan_dense.dense_count_plain(dflat, nb_out, *args)
         if s["lut"] is None:
@@ -1276,13 +1322,14 @@ def _dense_ref(case):
     return "ac_dense_hits", fields, plain, jwant
 
 
-def _dense_launch(lib, name, fields, split, path):
-    """One K1 launch, or K8's two passes, through the g++ build at a
-    forced split over one table path."""
+def _dense_launch(lib, name, fields, split, path, shape=None):
+    """One K1, K2 or K6 launch into an output of ``shape``, or K8's two
+    passes, through the g++ build at a forced split over one table
+    path."""
     fields = dict(fields, split=split, global_table=TABLE_PATHS[path])
     if name in HITS_ENTRIES:
         return _hits_two_pass(lib, name, fields["B"], **fields)
-    out = torch.full((fields["B"],), -7, dtype=torch.int32)
+    out = torch.full(shape, -7, dtype=torch.int32)
     _run(lib, name, out=out, **fields)
     return out
 
@@ -1291,17 +1338,23 @@ def _dense_launch(lib, name, fields, split, path):
 @pytest.mark.parametrize("split", SPLITS)
 @pytest.mark.parametrize("case", sorted(DENSE_CASES))
 def test_dense_split_kernels(lib, dense_refs, case, split, path):
-    """K1 and K8 (stream form: raw bytes, raw int32 past the LUT's end
-    with head ids, ids at halo 0, a stream of 2 symbols; window form) with
+    """K1, K2 and K8 (stream form: raw bytes, raw int32 past the LUT's end
+    with head ids, ids at halo 0, a stream of 2 symbols), K8's window
+    form, K2's time-major form and K6 (c = 1, and c = 3 with a halo) with
     each column forced into ``split`` sub-streams, each warmed up over the
     tables' 5 symbols, more than a halo of 2, over the tables staged as on
-    the SM and in place: K1's totals, and K8's positions and states
-    element for element, exact against the plain version and the JAX
-    package (make_blocked_count_stream / _raw and the Pallas kernel;
-    make_blocked_hits_stream / _raw; make_sparse_hits), and the library
-    reports the split."""
+    the SM and in place (K6 and K2's time-major form read them in place on
+    both): K1's and K6's totals, K2's states and K8's
+    positions and states element for element, exact against the plain
+    version, the one-thread body (the launch at P = 1, one chain from the
+    root) and the JAX package (make_blocked_count_stream / _raw and the
+    Pallas kernel; make_blocked_scan_stream / _raw, make_blocked_scan;
+    make_blocked_count_many's columns; make_blocked_hits_stream / _raw;
+    make_sparse_hits), and the library reports the split."""
     name, fields, plain, jwant = dense_refs(case)
-    got = _dense_launch(lib, name, fields, split, path)
+    shape = None if name in HITS_ENTRIES else plain.shape
+    got = _dense_launch(lib, name, fields, split, path, shape)
+    assert lib.ac_last_split() == split
     if name in HITS_ENTRIES:
         for a, b in zip(got[:2], plain[:2]):
             assert torch.equal(a, b)
@@ -1310,22 +1363,58 @@ def test_dense_split_kernels(lib, dense_refs, case, split, path):
     else:
         assert torch.equal(got, plain) and int(plain.sum()) > 0
         np.testing.assert_array_equal(got.numpy(), jwant)
-    assert lib.ac_last_split() == split
+        if split > 1:
+            assert torch.equal(got, _dense_launch(lib, name, fields, 1, path,
+                                                  shape))
 
 
-@pytest.mark.parametrize("case", ["k1_raw_u8", "k8_raw_u8"])
+@pytest.mark.parametrize("case", ["k1_raw_u8", "k8_raw_u8", "k2_raw_u8",
+                                  "k2_tm", "k6_c3"])
 def test_dense_split_warm_up_is_needed(lib, dense_refs, case):
-    """The warm-up is what makes K1's and K8's split exact: with none, the
-    same launch at 16 sub-streams a stream loses the matches that straddle
-    its sub-streams' starts (and K8 writes wrong states)."""
+    """The warm-up is what makes the 1-char split exact: with none, the
+    same launch at 16 sub-streams a stream or column (over a dictionary 6
+    deep) loses the matches that straddle its sub-streams' starts (K1, K6;
+    K8 also writes wrong states), and K2 writes wrong states."""
     name, fields, plain, _ = dense_refs(case)
     assert fields["warm_steps"] == 5
-    got = _dense_launch(lib, name, dict(fields, warm_steps=0), 16, "sm")
+    shape = None if name in HITS_ENTRIES else plain.shape
+    got = _dense_launch(lib, name, dict(fields, warm_steps=0), 16, "sm",
+                        shape)
     if name in HITS_ENTRIES:
         assert got[2] < plain[2]
         assert got[3] != plain[3] or not torch.equal(got[1], plain[1])
+    elif name in STATE_ENTRIES:
+        assert int((got != plain).sum()) > 0
     else:
         assert int(got.sum()) < int(plain.sum())
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_k2_staged_state_writes(lib, dense_refs, offset, split):
+    """K2's stream form stages its states and writes each whole run of 8
+    aligned slots as two 16-byte stores, the rest one by one: an output 0,
+    4 and 12 bytes off its 16-byte-aligned allocation (so that every run
+    or none is aligned), streams of 37 symbols (runs cut at every offset
+    mod 8) in 1, 2 and 4 sub-streams, holds the plain version's states,
+    and nothing past them; so does the one-thread form (B = 1, P = 1)."""
+    name, fields, plain, _ = dense_refs("k2_raw_i32")
+    n = plain.numel()
+    buf = torch.full((n + 8,), -7, dtype=torch.int32)
+    assert buf.data_ptr() % 16 == 0
+    out = buf[offset:offset + n]
+    assert out.data_ptr() % 16 == 4 * offset
+    _run(lib, name, out=out, **dict(fields, split=split))
+    assert torch.equal(out, plain)
+    assert bool((buf[:offset] == -7).all() and (buf[offset + n:] == -7).all())
+    ids = fields["ext"][:n].to(torch.int32) % fields["V"]
+    buf.fill_(-7)
+    _run(lib, name, out=out, table=fields["table"], ext=ids, L=n, B=1,
+         V=fields["V"], halo=0, n_states=fields["n_states"], split=1,
+         warm_steps=0)
+    assert torch.equal(out, scan_dense.sequential_states_plain(
+        fields["table"], fields["V"], ids))
+    assert bool((buf[:offset] == -7).all() and (buf[offset + n:] == -7).all())
 
 
 @pytest.mark.parametrize("offset", [0, 1, 3])
@@ -1342,6 +1431,54 @@ def test_k8_staged_hit_writes(lib, dense_refs, offset):
     assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
 
 
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("kind", tc.KINDS)
+def test_k2_one_chain(lib, kind, offset):
+    """K2's one-chain form (a launch of one stream kept at P = 1, as
+    scan_states_sequential forces it) walks the window in chunks of
+    kSeqChunk ids: one stream of three chunks and a bit, raw bytes and
+    raw int32 behind a halo of head ids and ids from the root (the
+    sequential scan), into outputs 0, 4 and 12 bytes off 16-byte
+    alignment, over the tables staged as on the SM and in place, equals
+    the plain version and the JAX package (make_blocked_scan_raw /
+    make_sequential_scan), and writes nothing past its states; the
+    launcher reports P = 1."""
+    chunk = int(re.search(r"kSeqChunk = (\d+);", open(os.path.join(
+        build.CSRC_DIR, "ac_scan.cuh")).read()).group(1))
+    tab = tc.tables(1)
+    V, dflat = tab["V"], _t(tab["dflat"])
+    halo = 0 if kind == "ids" else 5
+    L = 3 * chunk + 37
+    rng = np.random.default_rng(offset)
+    s = tc.stream(tab, kind, halo + L, 0, seed=7)   # halo + L symbols
+    ext = s["ext"]
+    head = None if s["lut"] is None else rng.integers(1, V, halo).astype(
+        np.int32)
+    args = (V, halo, 1, L, _t(ext), _t(s["lut"]), _t(head))
+    plain = scan_dense.dense_states_plain(dflat, *args)
+    if s["lut"] is None:
+        _, jwant = jxla.make_sequential_scan(V)(jnp.asarray(tab["dflat"]),
+                                                jnp.asarray(ext),
+                                                jnp.int32(0))
+    else:
+        jwant = jxla.make_blocked_scan_raw(V, halo, 1, L)(
+            jnp.asarray(tab["dflat"]), jnp.asarray(s["lut"]),
+            jnp.asarray(ext), jnp.asarray(head))
+    np.testing.assert_array_equal(plain.numpy(), np.asarray(jwant))
+    for path in sorted(TABLE_PATHS):
+        buf = torch.full((L + 8,), -7, dtype=torch.int32)
+        out = buf[offset:offset + L]
+        _run(lib, "ac_dense_states", table=dflat, out=out, warm_steps=0,
+             split=1, n_states=tab["n_states"],
+             global_table=TABLE_PATHS[path],
+             **dict(_common(dict(ext=ext, lut=s["lut"], head_ids=head),
+                            halo, L, V), B=1))
+        assert lib.ac_last_split() == 1
+        assert torch.equal(out, plain)
+        assert bool((buf[:offset] == -7).all()
+                    and (buf[offset + L:] == -7).all())
+
+
 def test_dense_table_staging(lib, dense_refs):
     """The copy on the SM from any table: the real rows (their entries no
     multiple of 4, so a scalar tail follows the 16-byte loads), a table 4
@@ -1356,7 +1493,8 @@ def test_dense_table_staging(lib, dense_refs):
     buf[1:] = dflat
     for extra in (dict(), dict(table=buf[1:]),
                   dict(n_states=dflat.numel() // V), dict(n_states=0)):
-        out = _dense_launch(lib, name, dict(fields, **extra), 4, "sm")
+        out = _dense_launch(lib, name, dict(fields, **extra), 4, "sm",
+                            plain.shape)
         assert torch.equal(out, plain)
     args = (dflat, fields["nb_out"], V, 2, B, 40, fields["ext"],
             fields["lut"], fields["head_ids"])

@@ -3,7 +3,8 @@ same tables and the same seeded inputs, with exact integer equality.
 
 K1 (dense count) is checked against the Pallas kernel in interpret mode,
 as tests/test_pallas_kernel.py runs it, and against the XLA count; K2
-against the XLA state scans (stream, sequential, time-major); K3 against
+against the XLA state scans (stream, sequential, time-major), its wrappers
+and K6's requiring the sub-streams' warm-up; K3 against
 the packed k-gram count; K4 and the two refinements against the JAX
 retrieval phases; the prefilter's host filter copies, device block filter,
 K7 (window counts) and K8 (bounded hits, stream and window forms) against
@@ -269,7 +270,7 @@ def test_count_many_wrappers_on_cpu_are_the_plain_versions():
     assert torch.equal(multistep.stepped_count_many(*args, warm_steps=1),
                        multistep.stepped_count_many_plain(*args))
     dargs = (_t(tab["dflat"]), _t(tab["nb_out"]), tab["V"], 5, 2, 24, tm, lut)
-    assert torch.equal(scan_dense.dense_count_many(*dargs),
+    assert torch.equal(scan_dense.dense_count_many(*dargs, warm_steps=1),
                        scan_dense.dense_count_many_plain(*dargs))
 
 
@@ -507,6 +508,37 @@ def test_k2_modes_match_jax():
     got = scan_dense.blocked_states_plain(_t(tab["dflat"]), V, _t(tm))
     np.testing.assert_array_equal(got.numpy(), np.asarray(
         jxla.make_blocked_scan(V)(_j(tab["dflat"]), _j(tm))))
+
+
+@pytest.mark.parametrize("wrapper", ["dense_states", "blocked_states",
+                                     "dense_count_many"])
+def test_k2_k6_wrappers_need_the_warm_up(wrapper):
+    """K2's stream and time-major wrappers and K6's require ``warm_steps``
+    (a keyword without a default) and refuse a negative one and a split
+    that is no power of two up to 32, on every device, before any launch;
+    given them, on the CPU each is its plain version, the one-thread
+    chain over every column."""
+    tab = tc.tables(1)
+    V, dflat, nb_out = tab["V"], _t(tab["dflat"]), _t(tab["nb_out"])
+    if wrapper == "dense_states":
+        s = tc.stream(tab, "raw_u8", 5, 24)
+        args = (dflat, V, 5, B, 24, _t(s["ext"]), _t(s["lut"]),
+                _t(s["head_ids"]))
+    elif wrapper == "blocked_states":
+        args = (dflat, V, _t(tc.batch(tab, "ids", 37, n_docs=5)["tm"]))
+    else:
+        b = tc.batch(tab, "raw_i32", 61)
+        args = (dflat, nb_out, V, 5, 3, 24, _t(b["tm"]), _t(b["lut"]))
+    fn = getattr(scan_dense, wrapper)
+    plain = getattr(scan_dense, f"{wrapper}_plain")(*args)
+    with pytest.raises(TypeError, match="warm_steps"):
+        fn(*args)
+    for bad in (dict(warm_steps=-1), dict(warm_steps=5, split=3),
+                dict(warm_steps=5, split=64)):
+        with pytest.raises(ValueError, match="warm_steps|split"):
+            fn(*args, **bad)
+    assert torch.equal(fn(*args, warm_steps=tab["warm_steps"], split=4),
+                       plain)
 
 
 def test_sparse_wrappers_on_cpu_are_the_plain_versions():
