@@ -23,12 +23,13 @@
 // the previous step's gather, so a stream is a chain of dependent loads
 // (L2 or device-memory latency, not bandwidth), and one thread per stream
 // (16,384 at the slice) fills a few percent of the card's thread slots.
-// The stepped counts (K3, K5, K9, K11's gather half) and the 1-char scans
-// (K1, K2, K6, K8: the same walk at k = 1 over AcDenseTable) therefore
-// split each stream or column into P sub-streams (ac_stepped_part_walk),
-// each warmed up from the root over warm_steps grams before its body, so
-// that B*P threads fill the SMs; the symbols of the next group of steps
-// are loaded (evict-first) while this group's gathers run, and the table
+// The stepped counts (K3, K5, K9, K11's gather half), K4's emit and the
+// 1-char scans (K1, K2, K6, K8: the same walk at k = 1 over AcDenseTable)
+// therefore split each stream or column into P sub-streams
+// (ac_stepped_part_walk), each warmed up from the root over warm_steps
+// grams before its body, so that B*P threads fill the SMs; the symbols of
+// the next group of steps are loaded (evict-first) while this group's
+// gathers run, and the table
 // is read through the read-only path, or for the 1-char stream forms
 // (K1, K2, K8) from shared memory where it fits (ac_dense_stage). In the
 // stream layout a sub-stream's symbols are contiguous: a byte stream's are
@@ -97,18 +98,21 @@ struct AcScanArgs {
   int32_t B1;               // K11: columns [0, B1) gather, [B1, B) MMA
   int32_t layout;           // K9, K10: 0 stream, 1 batch (tm), 2 windows
   // K12: table = delta [n_states, V], ext = ids int32 [doc_len], out =
-  // states [doc_len], cut into B chunks of L symbols; compose [B, n_states]
-  // each chunk's composed transition function, starts [B] each chunk's
-  // start state. K1, K2, K8: the tables' real rows, those staged on the
-  // SM.
+  // states [doc_len], cut into B chunks of L symbols and the chunks into
+  // tiles of `tile`; compose [B + n_tiles, n_states] each chunk's composed
+  // transition function, then each tile's; starts [B] each chunk's start
+  // state. K1, K2, K8: the tables' real rows, those staged on the SM.
   int32_t* compose;
   int32_t* starts;
   int32_t n_states;
-  // K1-K3, K5, K6, K8, K9, K11's gather half: the grams a sub-stream reads
-  // before its body, ceil((max_depth - 1) / k) of the tables (never the
-  // halo, which may be shorter or 0; symbols at k = 1), and the
-  // sub-streams per column, a power of two up to AC_MAX_SPLIT; 0 lets the
-  // launcher pick (ac_pick_split).
+  int32_t tile;
+  // K1-K6, K8, K9, K11's gather half: the grams a sub-stream reads
+  // before its body (never the halo, which may be shorter or 0; symbols at
+  // k = 1): ceil((max_depth - 1) / k) of the tables for the counts and
+  // states, which are exact from the body's first symbol on; for K4,
+  // which also writes the state before that symbol, ceil(max_depth / k).
+  // And the sub-streams per column, a power of two up to AC_MAX_SPLIT; 0
+  // lets the launcher pick (ac_pick_split).
   int32_t warm_steps;
   int32_t split;
   // K1, K2, K8: 1 reads the 1-char tables through the read-only path even
@@ -631,9 +635,10 @@ template <>
 struct AcGroup<1, AcSyms<int32_t> > : AcVecGroup<int32_t> {};
 
 // The stepped recurrence of one column over gram steps [start, j1) from
-// the root, s <- table[s*V^k + gram], handing each gram from j0 on to
-// emit(j, s, c): its index, the state after it and its count (AcSum sums
-// the counts; K8's AcHitsEmit writes the hits). The table index is 64-bit:
+// state s (the root unless given), s <- table[s*V^k + gram], handing each
+// gram from j0 on to emit(j, s, c): its index, the state after it and its
+// count (AcSum sums the counts; K8's AcHitsEmit writes the hits; K4's
+// AcEmitWords asks from j0 - 1 on). The table index is 64-bit:
 // s*V^k can pass 2^31 where JAX's int32 would wrap. At K > 0 the steps run
 // in groups of AcGroup's G, from its first gram on (the steps before it
 // one by one): a group's symbols, loaded during the group before, are
@@ -644,8 +649,7 @@ struct AcGroup<1, AcSyms<int32_t> > : AcVecGroup<int32_t> {};
 template <int K, typename Syms, typename Table, typename Emit>
 AC_HD void ac_stepped_walk(const Syms& sym, const Table& table, int32_t V,
                            int32_t k, int64_t Vk, int64_t start, int64_t j0,
-                           int64_t j1, Emit& emit) {
-  int32_t s = 0;
+                           int64_t j1, Emit& emit, int32_t s = 0) {
   if constexpr (K == 0) {
     for (int64_t j = start; j < j1; ++j) {
       uint32_t c;
@@ -724,17 +728,28 @@ AC_HD bool ac_valid_split(int P) {
 // from gram 0 does (ops/blocking.py's halo argument, inside the column), so
 // the P parts emit what the one-thread run does, states included,
 // whatever the halo.
+//
+// ac_part_range gives a sub-stream's [j0, j1) and the gram it starts at;
+// false for an empty part past the first.
+AC_HD bool ac_part_range(const AcScanArgs& a, int64_t k, int p, int P,
+                         int64_t* start, int64_t* j0, int64_t* j1) {
+  const int64_t hs = a.halo / k, n_body = a.L / k;
+  *j0 = hs + n_body * p / P;
+  *j1 = hs + n_body * (p + 1) / P;
+  if (p > 0 && *j0 >= *j1) return false;
+  *start = p == 0 ? 0 : (*j0 > a.warm_steps ? *j0 - a.warm_steps : 0);
+  return true;
+}
+
 template <int K, typename Syms, typename Table, typename Emit>
 AC_HD void ac_stepped_part_walk(const AcScanArgs& a, const Syms& sym,
                                 const Table& table, int p, int P,
                                 Emit& emit) {
   const int64_t k = K ? K : a.k;
-  const int64_t hs = a.halo / k, n_body = a.L / k;
-  const int64_t j0 = hs + n_body * p / P, j1 = hs + n_body * (p + 1) / P;
-  if (p > 0 && j0 >= j1) return;
-  const int64_t start =
-      p == 0 ? 0 : (j0 > a.warm_steps ? j0 - a.warm_steps : 0);
-  ac_stepped_walk<K>(sym, table, a.V, (int32_t)k, a.Vk, start, j0, j1, emit);
+  int64_t start, j0, j1;
+  if (ac_part_range(a, k, p, P, &start, &j0, &j1))
+    ac_stepped_walk<K>(sym, table, a.V, (int32_t)k, a.Vk, start, j0, j1,
+                       emit);
 }
 
 // The count of sub-stream p of P.
@@ -753,11 +768,23 @@ AC_HD uint32_t ac_stepped_part(const AcScanArgs& a, const Syms& sym,
 // JAX's int32 accumulator) by __shfl_xor_sync and the column's first lane
 // writes it once. Lanes past the last column take part with a zero total:
 // every lane reaches every shuffle.
+//
+// ac_lanes_sum leaves in every lane the uint32 sum of v over its group of
+// P consecutive lanes (P a power of two), by __shfl_xor_sync butterflies.
+AC_HD void ac_lanes_sum(uint32_t v[AC_LANE_SLOTS], int P, int lane) {
+  (void)lane;  // the host runs every lane
+  uint32_t x[AC_LANE_SLOTS];
+  for (int m = P >> 1; m > 0; m >>= 1) {
+    ac_shfl_xor(v, x, m);
+    AC_FOR_LANES(l, lane) { v[AC_SLOT(l)] += x[AC_SLOT(l)]; }
+  }
+}
+
 template <int K, typename Layout, typename Table>
 AC_HD void ac_stepped_lanes(const AcScanArgs& a, const Table& table,
                             int64_t n_cols, int P, int64_t g0, int lane) {
   (void)lane;  // the host runs every lane
-  uint32_t tot[AC_LANE_SLOTS], x[AC_LANE_SLOTS];
+  uint32_t tot[AC_LANE_SLOTS];
   AC_FOR_LANES(l, lane) {
     const int64_t g = g0 + l, col = g / P;
     tot[AC_SLOT(l)] =
@@ -765,10 +792,7 @@ AC_HD void ac_stepped_lanes(const AcScanArgs& a, const Table& table,
                                           (int)(g % P), P)
                      : 0u;
   }
-  for (int m = P >> 1; m > 0; m >>= 1) {
-    ac_shfl_xor(tot, x, m);
-    AC_FOR_LANES(l, lane) { tot[AC_SLOT(l)] += x[AC_SLOT(l)]; }
-  }
+  ac_lanes_sum(tot, P, lane);
   AC_FOR_LANES(l, lane) {
     const int64_t g = g0 + l;
     if (g % P == 0 && g / P < n_cols) a.out[g / P] = (int32_t)tot[AC_SLOT(l)];
@@ -1006,10 +1030,10 @@ AC_HD void ac_seq_load(const AcSyms<T>& sym, int64_t t0, int n,
   for (int k = tid; k < n; k += nth) ids[k] = sym(t0 + k);
 }
 
-// The chain over n ids from state s: st[k] the state after ids[k];
-// returns the last. On the SM the index is 32-bit arithmetic, one
+// The chain over n ids from state s: with Store, st[k] the state after
+// ids[k]; returns the last. On the SM the index is 32-bit arithmetic, one
 // multiply-add on the chain.
-template <typename Table>
+template <typename Table, bool Store = true>
 AC_HD int32_t ac_seq_walk(const Table& table, int32_t V, const int32_t* ids,
                           int32_t* st, int n, int32_t s) {
 #if defined(__CUDA_ARCH__)
@@ -1021,7 +1045,7 @@ AC_HD int32_t ac_seq_walk(const Table& table, int32_t V, const int32_t* ids,
         Table::kOnSm ? (int64_t)((uint32_t)s * (uint32_t)V + (uint32_t)ids[k])
                      : (int64_t)s * V + ids[k];
     s = table.next(i, &c);
-    st[k] = s;
+    if constexpr (Store) st[k] = s;
   }
   return s;
 }
@@ -1101,31 +1125,76 @@ AC_HD void ac_sparse_count_stepped_column(const AcScanArgs& a,
                                         ac_packed(a));
 }
 
-// K4 (ops/hits.py:_stepped_emit_scan): the K3 recurrence, writing per body
-// gram the PRE-step state with the gram's count, (s << count_bits) | count,
-// stream-major [B, L/k], plus the stream's match and live-gram counts.
-template <typename T>
-AC_HD void ac_stepped_emit_stream(const AcScanArgs& a, int64_t b) {
-  const AcSyms<T> sym = ac_syms<T>(a, b);
-  const uint32_t mask = (1u << a.count_bits) - 1u;
-  const int64_t halo_steps = a.halo / a.k, n_body = a.L / a.k;
-  int32_t* emit = a.out + b * n_body;
-  int32_t s = 0;
-  for (int64_t j = 0; j < halo_steps; ++j)
-    s = a.table[(int64_t)s * a.Vk + ac_gram(sym, j * a.k, a.V, a.k)] >> a.count_bits;
-  uint32_t hits = 0;
-  int32_t live = 0;
-  for (int64_t j = 0; j < n_body; ++j) {
-    const int64_t t0 = a.halo + j * a.k;
-    const int32_t v = a.table[(int64_t)s * a.Vk + ac_gram(sym, t0, a.V, a.k)];
-    const uint32_t c = (uint32_t)v & mask;
-    emit[j] = (int32_t)(((uint32_t)s << a.count_bits) | c);
-    s = v >> a.count_bits;
-    hits += c;
-    live += c != 0;
+// K4's hook (ops/hits.py:_stepped_emit_scan): for each body gram j from
+// j0 on, the word (pre << count_bits) | c, pre the state before the gram,
+// at out[base + j] through AcStatesEmit (whole sectors), and the
+// sub-stream's matches and live grams (those with a match) summed. The walk
+// hands it gram j0 - 1 too, whose state is gram j0's pre-state; where the
+// walk starts at j0 (a column's start) pre stays the root, as in the
+// one-thread run.
+struct AcEmitWords {
+  AcStatesEmit words;
+  int64_t j0;
+  int count_bits;
+  int32_t pre = 0;
+  uint32_t hits = 0, live = 0;
+
+  AC_HD void operator()(int64_t j, int32_t s, uint32_t c) {
+    if (j >= j0) {
+      words(j, (int32_t)(((uint32_t)pre << count_bits) | c), c);
+      hits += c;
+      live += c != 0u;
+    }
+    pre = s;
   }
-  a.n_hits[b] = (int32_t)hits;
-  a.n_live[b] = live;
+};
+
+// K4 (make_stepped_hits_scan / _raw), one warp, as K3's lanes: sub-stream
+// g % P of stream g / P in lane g - g0, writing its body grams' words at
+// out[b*n_body + j - halo_steps] (stream-major [B, L/k], so every
+// sub-stream writes its own slots in one pass), staged kStateStage words
+// from stage + lane on, stride apart (the host's lanes; on the card stage
+// is the thread's own). Its warm-up, warm_steps = ceil(max_depth / k)
+// grams, is one symbol longer than the counts': the state before j0 may be
+// a longest keyword's end, max_depth deep, which a walk of max_depth - 1
+// symbols from the root cannot reach. The P partial n_hits (wrapping in
+// uint32 like JAX's int32 sum) and n_live reduce by warp shuffles and the
+// stream's first lane writes them.
+template <int K, typename Layout, typename Table>
+AC_HD void ac_stepped_emit_lanes(const AcScanArgs& a, const Table& table,
+                                 int P, int64_t g0, int lane,
+                                 int32_t* stage, int stride) {
+  (void)lane;  // the host runs every lane
+  const int64_t k = K ? K : a.k;
+  const int64_t hs = a.halo / k, n_body = a.L / k;
+  uint32_t hits[AC_LANE_SLOTS], live[AC_LANE_SLOTS];
+  AC_FOR_LANES(l, lane) {
+    const int64_t g = g0 + l, col = g / P;
+    AcEmitWords e;
+    e.words.out = a.out;
+    e.words.stage = stage + AC_SLOT(l);
+    e.words.stride = stride;
+    e.words.base = col * n_body - hs;
+    e.count_bits = a.count_bits;
+    int64_t start, j0, j1;
+    if (col < a.B && ac_part_range(a, k, (int)(g % P), P, &start, &j0, &j1)) {
+      e.j0 = j0;
+      ac_stepped_walk<K>(Layout::make(a, col), table, a.V, (int32_t)k, a.Vk,
+                         start, j0 - 1, j1, e);
+      e.words.flush();
+    }
+    hits[AC_SLOT(l)] = e.hits;
+    live[AC_SLOT(l)] = e.live;
+  }
+  ac_lanes_sum(hits, P, lane);
+  ac_lanes_sum(live, P, lane);
+  AC_FOR_LANES(l, lane) {
+    const int64_t g = g0 + l;
+    if (g % P == 0 && g / P < a.B) {
+      a.n_hits[g / P] = (int32_t)hits[AC_SLOT(l)];
+      a.n_live[g / P] = (int32_t)live[AC_SLOT(l)];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1450,46 +1519,91 @@ AC_HD void ac_mxu_warp(const AcScanArgs& a, const int8_t* planes_t, int lane,
 }
 
 // K12, the associative-scan formulation (ops/scan_assoc.py): the states
-// after every symbol from the root, by chunked composition of the symbols'
-// transition functions f_c = delta[:, c]. Three phases, each a per-thread
-// body: (1) chunk c's composed function at state s, for every s (T*S
-// lookups in all, by design of the formulation); (2) the chunks' start
-// states chained through those functions, one thread; (3) each chunk re-run
-// from its start state, writing its states. ``delta`` may point into shared
-// memory.
-AC_HD int32_t ac_assoc_run(const int32_t* delta, int32_t V,
-                           const int32_t* ids, int64_t t0, int64_t t1,
-                           int32_t s) {
-  for (int64_t t = t0; t < t1; ++t) s = delta[(int64_t)s * V + ids[t]];
+// after every symbol from the root, by composition of the symbols'
+// transition functions f_c = delta[:, c] (an [S] vector each). The ids are
+// cut into B chunks of L and the chunks into tiles of G (a.tile), and
+// every phase is short chains over many threads:
+// (1) chunk c's function F_c at state s, for every (c, s): T*S lookups in
+//     all, by design of the formulation, each a chain of L (ac_assoc_compose);
+// (2) tile i's function H_i = F_last o ... o F_first at every s, a chain
+//     of G through its chunks' rows of F (ac_assoc_tile);
+// (3) each chunk's start: tiles [0, i) applied to the root (a chain of at
+//     most n_tiles through H), then chunks [i*G, c) of its tile (at most G
+//     through F); the chunk re-run from there, writing its states
+//     (ac_assoc_states).
+// The functions are exact, so the start states are, for any automaton,
+// with no warm-up. compose holds F [B, S] then H [n_tiles, S]; the
+// functions read on the SM or in place, delta through AcDenseTable (its
+// rows on the SM as uint16 where they fit, else the read-only path).
+
+// The ids of chunk c: [c*L, min((c + 1)*L, T)).
+AC_HD int64_t ac_assoc_len(const AcScanArgs& a, int64_t c) {
+  const int64_t t0 = c * a.L;
+  return t0 + a.L < a.doc_len ? a.L : a.doc_len - t0;
+}
+
+// The chunks of tile i.
+AC_HD int64_t ac_assoc_tile_len(const AcScanArgs& a, int64_t i) {
+  const int64_t c0 = i * a.tile;
+  return c0 + a.tile < a.B ? a.tile : a.B - c0;
+}
+
+// fns[n - 1] o ... o fns[0] at s, the functions rows of S entries.
+AC_HD int32_t ac_assoc_apply(const int32_t* fns, int32_t S, int64_t n,
+                             int32_t s) {
+  for (int64_t i = 0; i < n; ++i) s = fns[i * S + s];
   return s;
 }
 
-AC_HD void ac_assoc_compose_state(const AcScanArgs& a, const int32_t* delta,
-                                  int64_t c, int32_t s) {
-  const int64_t t0 = c * a.L;
-  const int64_t t1 = t0 + a.L < a.doc_len ? t0 + a.L : a.doc_len;
-  a.compose[c * a.n_states + s] =
-      ac_assoc_run(delta, a.V, (const int32_t*)a.ext, t0, t1, s);
+// (1) F_c[s] over chunk c's ids (on the card staged on the SM).
+template <typename Table>
+AC_HD void ac_assoc_compose(const AcScanArgs& a, const Table& table,
+                            const int32_t* ids, int64_t c, int32_t s) {
+  a.compose[c * a.n_states + s] = ac_seq_walk<Table, false>(
+      table, a.V, ids, nullptr, (int)ac_assoc_len(a, c), s);
 }
 
-AC_HD void ac_assoc_chain(const AcScanArgs& a) {
-  int32_t s = 0;
-  for (int64_t c = 0; c < a.B; ++c) {
-    a.starts[c] = s;
-    s = a.compose[c * a.n_states + s];
-  }
+// (2) H_i[s] over tile i's rows of F, fns (on the SM or in place).
+AC_HD void ac_assoc_tile(const AcScanArgs& a, const int32_t* fns, int64_t i,
+                         int32_t s) {
+  a.compose[(a.B + i) * a.n_states + s] =
+      ac_assoc_apply(fns, a.n_states, ac_assoc_tile_len(a, i), s);
 }
 
-AC_HD void ac_assoc_states_chunk(const AcScanArgs& a, const int32_t* delta,
-                                 int64_t c) {
-  const int32_t* ids = (const int32_t*)a.ext;
+// (3) Chunk c from its start state s: starts[c] = s, and its states to
+// out through AcStatesEmit (kStateStage words from stage on, stride apart),
+// K2's walk at k = 1 (its ids as aligned 16-byte vectors, a group ahead).
+template <typename Table>
+AC_HD void ac_assoc_states(const AcScanArgs& a, const Table& table,
+                           int64_t c, int32_t s, int32_t* stage,
+                           int stride) {
+  a.starts[c] = s;
+  AcSyms<int32_t> sym;
+  sym.row = (const int32_t*)a.ext;
+  sym.lut = nullptr;
+  sym.head = nullptr;
+  sym.n_lut = 0;
+  sym.halo = 0;
+  AcStatesEmit e;
+  e.out = a.out;
+  e.stage = stage;
+  e.stride = stride;
+  e.base = 0;
   const int64_t t0 = c * a.L;
-  const int64_t t1 = t0 + a.L < a.doc_len ? t0 + a.L : a.doc_len;
-  int32_t s = a.starts[c];
-  for (int64_t t = t0; t < t1; ++t) {
-    s = delta[(int64_t)s * a.V + ids[t]];
-    a.out[t] = s;
-  }
+  ac_stepped_walk<1>(sym, table, a.V, 1, a.V, t0, t0,
+                     t0 + ac_assoc_len(a, c), e, s);
+  e.flush();
+}
+
+// A launch's geometry is valid: tiles of 1 to kAssocMaxTile chunks (a
+// block's threads in phase 3) and chunks of 1 to kAssocMaxChunk ids (a
+// block's staged ids in phase 1).
+constexpr int kAssocMaxTile = 1024;
+constexpr int64_t kAssocMaxChunk = 16384;
+
+AC_HD bool ac_assoc_valid(const AcScanArgs& a) {
+  return a.tile >= 1 && a.tile <= kAssocMaxTile && a.L >= 1 &&
+         a.L <= kAssocMaxChunk && a.n_states >= 1;
 }
 
 #if defined(__CUDACC__)

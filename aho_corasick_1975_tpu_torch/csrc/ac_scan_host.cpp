@@ -2,13 +2,14 @@
 // points as the CUDA kernels: each loops over the streams (or batch
 // columns, or windows) one by one, the split kernels over their
 // sub-streams at the P the card's launcher would pick at full occupancy,
-// and the MXU kernels and K1's and K3's lanes over their warps, each
+// and the MXU kernels and K1's, K3's and K4's lanes over their warps, each
 // warp's 32 lanes in turn with the tensor-core instruction and the warp's
 // votes and shuffles emulated. K1, K2's stream forms and K8 read the
 // 1-char tables as the card does: a uint16 copy staged by ac_dense_stage
 // where ac_dense_smem_bytes gives it room (the card's shared memory), else
 // in place (K6 and K2's time-major form always); K2 stages its states, and
-// its one-chain form its chunks of ids and states, as the card does.
+// its one-chain form its chunks of ids and states, as the card does, and
+// so do K4 (its words) and K12 (its states).
 // Built with g++ by the CPU tests, so that the logic the H100 kernels run
 // is tested where there is no GPU; the scanner never loads it.
 #include <algorithm>
@@ -84,6 +85,18 @@ int stream_hits(const AcScanArgs& a) {
     return a.ext_u8 ? hits<AcStreamLayout<uint8_t>>(a, table)
                     : hits<AcStreamLayout<int32_t>>(a, table);
   });
+}
+
+// K4: the warps of the card's launch, each warp's 32 lanes in turn, each
+// lane staging its words in its own slot of a 32-lane stage.
+template <int K, typename Layout>
+int emit_lanes(const AcScanArgs& a) {
+  const int P = split_of(a, a.B, AC_MAX_SPLIT);
+  if (P == 0) return 1;
+  int32_t stage[32 * kStateStage];
+  for (int64_t g0 = 0; g0 < (int64_t)a.B * P; g0 += 32)
+    ac_stepped_emit_lanes<K, Layout>(a, ac_packed(a), P, g0, 0, stage, 32);
+  return 0;
 }
 
 // K5, K6, K9's batch form: each column's P sub-streams summed.
@@ -184,7 +197,10 @@ int ac_stepped_count(const AcScanArgs* a, void*) {
 }
 
 int ac_stepped_emit(const AcScanArgs* a, void*) {
-  return run<ac_stepped_emit_stream<uint8_t>, ac_stepped_emit_stream<int32_t>>(a);
+  if (a->ext_u8)
+    AC_WITH_K(a->k, return emit_lanes<K, AcStreamLayout<uint8_t>>(*a));
+  AC_WITH_K(a->k, return emit_lanes<K, AcStreamLayout<int32_t>>(*a));
+  return 0;
 }
 
 int ac_dense_states_tm(const AcScanArgs* args, void*) {
@@ -277,13 +293,32 @@ int ac_hybrid_count(const AcScanArgs* a, void*) {
   return mxu_warps<R, AcStreamLayout<int32_t>>(*a, a->B1, a->B);
 }
 
-int ac_assoc_scan(const AcScanArgs* a, void*) {
-  for (int64_t c = 0; c < a->B; ++c)
-    for (int32_t s = 0; s < a->n_states; ++s)
-      ac_assoc_compose_state(*a, a->table, c, s);
-  ac_assoc_chain(*a);
-  for (int64_t c = 0; c < a->B; ++c) ac_assoc_states_chunk(*a, a->table, c);
-  return 0;
+// K12's three phases in turn, delta's rows on "the SM" where they fit
+// beside a tile's staged states, the functions in place.
+int ac_assoc_scan(const AcScanArgs* args, void*) {
+  const AcScanArgs& a = *args;
+  if (!ac_assoc_valid(a)) return 1;
+  const int64_t S = a.n_states, n_tiles = (a.B + a.tile - 1) / a.tile;
+  const int32_t* ids = (const int32_t*)a.ext;
+  return with_dense_table<false>(
+      a, (int64_t)kStateStage * a.tile, [&](const auto& table) {
+    for (int64_t c = 0; c < a.B; ++c)
+      for (int32_t s = 0; s < S; ++s)
+        ac_assoc_compose(a, table, ids + c * a.L, c, s);
+    for (int64_t i = 0; i < n_tiles; ++i)
+      for (int32_t s = 0; s < S; ++s)
+        ac_assoc_tile(a, a.compose + i * a.tile * S, i, s);
+    int32_t stage[kStateStage];
+    for (int64_t i = 0; i < n_tiles; ++i) {
+      const int32_t start = ac_assoc_apply(a.compose + a.B * S, S, i, 0);
+      for (int64_t r = 0; r < ac_assoc_tile_len(a, i); ++r)
+        ac_assoc_states(a, table, i * a.tile + r,
+                        ac_assoc_apply(a.compose + i * a.tile * S, S, r,
+                                       start),
+                        stage, 1);
+    }
+    return 0;
+  });
 }
 
 const char* ac_error_string(int) { return "host build"; }

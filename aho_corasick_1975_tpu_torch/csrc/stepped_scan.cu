@@ -32,8 +32,17 @@
 //   the launch fits one wave (ac_launch_cols in ac_scan.cuh, whose blocks
 //   K6 and K2's time-major form share).
 // Every launch writes each column's total once; the raw LUT is read from
-// shared memory where it has at most kLutSmem entries. K4 keeps one thread
-// per stream: its emit is written in stream order.
+// shared memory where it has at most kLutSmem entries.
+//
+// K4 takes K3's launch: P sub-streams a stream in consecutive lanes, each
+// warmed up over ceil(max_depth / k) grams (one symbol more than K3's: it
+// also writes the state before its first body gram), writing the word of
+// each of its body grams at the gram's fixed slot of the stream-major
+// [B, L/k] emit, so the sub-streams need no offsets and one pass. A warp's
+// lanes write 32 separate runs, so each thread stages kStateStage words in
+// shared memory and writes whole 32-byte sectors (AcStatesEmit); n_hits
+// and n_live reduce by warp shuffles as K3's totals do. Bytes: 4 per gram
+// out (92 MB at 16,384 streams of 1,408 grams) beside a byte a symbol in.
 #include "ac_scan.cuh"
 
 namespace {
@@ -50,25 +59,46 @@ __global__ void __launch_bounds__(kThreads)
                               threadIdx.x & 31);
 }
 
-template <typename T>
-__global__ void stepped_emit_kernel(AcScanArgs a) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < a.B) ac_stepped_emit_stream<T>(a, b);
+// K4: the LUT, then each thread's kStateStage staged words, interleaved.
+template <typename Layout, int K>
+__global__ void __launch_bounds__(kThreads)
+    stepped_emit_kernel(AcScanArgs a, int32_t P, int32_t lut_n) {
+  extern __shared__ int32_t smem[];
+  ac_lut_to_smem(a, lut_n, smem);
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  ac_stepped_emit_lanes<K, Layout>(a, ac_packed(a), P, t & ~(int64_t)31,
+                                   threadIdx.x & 31,
+                                   smem + lut_n + threadIdx.x, kThreads);
 }
 
-template <typename Layout, typename Table, int K>
-cudaError_t launch_lanes(const AcScanArgs& a, cudaStream_t st) {
-  const auto kernel = stepped_lanes_kernel<Layout, Table, K>;
+// One thread a sub-stream over a's B streams, with the LUT and
+// stage_words words a thread in shared memory; P from the kernel's own
+// occupancy (ac_launch_split) or forced.
+template <typename Kernel>
+cudaError_t launch_lanes_of(Kernel kernel, const AcScanArgs& a,
+                            int stage_words, cudaStream_t st) {
   const int32_t lut_n = ac_lut_entries(a);
+  const int64_t smem = 4 * ((int64_t)lut_n + (int64_t)stage_words * kThreads);
   int64_t slots[AC_SPLITS];
-  AC_TRY(ac_slots(kernel, kThreads, 4 * lut_n, &slots[0]));
+  AC_TRY(ac_slots(kernel, kThreads, smem, &slots[0]));
   for (int i = 1; i < AC_SPLITS; ++i) slots[i] = slots[0];
   const int P = ac_launch_split(a, a.B, slots, AC_MAX_SPLIT);
   if (P == 0) return cudaErrorInvalidValue;
   const int64_t grid = ((int64_t)a.B * P + kThreads - 1) / kThreads;
   if (grid == 0) return cudaSuccess;
-  kernel<<<(unsigned)grid, kThreads, 4 * lut_n, st>>>(a, P, lut_n);
+  kernel<<<(unsigned)grid, kThreads, smem, st>>>(a, P, lut_n);
   return cudaGetLastError();
+}
+
+template <typename Layout, typename Table, int K>
+cudaError_t launch_lanes(const AcScanArgs& a, cudaStream_t st) {
+  return launch_lanes_of(stepped_lanes_kernel<Layout, Table, K>, a, 0, st);
+}
+
+template <typename Layout, int K>
+cudaError_t launch_emit(const AcScanArgs& a, cudaStream_t st) {
+  return launch_lanes_of(stepped_emit_kernel<Layout, K>, a, kStateStage,
+                         st);
 }
 
 }  // namespace
@@ -84,13 +114,13 @@ extern "C" int ac_stepped_count(const AcScanArgs* a, void* stream) {
 }
 
 extern "C" int ac_stepped_emit(const AcScanArgs* a, void* stream) {
-  const dim3 grid((a->B + kThreads - 1) / kThreads);
   cudaStream_t st = (cudaStream_t)stream;
   if (a->ext_u8)
-    stepped_emit_kernel<uint8_t><<<grid, kThreads, 0, st>>>(*a);
-  else
-    stepped_emit_kernel<int32_t><<<grid, kThreads, 0, st>>>(*a);
-  return (int)cudaGetLastError();
+    AC_WITH_K(a->k, return (int)launch_emit<AcStreamLayout<uint8_t>, K>(
+                        *a, st));
+  AC_WITH_K(a->k, return (int)launch_emit<AcStreamLayout<int32_t>, K>(
+                      *a, st));
+  return 0;
 }
 
 extern "C" int ac_stepped_count_many(const AcScanArgs* a, void* stream) {

@@ -62,9 +62,9 @@ from ..ops.decode import decode_matches_arrays, expand_hits_arrays
 from ..ops import autotune, scan_hybrid, scan_mxu, sparse
 from ..ops.hits import (dense_hits, hits_extract, hits_extract_dense,
                         max_hits_error, stepped_emit, window_hits)
-from ..ops.multistep import (pack, stepped_count, stepped_count_2t,
-                             stepped_count_many, stepped_count_many_2t,
-                             warm_steps_for)
+from ..ops.multistep import (emit_warm_steps_for, pack, stepped_count,
+                             stepped_count_2t, stepped_count_many,
+                             stepped_count_many_2t, warm_steps_for)
 from ..ops.scan_dense import (dense_count, dense_count_many, dense_states,
                               lookup, sequential_states)
 from .results import MatchSet
@@ -310,7 +310,8 @@ class DenseScanner:
     def _bind(self) -> None:
         """Derive what depends on the snapshot and the halo: the halo in
         gram steps, the stepped kernels' warm-up (``_warm_steps``, from the
-        tables' depth whatever the halo, ``multistep.warm_steps_for``) and
+        tables' depth whatever the halo, ``multistep.warm_steps_for``; K4's,
+        one symbol longer, ``_emit_warm``, ``emit_warm_steps_for``) and
         the 1-char kernels' (K1, K2, K6, K8: ``_warm_syms``, in symbols,
         whether or not a stepped table exists), the
         raw-encode LUTs, whose exactness rests on the
@@ -326,6 +327,8 @@ class DenseScanner:
         self._halo_sym = self._halo_steps * st.k if st is not None else 0
         self._warm_steps = (warm_steps_for(self.tables, st.k)
                             if st is not None else 0)
+        self._emit_warm = (emit_warm_steps_for(self.tables, st.k)
+                           if st is not None else 0)
         self._warm_syms = warm_steps_for(self.tables, 1)
         self._lut_cache.clear()
         self._mxu = self._hybrid = self._planes_t = None
@@ -1039,7 +1042,7 @@ class DenseScanner:
             self._guard_acc(L)
             emit, n_hits_dev, n_live_dev = stepped_emit(
                 snap.packed, st.V, st.k, st.count_bits, self._halo_steps, B,
-                L, ext, lut, head_ids)
+                L, ext, lut, head_ids, warm_steps=self._emit_warm)
             n_live = int(n_live_dev.sum(dtype=torch.int64))
             if not auto and n_live > max_hits:
                 raise ValueError(

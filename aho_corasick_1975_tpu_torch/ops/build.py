@@ -52,12 +52,13 @@ ENTRY_POINTS = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
 # count_many batch; K2: "seq", one thread); only launch() adds to them.
 launches: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 form_launches: Dict[str, int] = {}
-# The split launches (K1-K3, K5, K6, K8, K9, K11) run each column as P
+# The split launches (K1-K6, K8, K9, K11) run each column as P
 # sub-streams; the P of each one's last launch, by entry point.
 SPLIT_ENTRIES = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
-                 "ac_stepped_count_many", "ac_dense_count_many",
-                 "ac_dense_states_tm", "ac_dense_hits", "ac_window_hits",
-                 "ac_stepped_count_2t", "ac_hybrid_count")
+                 "ac_stepped_emit", "ac_stepped_count_many",
+                 "ac_dense_count_many", "ac_dense_states_tm",
+                 "ac_dense_hits", "ac_window_hits", "ac_stepped_count_2t",
+                 "ac_hybrid_count")
 # Entry points whose launcher also answers ``<name>_split``: the P it
 # would take for a launch's fields (K8, whose two passes take one P).
 PICK_ENTRIES = ("ac_dense_hits", "ac_window_hits")
@@ -94,7 +95,7 @@ class AcScanArgs(ctypes.Structure):
         ("count_bits_m", ctypes.c_int32), ("B1", ctypes.c_int32),
         ("layout", ctypes.c_int32),
         ("compose", ctypes.c_void_p), ("starts", ctypes.c_void_p),
-        ("n_states", ctypes.c_int32),
+        ("n_states", ctypes.c_int32), ("tile", ctypes.c_int32),
         ("warm_steps", ctypes.c_int32), ("split", ctypes.c_int32),
         ("global_table", ctypes.c_int32),
     ]
@@ -246,8 +247,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def scan_args(**fields) -> AcScanArgs:
     """AcScanArgs from tensors (pointers; None for a null pointer) and
-    ints. ``warm_steps`` is -1 unless given, so that a split launch (K1-K3,
-    K5, K6, K8, K9, K11) without it fails rather than count wrong."""
+    ints. ``warm_steps`` is -1 unless given, so that a split launch (K1-K6,
+    K8, K9, K11) without it fails rather than count wrong."""
     args = AcScanArgs(warm_steps=-1)
     for key, val in fields.items():
         setattr(args, key, _ptr(val) if isinstance(val, torch.Tensor)

@@ -4,12 +4,15 @@
 Phase A is K4 (csrc/stepped_scan.cu), the count recurrence of K3 writing
 one word per gram, ``(pre_state << count_bits) | gram_count``, beside its
 plain PyTorch version; it replaces ``ops/hits.py:_stepped_emit_scan``
-(``make_stepped_hits_scan`` / ``_raw``). A gram whose count is zero holds no
-match end, so phase B refines only the live grams back into per-position
-states. Phase B has no sequential chain, only bulk gathers, compaction and
-scatter, and stays plain PyTorch here (``_compact``, ``hits_extract`` and
-``hits_extract_dense``, the port of ``_hits_extract`` and
-``_hits_extract_dense``).
+(``make_stepped_hits_scan`` / ``_raw``). On the card it runs K3's
+sub-streams, each warmed up over ``warm_steps`` grams, here
+``multistep.emit_warm_steps_for``: one symbol more than the counts need,
+since a gram's word holds the state before it. A gram whose count is zero
+holds no match end, so phase B refines only the live grams back into
+per-position states. Phase B has no sequential chain, only bulk gathers,
+compaction and scatter, and stays plain PyTorch here (``_compact``,
+``hits_extract`` and ``hits_extract_dense``, the port of
+``_hits_extract`` and ``_hits_extract_dense``).
 
 The port's emit layout is stream-major, ``[B, L/k]`` body grams only (the
 JAX package keeps ``[halo_steps + L/k, B]``), so its flat order is stream
@@ -37,7 +40,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from . import build
-from .multistep import check_stepped, combine_grams
+from .multistep import check_stepped, combine_grams, split_fields
 from .scan_dense import check_stream, dense_fields, window
 from .sparse import check_windows, window_fields, window_gather
 
@@ -65,10 +68,14 @@ def stepped_emit_plain(packed, V: int, k: int, count_bits: int,
 
 
 def stepped_emit(packed, V: int, k: int, count_bits: int, halo_steps: int,
-                 B: int, L: int, ext, lut=None, head_ids=None):
+                 B: int, L: int, ext, lut=None, head_ids=None, *,
+                 warm_steps: int, split: int = 0):
     """K4: (emit int32 [B, L/k], n_hits int32 [B], n_live int32 [B]); the
-    caller sums the counts in int64."""
+    caller sums the counts in int64. On the card each stream runs as
+    ``split`` sub-streams (``multistep.split_fields``), each warmed up over
+    ``warm_steps`` grams, ``emit_warm_steps_for`` of the tables."""
     dev = check_stepped(packed, k, halo_steps, B, L, ext, lut, head_ids)
+    sub = split_fields(V, k, warm_steps, split)
     if dev.type == "cpu":
         return stepped_emit_plain(packed, V, k, count_bits, halo_steps, B, L,
                                   ext, lut, head_ids)
@@ -80,7 +87,7 @@ def stepped_emit(packed, V: int, k: int, count_bits: int, halo_steps: int,
                  L=L, Vk=V ** k, B=B, V=V, halo=halo_steps * k,
                  ext_u8=int(ext.dtype == torch.uint8),
                  n_lut=0 if lut is None else lut.numel(), k=k,
-                 count_bits=count_bits)
+                 count_bits=count_bits, **sub)
     return emit, n_hits, n_live
 
 

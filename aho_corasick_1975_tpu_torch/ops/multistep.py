@@ -228,10 +228,11 @@ def check_stepped(packed, k, halo_steps, B, L, ext, lut, head_ids):
 
 
 def split_fields(V: int, k: int, warm_steps: int, split: int) -> dict:
-    """The launch fields of a stepped launch's sub-streams (K3, K5, K9,
+    """The launch fields of a stepped launch's sub-streams (K3-K5, K9,
     K11's gather half): ``warm_steps``, the grams each sub-stream reads
     from the root before its body, ``ceil((max_depth - 1) / k)`` of the
-    tables (``warm_steps_for``), and ``split``, the sub-streams per
+    tables (``warm_steps_for``; K4's ``emit_warm_steps_for``,
+    ``ceil(max_depth / k)``), and ``split``, the sub-streams per
     column (0: the launcher picks). The kernels combine a gram in 32 bits,
     as the reference does in int32."""
     if warm_steps < 0:
@@ -246,6 +247,14 @@ def warm_steps_for(tables, k: int) -> int:
     """Grams of warm-up that put a sub-stream's state right from its
     body's first symbol on: max_depth - 1 symbols, in grams of k."""
     return -(-max(tables.max_depth - 1, 0) // k)
+
+
+def emit_warm_steps_for(tables, k: int) -> int:
+    """K4's warm-up: grams that put a sub-stream's state right before its
+    body's first symbol too (the pre-state of its first gram, which may be
+    the end of a longest keyword, max_depth deep): max_depth symbols, one
+    more than ``warm_steps_for``'s, in grams of k."""
+    return -(-tables.max_depth // k)
 
 
 def _count_grams(packed, V: int, k: int, count_bits: int, halo_steps: int,

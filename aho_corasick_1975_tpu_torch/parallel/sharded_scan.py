@@ -283,7 +283,8 @@ class ShardedScanner:
     def _bind(self) -> None:
         """Derive what depends on the snapshot and the halo (JAX
         ``_bind_kernels``): the halo in gram steps, the stepped kernels'
-        warm-up (``_warm_steps``, from the tables' depth) and the 1-char
+        warm-up (``_warm_steps``, from the tables' depth; K4's, one symbol
+        longer, ``_emit_warm``) and the 1-char
         kernels' (K1, K2, K6, K8: ``_warm_syms``, in symbols, with or
         without a stepped table), the raw-encode
         LUTs and
@@ -297,6 +298,8 @@ class ShardedScanner:
         self._halo_sym = self._halo_steps * st.k if st is not None else 0
         self._warm_steps = (multistep.warm_steps_for(self.tables, st.k)
                             if st is not None else 0)
+        self._emit_warm = (multistep.emit_warm_steps_for(self.tables, st.k)
+                           if st is not None else 0)
         self._warm_syms = multistep.warm_steps_for(self.tables, 1)
         self._lut_cache.clear()
         self._mxu = self._hybrid = self._planes_t = None
@@ -935,7 +938,7 @@ class ShardedScanner:
         exts = self._shard_exts(src, self._halo_sym, B * L, head)
         emits = self._on_shards(lambda i, e: hits.stepped_emit(
             self._tab(i)["packed"], st.V, st.k, st.count_bits,
-            self._halo_steps, B, L, e[0]), exts)
+            self._halo_steps, B, L, e[0], warm_steps=self._emit_warm), exts)
         return emits, exts
 
     def _extract(self, emits: dict, exts: dict, src, sizes) -> dict:

@@ -9,11 +9,14 @@ card, importing nothing of JAX:
 2. golden: the he/she/his/hers example, count and find_matches;
 3. kernels: K1-K4 each against its plain PyTorch version on the same
    inputs, at the slice's shapes (B = 16,384 streams of bench.py's
-   dictionary and corpus), exact equality (tolerance 0), with times; K1,
-   K2 and K3 also forced to every split P of SPLIT_SWEEP (sub-streams a
+   dictionary and corpus), exact equality (tolerance 0), with times;
+   K1-K4 also forced to every split P of SPLIT_SWEEP (sub-streams a
    stream; P = 1 is one thread a stream), exact at each, with their times
    by P, K1 and K2 also with their tables forced through the read-only
-   path (``global_table``) where their launcher stages them on the SM;
+   path (``global_table``) where their launcher stages them on the SM; K4
+   also at its boundary case (the slice's longest keyword ending before
+   each sub-stream's first gram: exact over its warm-up, differing in
+   exactly those grams over K3's);
 4. slice: bench.py's 1,000-keyword byte dictionary over its 64 MiB seeded
    corpus, through Machine.scanner(): count() against the native host
    scan, find_matches() (length equal to the count, a seeded sample of
@@ -102,9 +105,14 @@ its ns a step of one column's one-thread chain (``ns_per_step``), its
 times by forced split (``ms_by_split``, the split kernels; K1's, K2's
 and K8's stream forms also ``ms_by_split_read_only``), K2's one-thread form
 through the read-only path (``ms_read_only``), K8's pass times
-(``passes``) and the most registers and spill bytes ptxas gave its
-kernels (``registers``, the split ones), whose every line is printed
-before it. Prints the kernels' JSON line, a {"plain_ops": ...} line (the
+(``passes``), the most registers and spill bytes ptxas gave its
+kernels (``registers``, the split ones and K12's), whose every line is
+printed before it, and for K12 its three kernels' device times
+(``phases``, torch.profiler) and their sum (``device_ms``) beside the
+call's ``ms``, the bound of its T*S lookups at 32 a clock an SM
+(``lookup_bound_ms``) beside its bytes bound, K2's one-thread form on the
+same ids (``seq_ms``) and its time over the slice's dictionary
+(``slice_dictionary_ms``). Prints the kernels' JSON line, a {"plain_ops": ...} line (the
 plain-torch steps no kernel replaces, each with its card time a call and
 bytes bound: ``plain_ops``), the mesh line, the card's name and power
 limit, and last the line {"ok": true, "device": {...}}. Any failure exits
@@ -144,6 +152,7 @@ TM_SIDE = 4096          # the time-major K2 batch: [TM_SIDE, TM_SIDE] ids
 TWO_TABLE_DOC = 12_288  # K9's batch form against its plain version
 MESH_SHARDS, MESH_STREAMS = 4, 4096   # 16,384 streams in all, as the slice
 ASSOC_T = 1 << 20       # K12's stream
+ASSOC_SLICE_T = 1 << 16   # K12 over the slice's dictionary
 GOLDEN = "To ushers: he found his pencil, but she could not find hers."
 GOLDEN_LINE = " 6:he 5:she 6:hers 12:he 21:his 38:he 37:she 56:he 56:hers"
 # entry point, or "entry/form" for a form counted in build.form_launches
@@ -436,10 +445,11 @@ def plain_ops_line() -> dict:
     return out
 
 
-def phase_kernels(sc, text: bytes) -> dict:
+def phase_kernels(sc, text: bytes, longest: bytes) -> dict:
     """K1-K4 against their plain versions at the slice's shapes, on the
     slice's tables and corpus: raw uint8 and int32 letter-id inputs,
-    non-zero head_ids."""
+    non-zero head_ids; K4 also at its boundary case (``emit_boundary``,
+    over the dictionary's longest keyword)."""
     from aho_corasick_1975_tpu_torch.ops import hits, multistep, scan_dense
     st, snap = sc._stepped, sc._snap
     check(st is not None and st.k == 3, "the slice's packed table has k=3")
@@ -460,7 +470,9 @@ def phase_kernels(sc, text: bytes) -> dict:
                              multistep.stepped_count_plain,
                              (snap.packed, st.V, st.k, st.count_bits,
                               sc._halo_steps, B, L), step_in),
-        "ac_stepped_emit": (hits.stepped_emit, hits.stepped_emit_plain,
+        "ac_stepped_emit": (functools.partial(hits.stepped_emit,
+                                              warm_steps=sc._emit_warm),
+                            hits.stepped_emit_plain,
                             (snap.packed, st.V, st.k, st.count_bits,
                              sc._halo_steps, B, L), step_in),
     }
@@ -471,7 +483,11 @@ def phase_kernels(sc, text: bytes) -> dict:
         results[name] = compare(name, kernel, plain, args, ins,
                                 f"B={B} L={L}", need=needs(sc),
                                 steps=steps[name])
-    for name in ("ac_stepped_count", "ac_dense_count", "ac_dense_states"):
+    check(all(r["split"] > 1 for r in results["ac_stepped_emit"].values()),
+          "K4 runs as sub-streams at the slice (build.splits)")
+    emit_boundary(sc, text, cases["ac_stepped_emit"], longest)
+    for name in ("ac_stepped_count", "ac_stepped_emit", "ac_dense_count",
+                 "ac_dense_states"):
         kernel, plain, args, ins = cases[name]
         for kind, row in split_sweep(name, kernel, plain, args, ins,
                                      steps[name]).items():
@@ -483,12 +499,56 @@ def phase_kernels(sc, text: bytes) -> dict:
     return results
 
 
+def emit_boundary(sc, text: bytes, case, kw: bytes) -> None:
+    """K4's boundary case at the slice's shapes: the dictionary's longest
+    keyword kw (max_depth symbols, max_depth = 1 mod k) planted in every
+    stream to end at the last symbol before each sub-stream's first body
+    gram at the launcher's pick P, raw bytes and ids. K4 warmed up over
+    the scanner's ceil(max_depth / k) grams equals its plain version;
+    over K3's ceil((max_depth - 1) / k) the word of exactly those B*(P-1)
+    grams differs (the state before them is the keyword's end, which
+    max_depth - 1 symbols from the root cannot reach)."""
+    from aho_corasick_1975_tpu_torch.ops import build
+    kernel, plain, args, _ = case
+    st = sc._stepped
+    B, L, k, hs = N_STREAMS, KERNEL_L, st.k, sc._halo_steps
+    check(len(kw) == sc.tables.max_depth and len(kw) % k == 1,
+          f"the slice's longest keyword {kw!r} is max_depth "
+          f"{sc.tables.max_depth} deep, 1 mod k = {k}")
+    n_body = L // k
+    for kind in ("raw_u8", "ids_i32"):
+        kernel(*args, *stream_inputs(sc, text, sc._halo_sym, B, L)[kind])
+        P = build.splits["ac_stepped_emit"]
+        j0 = hs + n_body * np.arange(1, P) // P
+        ends = (np.arange(B)[:, None] * L + j0[None, :] * k).ravel()
+        extra = stream_inputs(sc, text, sc._halo_sym, B, L, seed=3,
+                              plant=(ends, kw))[kind]
+        want = plain(*args, *extra)
+        got = kernel(*args, *extra, split=P)
+        torch.cuda.synchronize()
+        check(max_abs_err(got, want) == 0,
+              f"K4 ({kind}) at the boundary case equals its plain version")
+        short = kernel(*args, *extra, split=P, warm_steps=sc._warm_steps)
+        n_diff = int((short[0] != want[0]).sum())
+        mask = (1 << st.count_bits) - 1
+        check(n_diff == B * (P - 1) and torch.equal(short[0] & mask,
+                                                    want[0] & mask),
+              f"K4 ({kind}) over K3's warm-up differs in exactly the "
+              f"{B * (P - 1)} planted first grams ({n_diff})")
+        print(f"K4 boundary case ({kind}): {kw!r} ends before each of "
+              f"{B * (P - 1)} sub-streams at P={P}: exact over "
+              f"{sc._emit_warm} grams of warm-up, {n_diff} words differ "
+              f"over K3's {sc._warm_steps}", flush=True)
+
+
 def stream_inputs(sc, text: bytes, halo: int, B: int, L: int,
-                  seed: int = 1, fill: bool = False) -> dict:
+                  seed: int = 1, fill: bool = False, plant=None) -> dict:
     """A kernel's stream inputs from the corpus: raw uint8 bytes with the
     scanner's byte LUT and seeded non-zero head ids, and the same stream as
     int32 letter ids. The corpus is zero-padded to B*L bytes as count()
-    lays it out or, with ``fill``, repeated to fill every column."""
+    lays it out or, with ``fill``, repeated to fill every column. ``plant``
+    (ends, keyword) writes the keyword to end just before each of the ends
+    (buffer offsets)."""
     rng = np.random.default_rng(seed)
     snap = sc._snap
     lut_host = sc._get_lut("byte")[3]
@@ -498,6 +558,10 @@ def stream_inputs(sc, text: bytes, halo: int, B: int, L: int,
         src = np.tile(src, -(-B * L // len(src)))
     n = min(len(src), B * L)
     raw[halo:halo + n] = src[:n]
+    if plant is not None:
+        ends, kw = plant
+        for i, ch in enumerate(kw):
+            raw[ends - len(kw) + i] = ch
     head = rng.integers(1, sc.V, halo).astype(np.int32)
     ids = lut_host[raw].astype(np.int32)
     ids[:halo] = head
@@ -612,8 +676,8 @@ def ptxas_kernels(log: str) -> list:
     return rows
 
 
-# The kernels of each split entry point, by a pattern of their demangled
-# names.
+# The kernels of each split entry point and of K12, by a pattern of their
+# demangled names.
 SPLIT_KERNELS = {
     "ac_dense_count": r"dense_count_kernel",
     "ac_dense_states": r"dense_states_kernel",
@@ -623,9 +687,11 @@ SPLIT_KERNELS = {
     "ac_dense_hits": r"hits_kernel<AcStreamLayout",
     "ac_window_hits": r"hits_kernel<AcWinLayout",
     "ac_stepped_count": r"stepped_lanes_kernel<[^(]*AcPackedTable",
+    "ac_stepped_emit": r"stepped_emit_kernel",
     "ac_stepped_count_many": r"ac_cols_kernel<[^(]*AcPackedTable",
     "ac_stepped_count_2t": r"AcTwoTables",
     "ac_hybrid_count": r"hybrid_count_kernel",
+    "ac_assoc_scan": r"assoc_\w+_kernel",
 }
 
 
@@ -2020,10 +2086,49 @@ def phase_mesh(act, build, mesh, machine, sc, sc1, text: bytes, n: int,
               "mesh count on every card")
 
 
-def phase_assoc(act, build) -> dict:
+def kernel_ms(fn, pattern: str, reps: int = 20) -> dict:
+    """Mean device ms a call of fn() spends in each CUDA kernel whose name
+    matches ``pattern`` (its first group names it), by torch.profiler over
+    reps calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        m = re.search(pattern, e.key)
+        if m and e.device_type == DeviceType.CUDA:
+            out[m.group(1)] = (out.get(m.group(1), 0.0)
+                               + e.self_device_time_total / 1e3 / reps)
+    return out
+
+
+def lookup_bound_ms(lookups: int) -> float:
+    """The least time for ``lookups`` table lookups from shared memory:
+    32 a clock on each SM (one 4-byte word a bank), at the card's
+    maximum SM clock (nvidia-smi clocks.max.sm)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return lookups / (sms * 32 * mhz * 1e6) * 1e3
+
+
+def phase_assoc(act, build, sc, text: bytes) -> dict:
     """K12 through make_assoc_scan (the user's entry point, counted) on
     ASSOC_T symbols of a tests/test_assoc_scan.py-style dictionary, then
-    against its plain version and K2's one-thread form, exact."""
+    against its plain version and K2's one-thread form, exact, with its
+    three phases timed apart on the device (torch.profiler: ``phases``,
+    their sum ``device_ms``, beside ``ms``, the call's) and its bound in
+    lookups beside its bound in bytes; then on the slice's dictionary (3,919
+    states: the tiles' functions past what a block stages, read in place)
+    over the corpus's first ASSOC_SLICE_T bytes against K2's one-thread
+    form."""
     from aho_corasick_1975_tpu_torch.ops import scan_assoc, scan_dense
     rng = np.random.default_rng(1)
     act_m = act.Machine()
@@ -2037,16 +2142,44 @@ def phase_assoc(act, build) -> dict:
         "".join(rng.choice(list("abx"), ASSOC_T))), np.int32)).cuda()
     got, launches = driven(build, ("ac_assoc_scan",), "associative scan",
                            lambda: scan_assoc.make_assoc_scan(V)(delta, ids))
+    n_chunks = -(-ASSOC_T // scan_assoc.CHUNK)
     res = compare("ac_assoc_scan", scan_assoc.assoc_scan,
                   scan_assoc.assoc_scan_plain, (delta,), {"ids": (ids,)},
-                  f"T={ASSOC_T} S={S} V={V} chunk={scan_assoc.CHUNK}")
+                  f"T={ASSOC_T} S={S} V={V} chunk={scan_assoc.CHUNK} "
+                  f"tile={scan_assoc.tile_for(n_chunks)}")
     seq = scan_dense.sequential_states(delta.reshape(-1), V, ids)
     check(torch.equal(got, seq), "K12 equals K2's one-thread form")
     seq_ms = cuda_ms(lambda: scan_dense.sequential_states(
         delta.reshape(-1), V, ids), 2)
-    print(f"K12 beside K2's one thread ({seq_ms:.3f} ms) at T={ASSOC_T}; "
-          f"its bound counts bytes only: the formulation does T*S = "
-          f"{ASSOC_T * S} lookups by design (K2 does T)", flush=True)
+    phases = kernel_ms(lambda: scan_assoc.assoc_scan(delta, ids),
+                       r"assoc_(\w+)_kernel")
+    check(set(phases) == {"compose", "tiles", "states"},
+          f"K12's three phases were timed ({sorted(phases)})")
+    lookups = ASSOC_T * S
+    row = res["ids"]
+    row.update(phases=phases, device_ms=sum(phases.values()), seq_ms=seq_ms,
+               lookup_bound_ms=lookup_bound_ms(lookups))
+    print(f"K12 at T={ASSOC_T}: {row['ms']:.4f} ms a call, "
+          f"{row['device_ms']:.4f} ms on the device: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in phases.items())
+          + f"; K2's one thread {seq_ms:.3f} ms; bound {row['bound_ms']:.4f}"
+          f" ms in bytes, {row['lookup_bound_ms']:.4f} ms in its {lookups} "
+          f"lookups (T*S by design; K2 does T)", flush=True)
+    d_slice = torch.from_numpy(np.ascontiguousarray(sc.tables.delta,
+                                                    np.int32)).cuda()
+    ids_slice = torch.from_numpy(np.ascontiguousarray(
+        sc.encode(text[:ASSOC_SLICE_T]), np.int32)).cuda()
+    wide = scan_assoc.assoc_scan(d_slice, ids_slice)
+    check(torch.equal(wide, scan_dense.sequential_states(
+        d_slice.reshape(-1), d_slice.shape[1], ids_slice)),
+        "K12 over the slice's dictionary equals K2's one-thread form")
+    wide_ms = cuda_ms(lambda: scan_assoc.assoc_scan(d_slice, ids_slice), 5)
+    row["slice_dictionary_ms"] = wide_ms
+    print(f"K12 over the slice's dictionary ({d_slice.shape[0]} states), "
+          f"T={ASSOC_SLICE_T}: {wide_ms:.4f} ms, exact; "
+          f"{ASSOC_SLICE_T * d_slice.shape[0]} lookups, bound "
+          f"{lookup_bound_ms(ASSOC_SLICE_T * d_slice.shape[0]):.4f} ms",
+          flush=True)
     return {"ac_assoc_scan": res}, launches
 
 
@@ -2104,7 +2237,7 @@ def main() -> int:
           f"halo={sc.halo}, halo_steps={sc._halo_steps}, packed "
           f"{sc._snap.packed.numel() * 4} bytes, set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    kern = phase_kernels(sc, text)
+    kern = phase_kernels(sc, text, max(ranked[:N_KEYWORDS], key=len))
 
     # 4. the slice through the user's entry points
     def slice_run():
@@ -2210,7 +2343,7 @@ def main() -> int:
                gate["t_ids"], ranked, mxu, state)
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
     # 16. K12 against its plain version and K2's one-thread form
-    assoc, assoc_launches = phase_assoc(act, build)
+    assoc, assoc_launches = phase_assoc(act, build, sc, text)
     kern.update(assoc)
     launches["ac_assoc_scan"] = assoc_launches["ac_assoc_scan"]
 
@@ -2236,6 +2369,11 @@ def main() -> int:
          "ms_by_split_read_only": first(entry, "ms_by_split_read_only"),
          "ms_read_only": first(entry, "ms_read_only"),
          "passes": first(entry, "passes"),
+         "phases": first(entry, "phases"),
+         "device_ms": first(entry, "device_ms"),
+         "lookup_bound_ms": first(entry, "lookup_bound_ms"),
+         "seq_ms": first(entry, "seq_ms"),
+         "slice_dictionary_ms": first(entry, "slice_dictionary_ms"),
          "registers": registers_of(ptxas, entry)}
         for entry, (name, src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"plain_ops": plain_ops_line()}), flush=True)

@@ -18,12 +18,16 @@ count, stream and batch forms), K10 (the MXU engine's warp body, whose
 layout, in every form) and K11 (the hybrid launch) are held against the
 JAX package's ``ops/multistep.py``, ``ops/scan_mxu.py``,
 ``ops/scan_hybrid.py`` and ``ops/sparse.py`` functions. K12's three phases
-(the associative scan's chunked composition) are held against the JAX
-package's ``ops/scan_assoc.py:make_assoc_scan``. The split kernels (K3,
-K5, K9, K11's gather half, and at k = 1 K1, K2's stream and time-major
-forms, K6 and K8's two forms: each column as P sub-streams, each warmed
-up over the tables' warm_steps) are forced to every P up to 32 and held
-against the plain versions and the JAX package (the 1-char kernels also
+(each chunk's and each tile's composed function, and each chunk re-run
+from its start) are held against the JAX package's
+``ops/scan_assoc.py:make_assoc_scan`` at several chunk and tile sizes,
+and against each other. The split kernels (K3, K4, K5, K9, K11's gather
+half, and at k = 1 K1, K2's stream and time-major forms, K6 and K8's two
+forms: each column as P sub-streams, each warmed up over the tables'
+warm_steps, K4's a symbol longer) are forced to every P up to 32 and held
+against the plain versions and the JAX package (K4 also where a longest
+keyword ends just before each sub-stream, which K3's warm-up would miss;
+the 1-char kernels also
 over the 1-char tables staged as on the SM and read in place, K2's states
 and K8's positions and states element for element, K2's staged state
 writes at every alignment), and the launcher's pick of P is held at the
@@ -50,6 +54,7 @@ from aho_corasick_1975_tpu.ops import scan_mxu as jmxu
 from aho_corasick_1975_tpu.ops import scan_xla as jxla
 from aho_corasick_1975_tpu.ops import sparse as jsp
 from aho_corasick_1975_tpu_torch import Machine
+from aho_corasick_1975_tpu_torch.models.snapshot import DeviceSnapshot
 from aho_corasick_1975_tpu_torch.ops import (build, hits, multistep,
                                              scan_dense, scan_hybrid,
                                              scan_mxu, sparse)
@@ -123,7 +128,7 @@ def test_stepped_kernels(lib, k, kind, shape):
     n_hits = torch.full((B,), -7, dtype=torch.int32)
     n_live = torch.full((B,), -7, dtype=torch.int32)
     _run(lib, "ac_stepped_emit", table=packed, out=emit, n_hits=n_hits,
-         n_live=n_live, **common)
+         n_live=n_live, **dict(common, warm_steps=tab["emit_warm"]))
     for got, want in zip((emit, n_hits, n_live),
                          hits.stepped_emit_plain(*plain_args)):
         assert torch.equal(got, want)
@@ -912,30 +917,120 @@ def test_mxu_fields_refuse_a_launch_without_planes_t(bad):
         scan_mxu.mxu_fields(pt, V, cb, n_planes, wrong)
 
 
+def _assoc_launch(lib, delta, ids, chunk, tile):
+    """K12's three phases through the g++ build at a chunk and tile size:
+    (states, compose [B + n_tiles, S], starts [B])."""
+    S, V = delta.shape
+    n_chunks = -(-ids.numel() // chunk)
+    n_tiles = -(-n_chunks // tile)
+    out = torch.full((ids.numel(),), -7, dtype=torch.int32)
+    compose = torch.full((n_chunks + n_tiles, S), -7, dtype=torch.int32)
+    starts = torch.full((n_chunks,), -7, dtype=torch.int32)
+    _run(lib, "ac_assoc_scan", table=delta, ext=ids, out=out, L=chunk,
+         B=n_chunks, V=V, doc_len=ids.numel(), n_states=S, tile=tile,
+         compose=compose, starts=starts)
+    return out, compose, starts
+
+
+def _assoc_consistent(out, compose, starts, chunk, tile):
+    """Each chunk's start state is the state before its first id (the
+    root for the first), and each tile's function is its chunks'
+    composed: the phases hold together, not only their last output."""
+    B = starts.numel()
+    assert int(starts[0]) == 0
+    assert torch.equal(starts[1:], out[chunk - 1:(B - 1) * chunk:chunk])
+    F, H = compose[:B].long(), compose[B:].long()
+    for i in range(H.shape[0]):
+        s = torch.arange(compose.shape[1])
+        for c in range(i * tile, min((i + 1) * tile, B)):
+            s = F[c][s]
+        assert torch.equal(H[i], s)
+
+
+@pytest.mark.parametrize("tile", [1, 3, 32])
 @pytest.mark.parametrize("chunk", [1, 7, 64, 5000])
-def test_assoc_scan_kernel(lib, chunk):
-    """K12's three phases (compose per chunk and state, the chain, the
-    states per chunk) against the JAX package's make_assoc_scan and the
-    plain version, a last chunk short where chunk does not divide T."""
+def test_assoc_scan_kernel(lib, chunk, tile):
+    """K12's three phases (each chunk's function at every state, each
+    tile's, each chunk re-run from the start its tile's and the tiles'
+    functions give) against the JAX package's make_assoc_scan and the
+    plain version, at chunks that do not divide T (a last chunk short),
+    a chunk longer than T, and tiles of 1, 3 (a last tile short) and 32
+    chunks (more than there are)."""
     from aho_corasick_1975_tpu.ops.scan_assoc import make_assoc_scan
     from aho_corasick_1975_tpu_torch.ops import scan_assoc
     tab = tc.tables(1)
     t = tab["machine"].compile()
-    S, V = t.n_states, t.vocab_size
+    V = t.vocab_size
     ids = np.random.default_rng(5).integers(0, V, 999).astype(np.int32)
     delta = _t(np.ascontiguousarray(t.delta, np.int32))
-    n_chunks = -(-len(ids) // chunk)
-    out = torch.full((len(ids),), -7, dtype=torch.int32)
-    compose = torch.full((n_chunks, S), -7, dtype=torch.int32)
-    starts = torch.full((n_chunks,), -7, dtype=torch.int32)
-    _run(lib, "ac_assoc_scan", table=delta, ext=_t(ids), out=out, L=chunk,
-         B=n_chunks, V=V, doc_len=len(ids), n_states=S, compose=compose,
-         starts=starts)
+    out, compose, starts = _assoc_launch(lib, delta, _t(ids), chunk, tile)
     want = np.asarray(make_assoc_scan(V)(jnp.asarray(t.delta),
                                          jnp.asarray(ids)))
     np.testing.assert_array_equal(out.numpy(), want)
     assert torch.equal(out, scan_assoc.assoc_scan_plain(delta, _t(ids)))
-    assert int(starts[0]) == 0 and (compose >= 0).all()
+    _assoc_consistent(out, compose, starts, chunk, tile)
+
+
+@pytest.mark.parametrize("T", [1, 4000, 40000])
+def test_assoc_scan_wrapper_geometry(lib, T):
+    """The wrapper's own launch (``scan_assoc.launch_fields``: chunks of
+    CHUNK ids, tiles of ``tile_for`` chunks, a last chunk and tile short)
+    through the g++ build equals the plain version and the one-thread scan,
+    and its tiles keep both chains short: a tile at most sqrt(B) rounded
+    up to a power of two (at least a warp), as many tiles."""
+    from aho_corasick_1975_tpu_torch.ops import scan_assoc
+    t = tc.tables(1)["machine"].compile()
+    delta = _t(np.ascontiguousarray(t.delta, np.int32))
+    ids = _t(np.random.default_rng(T).integers(
+        0, t.vocab_size, T).astype(np.int32))
+    out = torch.full((T,), -7, dtype=torch.int32)
+    fields = scan_assoc.launch_fields(delta, ids, out)
+    n_tiles = -(-fields["B"] // fields["tile"])
+    assert fields["B"] == -(-T // scan_assoc.CHUNK)
+    assert fields["compose"].shape == (fields["B"] + n_tiles, t.n_states)
+    assert 32 <= fields["tile"] < max(64, 2 * fields["B"] ** 0.5 + 1)
+    assert n_tiles <= fields["tile"]
+    _run(lib, "ac_assoc_scan", **fields)
+    assert torch.equal(out, scan_assoc.assoc_scan_plain(delta, ids))
+    assert torch.equal(out, scan_dense.sequential_states_plain(
+        delta.reshape(-1), t.vocab_size, ids))
+    _assoc_consistent(out, fields["compose"], fields["starts"],
+                      fields["L"], fields["tile"])
+
+
+@pytest.mark.parametrize("case", ["one_id", "whole_chunks", "wide_table"])
+def test_assoc_scan_kernel_edges(lib, case):
+    """K12 at T = 1, at T a multiple of the chunk (every chunk whole), and
+    over a random table of 1,000 states and 200 letters, whose 400 KB of
+    uint16 rows pass a block's shared memory, so the phases read it in
+    place: equal to the plain version and the one-thread scan. A tile of
+    0 or past 1,024 chunks, or a chunk past what a block stages, fails the
+    launch."""
+    from aho_corasick_1975_tpu_torch.ops import scan_assoc
+    if case == "wide_table":
+        rng = np.random.default_rng(9)
+        delta = _t(rng.integers(0, 1000, (1000, 200)).astype(np.int32))
+        ids = _t(rng.integers(0, 200, 777).astype(np.int32))
+        chunk, tile = 16, 4
+    else:
+        t = tc.tables(1)["machine"].compile()
+        delta = _t(np.ascontiguousarray(t.delta, np.int32))
+        n = 1 if case == "one_id" else 8 * 24
+        ids = _t(np.random.default_rng(6).integers(
+            0, t.vocab_size, n).astype(np.int32))
+        chunk, tile = (64, 32) if case == "one_id" else (8, 4)
+    out, compose, starts = _assoc_launch(lib, delta, ids, chunk, tile)
+    assert torch.equal(out, scan_assoc.assoc_scan_plain(delta, ids))
+    assert torch.equal(out, scan_dense.sequential_states_plain(
+        delta.reshape(-1), delta.shape[1], ids))
+    _assoc_consistent(out, compose, starts, chunk, tile)
+    for bad in (dict(tile=0), dict(tile=1025), dict(L=16385)):
+        fields = dict(table=delta, ext=ids, out=out, L=chunk, B=1,
+                      V=delta.shape[1], doc_len=ids.numel(),
+                      n_states=delta.shape[0], tile=tile, compose=compose,
+                      starts=starts)
+        args = build.scan_args(**dict(fields, **bad))
+        assert lib.ac_assoc_scan(ctypes.byref(args), None) != 0
 
 
 # -- K3, K5, K9, K11: sub-streams ----------------------------------------------
@@ -1093,26 +1188,155 @@ def test_stepped_split_rejects_a_bad_split(lib, split_refs):
         multistep.split_fields(4, 1, -1, 0)
 
 
-@pytest.mark.parametrize("case", ["k3_raw_u8", "k5_c3", "k9_batch",
-                                  "k11_mixed", "k1_raw_u8", "k8_raw_u8",
-                                  "k8_window", "k2_raw_u8", "k2_tm",
-                                  "k6_c3"])
+# -- K4: sub-streams writing their grams' words ------------------------------
+
+def _emit_ref(k, kind, halo=2, n_body=37):
+    """K4's launch fields (warmed up over the tables' emit_warm), the plain
+    version's (emit, n_hits, n_live) and the JAX package's (emit [B, L/k],
+    n_hits, summed n_live) over B streams of n_body grams behind a halo of
+    ``halo`` symbols, rounded up to grams."""
+    tab = tc.tables(k)
+    V, cb = tab["V"], tab["count_bits"]
+    hs = -(-halo // k)
+    L = n_body * k
+    s = tc.stream(tab, kind, hs * k, L, seed=n_body + k)
+    packed = _t(tab["packed"])
+    fields = dict(_common(s, hs * k, L, V), table=packed, Vk=V ** k, k=k,
+                  count_bits=cb, warm_steps=tab["emit_warm"])
+    plain = hits.stepped_emit_plain(packed, V, k, cb, hs, B, L, _t(s["ext"]),
+                                    _t(s["lut"]), _t(s["head_ids"]))
+    jp = jnp.asarray(tab["packed"])
+    if s["lut"] is None:
+        jwant = jhits.make_stepped_hits_scan(V, k, V ** k, cb, hs, B, L)(
+            jp, jnp.asarray(s["ext"]))
+    else:
+        jwant = jhits.make_stepped_hits_scan_raw(V, k, V ** k, cb, hs, B, L)(
+            jp, jnp.asarray(s["lut"]), jnp.asarray(s["ext"]),
+            jnp.asarray(s["head_ids"]))
+    return fields, plain, (np.asarray(jwant[0])[hs:].T,
+                           np.asarray(jwant[1]), int(jwant[2]))
+
+
+def _emit_launch(lib, fields, **kw):
+    """One K4 launch through the g++ build: (emit, n_hits, n_live)."""
+    n_body = fields["L"] // fields["k"]
+    outs = (torch.full((B, n_body), -7, dtype=torch.int32),
+            torch.full((B,), -7, dtype=torch.int32),
+            torch.full((B,), -7, dtype=torch.int32))
+    _run(lib, "ac_stepped_emit", out=outs[0], n_hits=outs[1],
+         n_live=outs[2], **dict(fields, **kw))
+    return outs
+
+
+@pytest.mark.parametrize("split", [0] + SPLITS)
+@pytest.mark.parametrize("kind", tc.KINDS)
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_stepped_emit_split_kernel(lib, k, kind, split):
+    """K4 with each stream forced into ``split`` sub-streams (0: the
+    launcher's pick at full occupancy), behind a halo of 2 symbols,
+    shorter than the warm-up, over 37 body grams (remainders where split
+    does not divide them; empty parts past them), each part writing its
+    grams' words in their slots through the staged sector writes: the
+    words, n_hits and n_live bit-equal to the plain version and the JAX
+    package's make_stepped_hits_scan / _raw, and the library reports the
+    split."""
+    fields, plain, jwant = _emit_ref(k, kind)
+    got = _emit_launch(lib, fields, split=split)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    assert int(plain[1].sum()) > 0
+    np.testing.assert_array_equal(got[0].numpy(), jwant[0])
+    np.testing.assert_array_equal(got[1].numpy(), jwant[1])
+    assert int(got[2].sum()) == jwant[2]
+    assert lib.ac_last_split() == (split or build.pick_split(
+        lib, B, 37, fields["halo"] // k, fields["warm_steps"], _slots(2048)))
+
+
+@pytest.mark.parametrize("kind", ["ids", "raw_u8"])
+@pytest.mark.parametrize("k", [2, 3])
+def test_stepped_emit_boundary_needs_the_longer_warm_up(lib, k, kind):
+    """A dictionary 7 deep (7 = 1 mod k) whose 7-letter keyword ends at the
+    last symbol before every sub-stream's first body gram: K4 at 4
+    sub-streams a stream, warmed up over ceil(7/k) grams, writes the
+    plain version's and the JAX package's words. Over K3's ceil(6/k) it
+    cannot reach the keyword's end, so the word of exactly those first
+    grams carries a shallower state; its counts still agree."""
+    m = Machine()
+    for w in (b"abcdefg", b"cde", b"efg", b"bc"):
+        m.insert_keyword(w)
+    t = m.compile()
+    assert t.max_depth == 7
+    snap = DeviceSnapshot(t, step_k=1, device="cpu")
+    st = multistep.build_stepped(t, k, cap_rows=snap.cap)
+    V, cb, P, n_body, hs = snap.V, st.count_bits, 4, 24, 1
+    L = n_body * k
+    lut = m.vocab.byte_lut()
+    lut = np.where(lut < V, lut, 0).astype(np.int32)
+    rng = np.random.default_rng(k)
+    raw = rng.choice(np.frombuffer(b"abcdefgxyz", np.uint8), hs * k + B * L)
+    firsts = []
+    for b in range(B):
+        for p in range(1, P):
+            j0 = hs + n_body * p // P
+            end = b * L + j0 * k          # window row j0*k of stream b
+            raw[end - 7:end] = np.frombuffer(b"abcdefg", np.uint8)
+            firsts.append((b, j0 - hs))
+    head = rng.integers(1, V, hs * k).astype(np.int32)
+    if kind == "ids":
+        ext, lut_k, head_k = lut[raw], None, None
+    else:
+        ext, lut_k, head_k = raw, lut, head
+    packed = _t(st.cap_packed)
+    fields = dict(_common(dict(ext=ext, lut=lut_k, head_ids=head_k), hs * k,
+                          L, V), table=packed, Vk=V ** k, k=k,
+                  count_bits=cb, split=P,
+                  warm_steps=multistep.emit_warm_steps_for(t, k))
+    assert fields["warm_steps"] == -(-7 // k) > multistep.warm_steps_for(t, k)
+    plain = hits.stepped_emit_plain(packed, V, k, cb, hs, B, L, _t(ext),
+                                    _t(lut_k), _t(head_k))
+    jp = jnp.asarray(st.cap_packed)
+    if kind == "ids":
+        jwant = jhits.make_stepped_hits_scan(V, k, V ** k, cb, hs, B, L)(
+            jp, jnp.asarray(ext))
+    else:
+        jwant = jhits.make_stepped_hits_scan_raw(V, k, V ** k, cb, hs, B, L)(
+            jp, jnp.asarray(lut), jnp.asarray(ext), jnp.asarray(head))
+    np.testing.assert_array_equal(plain[0].numpy(),
+                                  np.asarray(jwant[0])[hs:].T)
+    got = _emit_launch(lib, fields)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    short = _emit_launch(lib, fields,
+                         warm_steps=multistep.warm_steps_for(t, k))
+    differ = sorted(map(tuple, torch.nonzero(short[0] != plain[0]).tolist()))
+    assert differ == sorted(firsts)
+    assert torch.equal(short[0] & ((1 << cb) - 1), plain[0] & ((1 << cb) - 1))
+    assert torch.equal(short[1], plain[1]) and torch.equal(short[2], plain[2])
+
+
+@pytest.mark.parametrize("case", ["k3_raw_u8", "k4_raw_u8", "k5_c3",
+                                  "k9_batch", "k11_mixed", "k1_raw_u8",
+                                  "k8_raw_u8", "k8_window", "k2_raw_u8",
+                                  "k2_tm", "k6_c3"])
 def test_stepped_launch_requires_warm_steps(lib, split_refs, dense_refs,
                                             case):
     """A split launch whose fields leave out warm_steps (scan_args sets
     it to -1) fails, at the launcher's pick and at every forced split, and
     writes nothing: no launch counts without the warm-up. K8's launchers
     also refuse to give a P for such fields."""
-    if case in DENSE_CASES:
+    if case == "k4_raw_u8":
+        name, (fields, plain, _) = "ac_stepped_emit", _emit_ref(2, "raw_u8")
+    elif case in DENSE_CASES:
         name, fields, plain = dense_refs(case)[:3]
     else:
         name, fields, plain, _ = split_refs(case, 2)
     fields = {key: v for key, v in fields.items() if key != "warm_steps"}
     n = plain[0].numel() if isinstance(plain, tuple) else plain.numel()
+    keys = (("out", "n_hits", "n_live") if name == "ac_stepped_emit"
+            else ("n_hits", "n_live") if name in HITS_ENTRIES else ("out",))
     for split in (0, 1, 16):
         outs = {key: torch.full((n * 32,), -7, dtype=torch.int32)
-                for key in (("n_hits", "n_live") if name in HITS_ENTRIES
-                            else ("out",))}
+                for key in keys}
         args = build.scan_args(split=split, **outs, **fields)
         assert args.warm_steps == -1
         assert getattr(lib, name)(ctypes.byref(args), None) != 0
@@ -1144,6 +1368,10 @@ def test_launcher_split_choice(lib, split_refs, dense_refs, shape):
                         "slice_k1": (4224, 9, 9)}[shape]
     pick = functools.partial(build.pick_split, lib, 16384, n_body, hs, warm)
     assert pick(_slots(2048)) == 16
+    # K4's warm-up, a symbol longer (the slice: ceil(10/3) = 4 grams),
+    # leaves the pick where it was
+    assert build.pick_split(lib, 16384, n_body, hs, warm + 1,
+                            _slots(2048)) == 16
     assert pick(_slots(1536)) == 32
     # the batch launches (K5, K9's batch form) hold 1,024 threads an SM
     # at P >= 16 and take it only in one wave: not for 16,384 columns,

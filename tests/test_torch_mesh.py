@@ -195,20 +195,23 @@ def test_sharded_refresh_halo_growth(meshes):
 def test_sharded_refresh_grows_the_warm_up(meshes):
     """refresh() with a keyword of 21 letters grows the sharded scanner's
     stepped warm-up (``_warm_steps``, from the tables in ``_bind()``) with
-    its halo; count() (K3 per shard) and count_many (K5 per shard) then
-    equal the JAX ShardedScanner's and the host scan."""
+    its halo, and K4's (``_emit_warm``, a symbol longer); count() (K3 per
+    shard), count_many (K5 per shard) and find_matches() (K4 per shard)
+    then equal the JAX ShardedScanner's and the host scan."""
     m = ac.Machine()
     m.insert_keyword("spanner")
     jsc, sc = _pair(m, meshes, n_streams_per_device=4, step_k=2)
-    assert sc._warm_steps == 3
+    assert sc._warm_steps == 3 and sc._emit_warm == 4
     long_kw = "spannerspannerspanner"
     m.insert_keyword(long_kw)
     sc.refresh()
     jsc.refresh()
     assert sc._warm_steps == -(-(len(long_kw) - 1) // 2)
+    assert sc._emit_warm == -(-len(long_kw) // 2)
     text = ("." * 29 + long_kw + "," * 13) * 24
     host = m.match_stream(m.initiate(), text, parallel=False)
     assert sc.count(text) == jsc.count(text) == host > 24
+    assert len(sc.find_matches(text)) == len(jsc.find_matches(text)) == host
     docs = [text[i:i + 300] for i in range(0, len(text), 300)]
     np.testing.assert_array_equal(sc.count_many(docs), jsc.count_many(docs))
 

@@ -231,8 +231,33 @@ def test_wrappers_on_cpu_are_the_plain_versions():
             _t(s["ext"]), _t(s["lut"]), _t(s["head_ids"]))
     assert torch.equal(multistep.stepped_count(*args, warm_steps=1),
                        multistep.stepped_count_plain(*args))
-    for a, b in zip(hits.stepped_emit(*args), hits.stepped_emit_plain(*args)):
+    for a, b in zip(hits.stepped_emit(*args, warm_steps=2),
+                    hits.stepped_emit_plain(*args)):
         assert torch.equal(a, b)
+
+
+def test_k4_wrapper_needs_the_warm_up():
+    """K4's wrapper requires ``warm_steps`` (a keyword without a default)
+    and refuses a negative one and a split that is no power of two up to
+    32, on every device, before any launch; the tables' K4 warm-up is one
+    symbol longer than the counts': ceil(max_depth / k) grams against
+    ceil((max_depth - 1) / k)."""
+    tab, hs, L, s = _stepped_case(3, "raw_u8", "halo")
+    args = (_t(tab["packed"]), tab["V"], 3, tab["count_bits"], hs, B, L,
+            _t(s["ext"]), _t(s["lut"]), _t(s["head_ids"]))
+    with pytest.raises(TypeError, match="warm_steps"):
+        hits.stepped_emit(*args)
+    for bad in (dict(warm_steps=-1), dict(warm_steps=2, split=3),
+                dict(warm_steps=2, split=64)):
+        with pytest.raises(ValueError, match="warm_steps|split"):
+            hits.stepped_emit(*args, **bad)
+    t = tab["machine"].compile()
+    assert t.max_depth == 6
+    assert tab["emit_warm"] == multistep.emit_warm_steps_for(t, 3) == 2
+    assert multistep.warm_steps_for(t, 3) == 2
+    assert [multistep.emit_warm_steps_for(t, k) for k in (1, 2, 4)] == [
+        6, 3, 2]
+    assert [multistep.warm_steps_for(t, k) for k in (1, 2, 4)] == [5, 3, 2]
 
 
 @pytest.mark.parametrize("bad", ["short_ext", "float_ext", "u8_ids",

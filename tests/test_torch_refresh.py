@@ -23,6 +23,7 @@ import aho_corasick_1975_tpu as ac
 from aho_corasick_1975_tpu.models.scanner import DenseScanner as JaxScanner
 from aho_corasick_1975_tpu.ops import multistep as jms
 from aho_corasick_1975_tpu_torch import ByteMachine, DenseScanner, Machine
+from aho_corasick_1975_tpu_torch.ops import hits
 from aho_corasick_1975_tpu_torch.ops import multistep as ms
 
 TEXT = "To ushers: he found his pencil, but she could not find hers."
@@ -170,20 +171,24 @@ def test_refresh_grows_the_warm_up_under_a_fixed_halo(step_k):
     K3's host build, forced to 16 sub-streams a stream over the scanner's
     own layout and fields, equals the plain version per stream; with the
     warm-up from before the refresh it would lose the long keyword's
-    matches that straddle a sub-stream's start."""
+    matches that straddle a sub-stream's start. K4's warm-up
+    (``_emit_warm``, a symbol longer) grows too: its host build at 16
+    sub-streams writes the plain version's words, and with the stale
+    warm-up it would not."""
     from aho_corasick_1975_tpu_torch.ops import build
     m = Machine()
     for w in ["he", "she"]:
         m.insert_keyword(w)
     sc = fresh_like(m, step_k=step_k, halo=2)
     jsc = JaxScanner(m, n_streams=4, step_k=step_k, halo=2)
-    stale = sc._warm_steps
-    assert stale == 1
+    stale, stale_emit = sc._warm_steps, sc._emit_warm
+    assert stale == 1 and stale_emit == -(-3 // step_k)
     long_kw = "hehehehehehehehehehe"
     m.insert_keyword(long_kw)
     assert sc.refresh() is True and jsc.refresh() is True
     assert sc.halo == jsc.halo == 2 and sc._halo_sym == jsc._halo_sym
     assert sc._warm_steps == -(-(len(long_kw) - 1) // step_k)
+    assert sc._emit_warm == -(-len(long_kw) // step_k)
     text = ("x" * 37 + long_kw + "y" * 23) * 40
     assert sc.count(text) == jsc.count(text)
     st, snap = sc._stepped, sc._snap
@@ -207,6 +212,22 @@ def test_refresh_grows_the_warm_up_under_a_fixed_halo(step_k):
         outs.append(out)
     assert torch.equal(outs[0], want)
     assert int(outs[1].sum()) < int(want.sum())
+    want_emit = hits.stepped_emit_plain(snap.packed, st.V, st.k,
+                                        st.count_bits, sc._halo_steps, B, L,
+                                        ext)
+    emits = []
+    for warm in (sc._emit_warm, stale_emit):
+        got = (torch.full((B, L // st.k), -7, dtype=torch.int32),
+               torch.full((B,), -7, dtype=torch.int32),
+               torch.full((B,), -7, dtype=torch.int32))
+        args = build.scan_args(
+            table=snap.packed, ext=ext, out=got[0], n_hits=got[1],
+            n_live=got[2], L=L, Vk=st.Vk, B=B, V=st.V, halo=sc._halo_sym,
+            k=st.k, count_bits=st.count_bits, warm_steps=warm, split=16)
+        assert lib.ac_stepped_emit(ctypes.byref(args), None) == 0
+        emits.append(got)
+    assert all(torch.equal(a, b) for a, b in zip(emits[0], want_emit))
+    assert not torch.equal(emits[1][0], want_emit[0])
 
 
 def test_refresh_grows_the_1char_warm_up_under_a_fixed_halo(monkeypatch):

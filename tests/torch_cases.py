@@ -11,8 +11,9 @@ import numpy as np
 
 from aho_corasick_1975_tpu_torch import Machine
 from aho_corasick_1975_tpu_torch.models.snapshot import DeviceSnapshot
-from aho_corasick_1975_tpu_torch.ops.multistep import (build_stepped, pack,
-                                                       warm_steps_for)
+from aho_corasick_1975_tpu_torch.ops.multistep import (build_stepped,
+                                                       emit_warm_steps_for,
+                                                       pack, warm_steps_for)
 from aho_corasick_1975_tpu_torch.ops.sparse import elide_windows
 
 KINDS = ("ids", "raw_u8", "raw_i32")
@@ -32,7 +33,8 @@ def tables(k: int, seed: int = 0) -> dict:
     """The automaton's capacity-padded tables as numpy arrays: the 1-char
     tables (``n_states`` of their rows real), the packed k-gram table and
     the packed k=1 table ``pk1``, and the stepped kernels' warm-up in grams
-    of k (at k = 1 the 1-char kernels' warm-up in symbols)."""
+    of k (at k = 1 the 1-char kernels' warm-up in symbols), and K4's
+    (``emit_warm``)."""
     m = machine(seed)
     t = m.compile()
     snap = DeviceSnapshot(t, step_k=1, device="cpu")
@@ -45,6 +47,7 @@ def tables(k: int, seed: int = 0) -> dict:
                 packed=st.cap_packed, cb1=cb1,
                 pk1=pack(t.delta, t.nb_outputs, 1, cb1),
                 warm_steps=warm_steps_for(t, k),
+                emit_warm=emit_warm_steps_for(t, k),
                 byte_lut=np.where(lut < snap.V, lut, 0).astype(np.int32))
 
 
