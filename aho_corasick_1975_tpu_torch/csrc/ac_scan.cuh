@@ -17,27 +17,28 @@
 // The sparse prefilter's kernels (K7, K8 window form) run them over a third,
 // AcWinSyms: column c is the window of live block idx[c], read in place
 // from the stream (ops/sparse.py:_window_gather) or from host-elided
-// windows.
+// windows; K7 dense reads the stream's windows through the first
+// (AcWinRowsLayout).
 //
 // What bounds these scans on an H100: each step's table index depends on
 // the previous step's gather, so a stream is a chain of dependent loads
 // (L2 or device-memory latency, not bandwidth), and one thread per stream
 // (16,384 at the slice) fills a few percent of the card's thread slots.
 // The stepped counts (K3, K5, K9, K11's gather half), K4's emit and the
-// 1-char scans (K1, K2, K6, K8: the same walk at k = 1 over AcDenseTable)
-// therefore split each stream or column into P sub-streams
+// 1-char scans (K1, K2, K6, K7 dense, K8: the same walk at k = 1 over
+// AcDenseTable) therefore split each stream or column into P sub-streams
 // (ac_stepped_part_walk), each warmed up from the root over warm_steps
 // grams before its body, so that B*P threads fill the SMs; the symbols of
 // the next group of steps are loaded (evict-first) while this group's
-// gathers run, and the table
-// is read through the read-only path, or for the 1-char stream forms
-// (K1, K2, K8) from shared memory where it fits (ac_dense_stage). In the
-// stream layout a sub-stream's symbols are contiguous: a byte stream's are
-// loaded as 32-bit words, and at k = 1 every stream's as 16-byte vectors;
-// in the batch layout neighbouring threads read neighbouring columns of
-// one row, so a warp's symbol loads coalesce. K2's one-chain form (one
-// stream at P = 1, the sequential scan) walks chunks of ids the rest of
-// its block stages (ac_seq_walk).
+// gathers run, and the table is read through the read-only path, or for
+// the 1-char stream forms (K1, K2, K7 dense, K8) from shared memory where
+// it fits (ac_dense_stage). In the stream layout a sub-stream's symbols
+// are contiguous: a byte stream's are loaded as 32-bit words, and at
+// k = 1 every stream's as 16-byte vectors; in the batch layout
+// neighbouring threads read neighbouring columns of one row, so a warp's
+// symbol loads coalesce. K2's one-chain form (one stream at P = 1, the
+// sequential scan) walks chunks of ids the rest of its block stages
+// (ac_seq_walk).
 #pragma once
 
 #include <stdint.h>
@@ -101,22 +102,25 @@ struct AcScanArgs {
   // states [doc_len], cut into B chunks of L symbols and the chunks into
   // tiles of `tile`; compose [B + n_tiles, n_states] each chunk's composed
   // transition function, then each tile's; starts [B] each chunk's start
-  // state. K1, K2, K8: the tables' real rows, those staged on the SM.
+  // state. K1, K2, K7 dense, K8: the tables' real rows, those staged on
+  // the SM.
   int32_t* compose;
   int32_t* starts;
   int32_t n_states;
   int32_t tile;
-  // K1-K6, K8, K9, K11's gather half: the grams a sub-stream reads
-  // before its body (never the halo, which may be shorter or 0; symbols at
-  // k = 1): ceil((max_depth - 1) / k) of the tables for the counts and
-  // states, which are exact from the body's first symbol on; for K4,
-  // which also writes the state before that symbol, ceil(max_depth / k).
+  // K1-K6, K7 dense, K8, K9, K11's gather half: the grams a sub-stream
+  // reads before its body (never the halo, which may be shorter or 0;
+  // symbols at k = 1): ceil((max_depth - 1) / k) of the tables for the
+  // counts and states, which are exact from the body's first symbol on;
+  // for K4, which also writes the state before that symbol,
+  // ceil(max_depth / k).
   // And the sub-streams per column, a power of two up to AC_MAX_SPLIT; 0
   // lets the launcher pick (ac_pick_split).
   int32_t warm_steps;
   int32_t split;
-  // K1, K2, K8: 1 reads the 1-char tables through the read-only path even
-  // where rows [0, n_states) fit on the SM (ac_dense_smem_bytes).
+  // K1, K2, K7 dense, K8: 1 reads the 1-char tables through the read-only
+  // path even where rows [0, n_states) fit on the SM
+  // (ac_dense_smem_bytes).
   int32_t global_table;
 };
 
@@ -289,30 +293,6 @@ AC_HD int64_t ac_gram(const Syms& sym, int64_t t0, int32_t V, int32_t k) {
   return g;
 }
 
-// K7 dense, one thread a window: the recurrence of
-// ops/scan_xla.py:blocked_count_core, s <- dflat[s*V + c], counting the
-// matches of the rows past the halo (K1 and K6 run it as sub-streams over
-// AcDenseTable). Sums wrap like the JAX int32 accumulator; the scanner's
-// _guard_acc keeps them from doing so. The tables are read by plain loads.
-template <typename Syms>
-AC_HD int32_t ac_dense_count_body(const AcScanArgs& a, const Syms& sym) {
-  int32_t s = 0;
-  uint32_t tot = 0;
-  for (int64_t t = 0; t < a.halo; ++t) s = a.table[(int64_t)s * a.V + sym(t)];
-  for (int64_t t = a.halo; t < a.halo + a.L; ++t) {
-    s = a.table[(int64_t)s * a.V + sym(t)];
-    tot += (uint32_t)a.nb_out[s];
-  }
-  return (int32_t)tot;
-}
-
-// K7 dense (ops/sparse.py:make_sparse_count / _dev over _window_gather,
-// and the elided count of models/scanner.py:_elided_count_core): K1's
-// recurrence over one live-block window.
-AC_HD void ac_sparse_count_column(const AcScanArgs& a, int64_t column) {
-  a.out[column] = ac_dense_count_body(a, ac_win_syms(a, column));
-}
-
 // Per-lane values: one register on the card, one slot per lane on the host,
 // where every per-lane statement runs for the 32 lanes in turn
 // (AC_FOR_LANES) and the warp primitives below combine the slots as the
@@ -460,8 +440,8 @@ AC_HD int32_t ac_lut_entries(const AcScanArgs& a) {
 // Shared memory a block can hold on an H100 (sm_90).
 #define AC_SMEM_BLOCK 232448
 
-// Threads a block of the 1-char stream kernels (K1, K2, K8): their tables
-// in device memory, or on the SM (and K2's one-chain block).
+// Threads a block of the 1-char stream kernels (K1, K2, K7 dense, K8):
+// their tables in device memory, or on the SM (and K2's one-chain block).
 constexpr int kDenseThreads = 128;
 constexpr int kDenseSmThreads = 512;
 
@@ -1396,6 +1376,24 @@ struct AcWinLayout {
   }
 };
 
+// K7 dense's index-list form (gather, row_stride 1): window c is the
+// contiguous rows ext[idx[c]*col_stride + t] of the stream's ids, so it
+// takes the stream accessor, whose sub-streams load their symbols a group
+// ahead as aligned 16-byte vectors (AcVecGroup); at L_blk = 128 a window
+// starts 512-byte aligned.
+struct AcWinRowsLayout {
+  typedef AcSyms<int32_t> Syms;
+  AC_HD static Syms make(const AcScanArgs& a, int64_t c) {
+    Syms s;
+    s.row = (const int32_t*)a.ext + (int64_t)a.idx[c] * a.col_stride;
+    s.lut = nullptr;
+    s.head = nullptr;
+    s.n_lut = 0;
+    s.halo = a.halo;
+    return s;
+  }
+};
+
 // Symbols each row loads ahead of its chain, in a ring of registers.
 #define AC_MXU_AHEAD 4
 
@@ -1633,11 +1631,57 @@ __device__ __forceinline__ void ac_lut_to_smem(AcScanArgs& a, int32_t lut_n,
   }
 }
 
-// The card's SM count and a kernel's resident blocks an SM at a block size
-// and dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// queried once per kernel, device and sizes: a run launches a kernel many
-// times at the same sizes. A size above 48 KB needs the kernel's
-// cudaFuncAttributeMaxDynamicSharedMemorySize raised to it first.
+// The card's SM count and shared memory limits (a block's opt-in maximum
+// and an SM's), queried once per device: the launchers plan every call.
+struct AcDevice {
+  int sms = 0, optin = 0, per_sm = 0;
+};
+
+inline cudaError_t ac_device(AcDevice* d) {
+  static std::mutex mu;
+  static std::map<int, AcDevice> cache;
+  int dev = 0;
+  AC_TRY(cudaGetDevice(&dev));
+  std::lock_guard<std::mutex> hold(mu);
+  const auto it = cache.find(dev);
+  if (it != cache.end()) {
+    *d = it->second;
+    return cudaSuccess;
+  }
+  AC_TRY(cudaDeviceGetAttribute(&d->sms, cudaDevAttrMultiProcessorCount,
+                                dev));
+  AC_TRY(cudaDeviceGetAttribute(
+      &d->optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  AC_TRY(cudaDeviceGetAttribute(
+      &d->per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev));
+  cache[dev] = *d;
+  return cudaSuccess;
+}
+
+// A kernel's dynamic shared memory limit raised to `bytes` where that
+// passes 48 KB and what it was raised to on this device before: per kernel
+// and device, only ever raised, so that every size planned before stays
+// allowed, and set once, not each call.
+inline cudaError_t ac_allow_smem(const void* kernel, int64_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int64_t> raised;
+  int dev = 0;
+  AC_TRY(cudaGetDevice(&dev));
+  std::lock_guard<std::mutex> hold(mu);
+  int64_t& set = raised[std::make_pair(kernel, dev)];
+  if (bytes > set) {
+    AC_TRY(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
+    set = bytes;
+  }
+  return cudaSuccess;
+}
+
+// A kernel's resident blocks an SM at a block size and dynamic shared
+// memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), queried once per
+// kernel, device and sizes: a run launches a kernel many times at the same
+// sizes. A size above 48 KB needs ac_allow_smem first.
 struct AcOccupancy {
   int sms = 0, blocks = 0;
 };
@@ -1656,8 +1700,9 @@ inline cudaError_t ac_occupancy(const void* kernel, int threads,
     *occ = it->second;
     return cudaSuccess;
   }
-  AC_TRY(cudaDeviceGetAttribute(&occ->sms, cudaDevAttrMultiProcessorCount,
-                                dev));
+  AcDevice d;
+  AC_TRY(ac_device(&d));
+  occ->sms = d.sms;
   AC_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ->blocks, kernel,
                                                        threads, smem));
   cache[key] = *occ;
@@ -1701,36 +1746,29 @@ __device__ __forceinline__ AcDenseTable<uint16_t, Counts> ac_dense_sm_table(
 // opt-in limit), or 0: they stay in device memory.
 inline cudaError_t ac_dense_tab(const AcScanArgs& a, int64_t beside,
                                 int64_t* tab) {
-  int dev = 0, optin = 0;
-  AC_TRY(cudaGetDevice(&dev));
-  AC_TRY(cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  AcDevice d;
+  AC_TRY(ac_device(&d));
   *tab = ac_dense_smem_bytes(a, beside);
-  if (beside + *tab > optin) *tab = 0;
+  if (beside + *tab > d.optin) *tab = 0;
   return cudaSuccess;
 }
 
-// A block of `threads` with `used` bytes of dynamic shared memory, the
-// tables on the SM where on_sm: its request (*smem) and occupancy. On the
-// SM, one block an SM: the request passes half the SM's shared memory, so
-// that the rest of its 256 KB stays L1 for the stream's symbols (two
-// blocks of the slice's 110 KB would leave it 28 KB, and an int32 stream
-// then ran slower than through the read-only path).
+// A block of `threads` with `used` bytes of dynamic shared memory: its
+// request (*smem) and occupancy. Padded (pad), one block an SM: the
+// request passes half the SM's shared memory, so that the rest of its
+// 256 KB stays L1 for the stream's symbols (two blocks of the slice's
+// 110 KB would leave it 28 KB, and an int32 stream then ran slower than
+// through the read-only path).
 inline cudaError_t ac_dense_block(const void* kernel, int threads,
-                                  int64_t used, bool on_sm, int64_t* smem,
+                                  int64_t used, bool pad, int64_t* smem,
                                   AcOccupancy* occ) {
   *smem = used;
-  if (on_sm) {
-    int dev = 0, per_sm = 0;
-    AC_TRY(cudaGetDevice(&dev));
-    AC_TRY(cudaDeviceGetAttribute(
-        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev));
-    if (*smem <= per_sm / 2) *smem = per_sm / 2 + 1;
+  if (pad) {
+    AcDevice d;
+    AC_TRY(ac_device(&d));
+    if (*smem <= d.per_sm / 2) *smem = d.per_sm / 2 + 1;
   }
-  if (*smem > 48 * 1024)
-    AC_TRY(cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)*smem));
+  AC_TRY(ac_allow_smem(kernel, *smem));
   AC_TRY(ac_occupancy(kernel, threads, *smem, occ));
   return occ->blocks < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
@@ -1740,9 +1778,12 @@ inline cudaError_t ac_dense_block(const void* kernel, int threads,
 // the SM (K8's two passes both reserve pass 2's, so that they take the
 // same path), `on_sm` and `global` what each kernel of the pair is given
 // (K8's pass 2 stages on the SM only: a global block keeps its L1 for the
-// tables; K2 on both, its states being its traffic).
+// tables; K2 on both, its states being its traffic); `pad`, whether the
+// SM path holds one block an SM (ac_dense_block: K1, K2, K8; K7 dense's
+// windows, whose tables are a few KB at the hunt, ran faster unpadded).
 struct AcDenseStage {
   int fit, on_sm, global;
+  bool pad = true;
 };
 
 // A stream-form launch, planned (ac_dense_plan) and then run
@@ -1757,10 +1798,10 @@ struct AcDensePlan {
 
 // Plan a stream-form 1-char launch over a's B columns, P sub-streams
 // each: on_sm where the tables fit on the SM beside the LUT and
-// stage.fit words a thread (ac_dense_tab), one block of kDenseSmThreads
-// an SM, else global. P is the launch's split field where set, else
-// ac_pick_split over the kernel's occupancy; the grid is at most one
-// wave.
+// stage.fit words a thread (ac_dense_tab), blocks of kDenseSmThreads
+// (one an SM where stage.pad), else global. P is the launch's split
+// field where set, else ac_pick_split over the kernel's occupancy; the
+// grid is at most one wave.
 inline cudaError_t ac_dense_plan(const AcScanArgs& args, AcDenseKernel on_sm,
                                  AcDenseKernel global, AcDenseStage stage,
                                  AcDensePlan* plan) {
@@ -1778,8 +1819,8 @@ inline cudaError_t ac_dense_plan(const AcScanArgs& args, AcDenseKernel on_sm,
   AcOccupancy occ;
   AC_TRY(ac_dense_block(
       (const void*)p.kernel, p.threads,
-      4 * ((int64_t)p.lut_n + (int64_t)words * p.threads) + tab, tab > 0,
-      &p.smem, &occ));
+      4 * ((int64_t)p.lut_n + (int64_t)words * p.threads) + tab,
+      tab > 0 && stage.pad, &p.smem, &occ));
   int64_t slots[AC_SPLITS];
   for (int i = 0; i < AC_SPLITS; ++i)
     slots[i] = (int64_t)occ.sms * occ.blocks * p.threads;
@@ -1806,6 +1847,35 @@ inline cudaError_t ac_dense_launch(const AcScanArgs& args,
   return ac_dense_run(p, st);
 }
 
+namespace {
+
+// K1 and K7 dense: each warp of the grid's loop takes 32 of the launch's
+// B*P sub-streams (ac_stepped_lanes at k = 1) over Layout's columns (K1's
+// streams, K7's windows); the loop's bound is the same in every lane of a
+// warp, so every lane reaches every shuffle.
+template <typename Layout, typename Table>
+__device__ __forceinline__ void ac_dense_count_lanes(const AcScanArgs& a,
+                                                     const Table& table,
+                                                     int32_t P) {
+  const int64_t n = (int64_t)a.B * P;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t g0 = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       g0 < n; g0 += stride)
+    ac_stepped_lanes<1, Layout>(a, table, a.B, P, g0, threadIdx.x & 31);
+}
+
+template <typename Layout, bool OnSm>
+__global__ void __launch_bounds__(OnSm ? kDenseSmThreads : kDenseThreads)
+    ac_dense_count_kernel(AcScanArgs a, int32_t P, int32_t lut_n, int32_t) {
+  extern __shared__ int32_t ac_dense_smem[];
+  ac_lut_to_smem(a, lut_n, ac_dense_smem);
+  if constexpr (OnSm)
+    ac_dense_count_lanes<Layout>(
+        a, ac_dense_sm_table(a, ac_dense_smem + lut_n), P);
+  else
+    ac_dense_count_lanes<Layout>(a, AcDenseTable<int32_t>::make(a), P);
+}
+
 // ---------------------------------------------------------------------------
 // The batch forms (K5, K6, K9's batch form, K2's time-major form), over
 // tables in device memory read through Table: a block of 32 * groups
@@ -1817,8 +1887,6 @@ inline cudaError_t ac_dense_launch(const AcScanArgs& args,
 // (ac_col_states_part). MaxThreads bounds the block: 256 up to P =
 // AC_COLS_SPLIT, so that the compiler is not held to 64 registers (at
 // 1,024 threads it spills at k >= 2), 1,024 above.
-namespace {
-
 template <typename Layout, typename Table, int K, bool States,
           int MaxThreads>
 __global__ void __launch_bounds__(MaxThreads)

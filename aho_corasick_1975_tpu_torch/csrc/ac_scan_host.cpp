@@ -2,14 +2,14 @@
 // points as the CUDA kernels: each loops over the streams (or batch
 // columns, or windows) one by one, the split kernels over their
 // sub-streams at the P the card's launcher would pick at full occupancy,
-// and the MXU kernels and K1's, K3's and K4's lanes over their warps, each
-// warp's 32 lanes in turn with the tensor-core instruction and the warp's
-// votes and shuffles emulated. K1, K2's stream forms and K8 read the
-// 1-char tables as the card does: a uint16 copy staged by ac_dense_stage
-// where ac_dense_smem_bytes gives it room (the card's shared memory), else
-// in place (K6 and K2's time-major form always); K2 stages its states, and
-// its one-chain form its chunks of ids and states, as the card does, and
-// so do K4 (its words) and K12 (its states).
+// and the MXU kernels and K1's, K3's, K4's and K7 dense's lanes over their
+// warps, each warp's 32 lanes in turn with the tensor-core instruction and
+// the warp's votes and shuffles emulated. K1, K2's stream forms, K7 dense
+// and K8 read the 1-char tables as the card does: a uint16 copy staged by
+// ac_dense_stage where ac_dense_smem_bytes gives it room (the card's shared
+// memory), else in place (K6 and K2's time-major form always); K2 stages
+// its states, and its one-chain form its chunks of ids and states, as the
+// card does, and so do K4 (its words) and K12 (its states).
 // Built with g++ by the CPU tests, so that the logic the H100 kernels run
 // is tested where there is no GPU; the scanner never loads it.
 #include <algorithm>
@@ -207,8 +207,19 @@ int ac_dense_states_tm(const AcScanArgs* args, void*) {
   return states_tm(ac_dense_args(*args));
 }
 
-int ac_sparse_count(const AcScanArgs* a, void*) {
-  return run<ac_sparse_count_column, ac_sparse_count_column>(a);
+// K7 dense: the index list's windows as contiguous rows, the elided ones
+// strided, on K1's lanes over the tables as the card reads them.
+int ac_sparse_count(const AcScanArgs* args, void*) {
+  const AcScanArgs a = ac_dense_args(*args);
+  return with_dense_table<true>(a, 0, [&](const auto& table) {
+    return a.gather ? lanes<1, AcWinRowsLayout>(a, table, a.B)
+                    : lanes<1, AcWinLayout>(a, table, a.B);
+  });
+}
+
+int ac_sparse_count_split(const AcScanArgs* a, int* P) {
+  *P = split_of(ac_dense_args(*a), a->B, AC_MAX_SPLIT);
+  return *P == 0;
 }
 
 int ac_sparse_count_stepped(const AcScanArgs* a, void*) {

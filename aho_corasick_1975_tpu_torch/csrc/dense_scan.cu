@@ -22,7 +22,8 @@
 // - K1 and K2's stream form (ac_dense_plan): one thread a sub-stream,
 //   the stream's symbols loaded a group ahead as aligned 16-byte vectors
 //   (AcVecGroup). K1's P sub-streams of a stream sit in consecutive lanes,
-//   reduced by warp shuffles; K2 stages each thread's states in shared
+//   reduced by warp shuffles (ac_dense_count_kernel, which K7 dense also
+//   runs over its windows); K2 stages each thread's states in shared
 //   memory and writes each aligned run of 8 as two 16-byte stores, whole
 //   sectors (AcStatesEmit).
 // - K2's one-chain form (scan_states_sequential, the conformance oracle
@@ -45,31 +46,6 @@
 #include "ac_scan.cuh"
 
 namespace {
-
-// K1: each warp of the grid's loop takes 32 of the launch's B*P
-// sub-streams (ac_stepped_lanes at k = 1); the loop's bound is the same
-// in every lane of a warp, so every lane reaches every shuffle.
-template <typename Layout, typename Table>
-__device__ __forceinline__ void dense_count_lanes(const AcScanArgs& a,
-                                                  const Table& table,
-                                                  int32_t P) {
-  const int64_t n = (int64_t)a.B * P;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t g0 = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
-       g0 < n; g0 += stride)
-    ac_stepped_lanes<1, Layout>(a, table, a.B, P, g0, threadIdx.x & 31);
-}
-
-template <typename Layout, bool OnSm>
-__global__ void __launch_bounds__(OnSm ? kDenseSmThreads : kDenseThreads)
-    dense_count_kernel(AcScanArgs a, int32_t P, int32_t lut_n, int32_t) {
-  extern __shared__ int32_t smem[];
-  ac_lut_to_smem(a, lut_n, smem);
-  if constexpr (OnSm)
-    dense_count_lanes<Layout>(a, ac_dense_sm_table(a, smem + lut_n), P);
-  else
-    dense_count_lanes<Layout>(a, AcDenseTable<int32_t>::make(a), P);
-}
 
 // K2's stream form: the launch's B*P sub-streams over the grid's loop,
 // each thread staging its states in kStateStage words of shared memory
@@ -170,8 +146,8 @@ cudaError_t dense_seq(const AcScanArgs& args, cudaStream_t st) {
 template <typename T>
 int dense_count(const AcScanArgs* a, void* stream) {
   return (int)ac_dense_launch(
-      *a, dense_count_kernel<AcStreamLayout<T>, true>,
-      dense_count_kernel<AcStreamLayout<T>, false>, AcDenseStage{0, 0, 0},
+      *a, ac_dense_count_kernel<AcStreamLayout<T>, true>,
+      ac_dense_count_kernel<AcStreamLayout<T>, false>, AcDenseStage{0, 0, 0},
       (cudaStream_t)stream);
 }
 

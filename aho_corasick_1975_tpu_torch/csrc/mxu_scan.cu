@@ -29,8 +29,6 @@
 // LUT are read from shared memory where they fit: the planes unless their
 // bytes would cost the launch a wave of blocks (the hybrid slice's 161 KB,
 // one block per SM, would), then through L1 from device memory.
-#include <utility>
-
 #include "ac_scan.cuh"
 
 namespace {
@@ -90,15 +88,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The occupancy of a kernel at a block's dynamic shared memory with and
-// without planes_t (ac_occupancy, cached). `set` is the largest dynamic
-// shared memory allowed so far (cudaFuncAttributeMaxDynamicSharedMemorySize)
-// per kernel and device, only ever raised, so that every cached size stays
-// allowed.
+// without planes_t (ac_occupancy, cached; the limit raised by
+// ac_allow_smem).
 struct SmemFit {
   int sms = 0, with = 0, without = 0;
 };
-std::mutex plan_mu;
-std::map<std::pair<const void*, int>, int64_t> plan_set;
 
 template <typename Kernel>
 cudaError_t smem_fit(Kernel kernel, int64_t base, int64_t pt, SmemFit* fit) {
@@ -108,21 +102,10 @@ cudaError_t smem_fit(Kernel kernel, int64_t base, int64_t pt, SmemFit* fit) {
   fit->sms = occ.sms;
   fit->without = occ.blocks;
   fit->with = 0;
-  int dev = 0, optin = 0;
-  AC_TRY(cudaGetDevice(&dev));
-  AC_TRY(cudaDeviceGetAttribute(&optin,
-                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  if (base + pt > optin) return cudaSuccess;
-  {
-    std::lock_guard<std::mutex> hold(plan_mu);
-    int64_t& set = plan_set[std::make_pair(key, dev)];
-    if (base + pt > set) {
-      AC_TRY(cudaFuncSetAttribute(kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)(base + pt)));
-      set = base + pt;
-    }
-  }
+  AcDevice d;
+  AC_TRY(ac_device(&d));
+  if (base + pt > d.optin) return cudaSuccess;
+  AC_TRY(ac_allow_smem(key, base + pt));
   AC_TRY(ac_occupancy(key, kThreads, base + pt, &occ));
   fit->with = occ.blocks;
   return cudaSuccess;

@@ -1,7 +1,9 @@
-// K7 sparse window count and K8 1-char bounded hits for sm_90a. K7: one
-// thread per live-block window, running the per-thread scan of
-// ac_scan.cuh. K8: each stream (stream form) or window (window form) split
-// into P sub-streams, one thread each (ac_dense_hits_sub).
+// K7 sparse window counts and K8 1-char bounded hits for sm_90a. K7
+// dense: K1's lanes (ac_dense_count_kernel) over the windows, each window
+// P sub-streams in consecutive lanes, reduced by warp shuffles. K7
+// stepped: one thread per live-block window, running the per-thread scan
+// of ac_scan.cuh. K8: each stream (stream form) or window (window form)
+// split into P sub-streams, one thread each (ac_dense_hits_sub).
 //
 // K7 replaces ops/sparse.py:make_sparse_count, make_sparse_count_stepped
 // and their _dev forms (the window gather _window_gather folded into the
@@ -24,10 +26,17 @@
 // writes whole 32-byte sectors (AcHitsEmit).
 //
 // Bound: a dependent chain of gathers per symbol (dflat, then nb_out; one
-// packed gather per k symbols for K7 stepped), so load latency. With
-// gather = 1 a column's rows are contiguous and its window is a 0.5-2 KB
-// read; the elided windows are time-major, so a warp's symbol loads
-// coalesce.
+// packed gather per k symbols for K7 stepped), so load latency, until
+// enough chains run: K7 dense's windows (the hunt's 65,536 of 136 rows)
+// are 35.7 MB of ids, 0.011 ms at 3.35 TB/s. K7 dense therefore takes
+// the tables onto the SM (a few KB at the hunt, as uint16 rows), its
+// symbols off the chain a group ahead, and sub-streams where the windows
+// do not fill the card. Its index-list form reads each window's
+// contiguous rows as aligned 16-byte vectors (AcWinRowsLayout); its
+// elided windows are time-major, so neighbouring lanes read neighbouring
+// windows of a row and a warp's loads coalesce: K1's lanes put a window's
+// P sub-streams in consecutive lanes (a row's 32/P neighbours, whole
+// sectors up to P = 8).
 #include <cuda_runtime.h>
 
 #include "ac_scan.cuh"
@@ -35,11 +44,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-
-__global__ void sparse_count_kernel(AcScanArgs a) {
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < a.B) ac_sparse_count_column(a, c);
-}
 
 __global__ void sparse_count_stepped_kernel(AcScanArgs a) {
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -103,12 +107,37 @@ int stream_hits(const AcScanArgs* a, void* stream, int* pick) {
                    : hits<AcStreamLayout<int32_t>>(a, stream, pick);
 }
 
+// K7 dense over Layout's windows on K1's lanes, the tables on the SM where
+// they fit, unpadded (as many blocks an SM as fit; one an SM ran slower at
+// the hunt's few-KB tables), or with pick non-null only its P.
+template <typename Layout>
+int count_lanes(const AcScanArgs* a, void* stream, int* pick) {
+  AcDensePlan p;
+  AC_TRY(ac_dense_plan(*a, ac_dense_count_kernel<Layout, true>,
+                       ac_dense_count_kernel<Layout, false>,
+                       AcDenseStage{0, 0, 0, false}, &p));
+  if (pick != nullptr) {
+    *pick = p.P;
+    return 0;
+  }
+  return (int)ac_dense_run(p, (cudaStream_t)stream);
+}
+
+// K7 dense: the index list's windows as contiguous rows, the elided ones
+// strided.
+int sparse_count(const AcScanArgs* a, void* stream, int* pick) {
+  return a->gather ? count_lanes<AcWinRowsLayout>(a, stream, pick)
+                   : count_lanes<AcWinLayout>(a, stream, pick);
+}
+
 }  // namespace
 
 extern "C" int ac_sparse_count(const AcScanArgs* a, void* stream) {
-  const dim3 grid((a->B + kThreads - 1) / kThreads);
-  sparse_count_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+  return sparse_count(a, stream, nullptr);
+}
+
+extern "C" int ac_sparse_count_split(const AcScanArgs* a, int* P) {
+  return sparse_count(a, nullptr, P);
 }
 
 extern "C" int ac_sparse_count_stepped(const AcScanArgs* a, void* stream) {

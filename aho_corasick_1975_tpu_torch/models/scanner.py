@@ -312,10 +312,10 @@ class DenseScanner:
         gram steps, the stepped kernels' warm-up (``_warm_steps``, from the
         tables' depth whatever the halo, ``multistep.warm_steps_for``; K4's,
         one symbol longer, ``_emit_warm``, ``emit_warm_steps_for``) and
-        the 1-char kernels' (K1, K2, K6, K8: ``_warm_syms``, in symbols,
-        whether or not a stepped table exists), the
-        raw-encode LUTs, whose exactness rests on the
-        tables (raw_lut_entry), and the engine's digit planes, rebuilt
+        the 1-char kernels' (K1, K2, K6, K7 dense, K8: ``_warm_syms``, in
+        symbols, whether or not a stepped table exists), the raw-encode
+        LUTs, whose exactness rests on the tables (raw_lut_entry), and the
+        engine's digit planes, rebuilt
         from the tables (``_mxu`` and ``_hybrid``: (planes int8 tensor
         [S_pad, n_planes*V], count_bits, n_planes, S_pad), as in the JAX
         scanner), with the kernels' copy keyed by (state, letter)
@@ -606,7 +606,7 @@ class DenseScanner:
                 src, idx)
         else:
             per = sparse.sparse_count(snap.dflat, snap.nb_out, self.V, halo,
-                                      L_blk, src, idx)
+                                      L_blk, src, idx, **self._dense_fields())
         return int(per.sum(dtype=torch.int64))
 
     def _sparse_filter_device(self, ids: torch.Tensor, head, halo: int,
@@ -754,8 +754,8 @@ class DenseScanner:
             **self._dense_fields())
 
     def _dense_fields(self) -> dict:
-        """The 1-char stream kernels' (K1, K2, K8) sub-stream fields: the
-        warm-up of the current tables and their real rows."""
+        """The 1-char stream kernels' (K1, K2, K7 dense, K8) sub-stream
+        fields: the warm-up of the current tables and their real rows."""
         return dict(warm_steps=self._warm_syms,
                     n_states=self.tables.n_states)
 

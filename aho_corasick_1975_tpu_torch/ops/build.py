@@ -52,16 +52,17 @@ ENTRY_POINTS = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
 # count_many batch; K2: "seq", one thread); only launch() adds to them.
 launches: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
 form_launches: Dict[str, int] = {}
-# The split launches (K1-K6, K8, K9, K11) run each column as P
+# The split launches (K1-K6, K7 dense, K8, K9, K11) run each column as P
 # sub-streams; the P of each one's last launch, by entry point.
 SPLIT_ENTRIES = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
                  "ac_stepped_emit", "ac_stepped_count_many",
                  "ac_dense_count_many", "ac_dense_states_tm",
-                 "ac_dense_hits", "ac_window_hits", "ac_stepped_count_2t",
-                 "ac_hybrid_count")
+                 "ac_sparse_count", "ac_dense_hits", "ac_window_hits",
+                 "ac_stepped_count_2t", "ac_hybrid_count")
 # Entry points whose launcher also answers ``<name>_split``: the P it
-# would take for a launch's fields (K8, whose two passes take one P).
-PICK_ENTRIES = ("ac_dense_hits", "ac_window_hits")
+# would take for a launch's fields, without launching (K8, whose two
+# passes take one P; K7 dense).
+PICK_ENTRIES = ("ac_sparse_count", "ac_dense_hits", "ac_window_hits")
 MAX_SPLIT = 32
 splits: Dict[str, int] = {}
 # Seconds and compiler output of the last build this process ran (None
@@ -248,7 +249,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def scan_args(**fields) -> AcScanArgs:
     """AcScanArgs from tensors (pointers; None for a null pointer) and
     ints. ``warm_steps`` is -1 unless given, so that a split launch (K1-K6,
-    K8, K9, K11) without it fails rather than count wrong."""
+    K7 dense, K8, K9, K11) without it fails rather than count wrong."""
     args = AcScanArgs(warm_steps=-1)
     for key, val in fields.items():
         setattr(args, key, _ptr(val) if isinstance(val, torch.Tensor)

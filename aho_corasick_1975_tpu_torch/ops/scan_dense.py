@@ -190,11 +190,11 @@ def batch_fields(warm_steps: int, split: int) -> dict:
 
 def dense_fields(dflat, V: int, warm_steps: int, split: int,
                  n_states: Optional[int], global_table: bool) -> dict:
-    """``batch_fields`` of the 1-char stream kernels (K1, K2, K8), whose
-    tables go on the SM where they fit, with ``n_states``, the table rows
-    that exist (all of dflat's rows when None; those the kernel stages on
-    the SM), and ``global_table``, which keeps the tables in device memory
-    even where they fit on the SM."""
+    """``batch_fields`` of the 1-char stream kernels (K1, K2, K7 dense,
+    K8), whose tables go on the SM where they fit, with ``n_states``, the
+    table rows that exist (all of dflat's rows when None; those the kernel
+    stages on the SM), and ``global_table``, which keeps the tables in
+    device memory even where they fit on the SM."""
     rows = dflat.numel() // V
     if n_states is not None:
         if not 0 < n_states <= rows:

@@ -21,10 +21,10 @@ Device half:
   stable sort, and ``n_live``, in plain PyTorch (a reduce and a sort, not
   a recurrence); one 4-byte synchronisation.
 * ``window_gather``: the plain layout of ``_window_gather``.
-* K7 (csrc/sparse_scan.cu): ``sparse_count`` runs K1's recurrence and
-  ``sparse_count_stepped`` K3's over the windows (``make_sparse_count``,
-  ``make_sparse_count_stepped`` and their ``_dev`` forms, and the elided
-  counts of ``models/scanner.py:_elided_count_core``).
+* K7 (csrc/sparse_scan.cu): ``sparse_count`` runs K1's sub-streams and
+  ``sparse_count_stepped`` K3's recurrence over the windows
+  (``make_sparse_count``, ``make_sparse_count_stepped`` and their ``_dev``
+  forms, and the elided counts of ``models/scanner.py:_elided_count_core``).
 * K10's window forms (csrc/mxu_scan.cu, ``ops/scan_mxu.py``):
   ``sparse_count_mxu`` runs the MXU engine over the windows
   (``make_sparse_count_mxu[_dev]`` and the elided count's
@@ -46,7 +46,7 @@ import torch
 
 from . import build
 from .multistep import _count_grams
-from .scan_dense import _check_inputs, _count_window
+from .scan_dense import _check_inputs, _count_window, dense_fields
 from .scan_mxu import check_planes, mxu_count_window, mxu_fields
 
 # -- host half ---------------------------------------------------------------
@@ -221,17 +221,22 @@ def sparse_count_plain(dflat, nb_out, V: int, halo: int, L_blk: int, src,
 
 
 def sparse_count(dflat, nb_out, V: int, halo: int, L_blk: int, src,
-                 idx=None) -> torch.Tensor:
+                 idx=None, *, warm_steps: int, split: int = 0,
+                 n_states: Optional[int] = None,
+                 global_table: bool = False) -> torch.Tensor:
     """K7 dense: int32 match totals per window [n]; the caller sums them in
-    int64."""
+    int64. On the card each window runs as ``split`` sub-streams, K1's
+    (``scan_dense.dense_fields``: ``warm_steps``, max_depth - 1 symbols of
+    the tables, is required)."""
     dev = check_windows(L_blk, halo, src, idx, dflat, nb_out)
+    sub = dense_fields(dflat, V, warm_steps, split, n_states, global_table)
     if dev.type == "cpu":
         return sparse_count_plain(dflat, nb_out, V, halo, L_blk, src, idx)
     out = torch.empty(_n_windows(src, idx), dtype=torch.int32, device=dev)
     if out.numel():
         build.launch("ac_sparse_count", dev, table=dflat, nb_out=nb_out,
                      out=out, L=L_blk, V=V, halo=halo,
-                     **window_fields(L_blk, src, idx))
+                     **window_fields(L_blk, src, idx), **sub)
     return out
 
 

@@ -284,11 +284,9 @@ class ShardedScanner:
         """Derive what depends on the snapshot and the halo (JAX
         ``_bind_kernels``): the halo in gram steps, the stepped kernels'
         warm-up (``_warm_steps``, from the tables' depth; K4's, one symbol
-        longer, ``_emit_warm``) and the 1-char
-        kernels' (K1, K2, K6, K8: ``_warm_syms``, in symbols, with or
-        without a stepped table), the raw-encode
-        LUTs and
-        the engine's digit planes (``_mxu``, ``_hybrid``: (planes by
+        longer, ``_emit_warm``) and the 1-char kernels' (K1, K2, K6, K7
+        dense, K8: ``_warm_syms``, in symbols, with or without a stepped
+        table), the raw-encode LUTs and the engine's digit planes (``_mxu``, ``_hybrid``: (planes by
         device, count_bits, n_planes, S_pad)) with the kernels' copy keyed
         by (state, letter), one per replica (``_planes_t`` by device,
         ``scan_mxu.transpose_planes``). The one rebind of
@@ -652,7 +650,8 @@ class ShardedScanner:
                     tab["packed"], st.V, k, st.count_bits, self._halo_steps,
                     L_blk, src, idx)
             return sparse.sparse_count(tab["dflat"], tab["nb_out"], self.V,
-                                       self.halo, L_blk, src, idx)
+                                       self.halo, L_blk, src, idx,
+                                       **self._dense_fields())
         return self._total(self._on_shards(count, srcs))
 
     def _elided_shards(self, tm: np.ndarray, idx: Optional[np.ndarray]):
@@ -780,7 +779,8 @@ class ShardedScanner:
             tab = self._tab(i)
             idx = sparse.dev_idx(filt[i][0], filt[i][1], nB_loc, cap)
             return sparse.sparse_count(tab["dflat"], tab["nb_out"], self.V,
-                                       halo, L_blk, e[0], idx)
+                                       halo, L_blk, e[0], idx,
+                                       **self._dense_fields())
         return self._total(self._on_shards(count, exts))
 
     # -- states and retrieval ------------------------------------------------

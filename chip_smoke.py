@@ -55,13 +55,21 @@ card, importing nothing of JAX:
    K8's stream form; (d) K7, K8 and the K2 modes against their plain
    versions at those shapes; each K7 and K8 form is held at least once on
    the hunt's windows, whose plain answer must be non-zero. (The resident
-   ids, as bench_sparse.py builds them, hold no match.) K8 is also forced
+   ids, as bench_sparse.py builds them, hold no match; K7 dense is also
+   held on them with the resident words planted.) K8 is also forced
    to every split P (the stream form at the slice, also through the
    read-only path; the window form on the hunt's windows), exact at each,
    and its two passes and the sync and cumsum between them are timed
    apart (``passes``); K2's time-major form is forced to every split P,
    and its one-thread form (one chain, P = 1) also runs with its tables
-   through the read-only path (``ms_read_only``).
+   through the read-only path (``ms_read_only``). K7 dense runs at its
+   pick and at every forced split P on the hunt's elided and index-list
+   windows and on the resident 1e-3 windows with the resident words
+   planted in a quarter of their runs (``planted_resident``: same live
+   blocks, a non-zero plain total), exact at each against its plain
+   version, with its device times by torch.profiler (``device_ms`` at the
+   pick, ``ms_by_split``) and its call split into the wrapper's,
+   build.launch's and the C entry point's enqueue (``enqueue_ms``).
 10. two-table: the slice's dictionary with the two-table k-gram form
    forced (as the tests force it): count() of a letter-id tensor and of
    the bytes (K9's stream form on host-encoded ids) and count_many of 256
@@ -122,6 +130,7 @@ non-zero, and so does a machine without CUDA.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import io
 import json
@@ -189,7 +198,8 @@ KERNELS = {
         "aho_corasick_1975_tpu_torch/csrc/dense_scan.cu",
         "aho_corasick_1975_tpu/ops/scan_xla.py:51"),
     "ac_sparse_count": (
-        "K7 sparse_count", "aho_corasick_1975_tpu_torch/csrc/sparse_scan.cu",
+        "K7 sparse_count (dense windows, K1's lanes)",
+        "aho_corasick_1975_tpu_torch/csrc/sparse_scan.cu",
         "aho_corasick_1975_tpu/ops/sparse.py:170"),
     "ac_sparse_count_stepped": (
         "K7 sparse_count_stepped",
@@ -679,11 +689,14 @@ def ptxas_kernels(log: str) -> list:
 # The kernels of each split entry point and of K12, by a pattern of their
 # demangled names.
 SPLIT_KERNELS = {
-    "ac_dense_count": r"dense_count_kernel",
+    "ac_dense_count": r"dense_count_kernel<AcStreamLayout",
+    "ac_sparse_count": r"ac_dense_count_kernel<AcWin",
     "ac_dense_states": r"dense_states_kernel",
     "ac_dense_states/seq": r"dense_seq_kernel",
-    "ac_dense_count_many": r"ac_cols_kernel<[^(]*AcDenseTable<int, true>",
-    "ac_dense_states_tm": r"ac_cols_kernel<[^(]*AcDenseTable<int, false>",
+    "ac_dense_count_many":
+        r"ac_cols_kernel<AcBatchLayout[^(]*AcDenseTable<int, true>",
+    "ac_dense_states_tm":
+        r"ac_cols_kernel<AcBatchLayout[^(]*AcDenseTable<int, false>",
     "ac_dense_hits": r"hits_kernel<AcStreamLayout",
     "ac_window_hits": r"hits_kernel<AcWinLayout",
     "ac_stepped_count": r"stepped_lanes_kernel<[^(]*AcPackedTable",
@@ -1307,8 +1320,8 @@ def phase_sparse(act, build):
               "timed prefilter count of a resident tensor")
     print(f"sparse (b) density 0.001 tensor count() profile: "
           f"{device_busy(lambda: scb.count(tensor))}", flush=True)
-    return dict(sc=sc, text=text, hunt_ids=hunt_ids, scb=scb, scb1=scb1,
-                corpora=corpora, tensor=tensor, hunt_n=n), launches
+    return dict(sc=sc, text=text, hunt_ids=hunt_ids, mr=mr, scb=scb,
+                scb1=scb1, corpora=corpora, tensor=tensor, hunt_n=n), launches
 
 
 def phase_gate(build, machine, text: bytes, n: int, ends) -> dict:
@@ -1348,6 +1361,44 @@ def phase_gate(build, machine, text: bytes, n: int, ends) -> dict:
     return dict(sca1=sca1, t_ids=t_ids, launches=launches)
 
 
+def device_windows(s, tensor, halo: int, L_blk: int):
+    """The live-block windows of a letter-id tensor on the card, as
+    scanner ``s``'s device block filter gathers them: (ext, idx)."""
+    ext, idx, _, _ = s._sparse_filter_device(tensor, None, halo, L_blk)
+    return ext, idx
+
+
+def elided_windows(s, arr: np.ndarray, lut, halo: int, L_blk: int):
+    """The host-elided time-major windows [halo + L_blk, n] of ``arr``
+    (letter ids, or bytes through ``lut``, (byte ids, byte live)) and their
+    block ids, placed on scanner ``s``'s device."""
+    from aho_corasick_1975_tpu_torch.ops import sparse
+    if lut is None:
+        live = sparse.live_blocks(arr, L_blk)
+    else:
+        live = sparse.raw_live_blocks(arr, lut[0], lut[1], L_blk)[0]
+    tm, idx = sparse.elide_windows(arr, lut, len(arr), live, int(live.sum()),
+                                   None, halo, L_blk, len(live))
+    return s._snap.place(tm), s._snap.place(idx.astype(np.int32))
+
+
+def planted_resident(machine, ids: np.ndarray) -> np.ndarray:
+    """``ids`` (resident_ids) with the RESIDENT_WORDS of at most 8 letters,
+    in turn, written over the start of every fourth run of letter ids: the
+    live blocks stay those of ``ids`` (every run is at least 8 ids long),
+    and its windows now hold matches (resident_ids' random letters hold
+    none)."""
+    out = ids.copy()
+    live = out != 0
+    starts = np.flatnonzero(live & ~np.concatenate(([False], live[:-1])))
+    words = [np.array([machine.vocab.lookup(c) for c in w], np.int32)
+             for w in RESIDENT_WORDS if len(w) <= 8]
+    for i, start in enumerate(starts[::4]):
+        w = words[i % len(words)]
+        out[start:start + len(w)] = w
+    return out
+
+
 def hit_passes(build, fn, reps: int = 10) -> dict:
     """K8's two passes and what lies between them (the 8-byte sync of
     pass 1's totals, the cumsum of the offsets), timed apart: CUDA events
@@ -1384,31 +1435,86 @@ def hit_passes(build, fn, reps: int = 10) -> dict:
                     (x / reps for x in sums)))
 
 
+# K7 dense's kernel in torch.profiler's names, the group naming it
+K7_PATTERN = r"(ac_dense_count_kernel)<AcWin"
+
+
+def k7_sweep(build, inputs: dict) -> dict:
+    """K7 dense on each of ``inputs`` ({kind: (kernel, plain, args,
+    extra)}): exact against its plain version at its launcher's pick (P 0
+    below) and at every P of SPLIT_SWEEP, with the kernel's device ms at
+    each (torch.profiler, mean of 20 calls): {kind: {"pick": P,
+    "device_ms": {P: ms}}}."""
+    out = {}
+    for kind, (kernel, plain, args, extra) in inputs.items():
+        want = plain(*args, *extra)
+        row, pick = {}, None
+        for P in (0,) + SPLIT_SWEEP:
+            fn = functools.partial(kernel, *args, *extra, split=P)
+            got = fn()
+            torch.cuda.synchronize()
+            check(max_abs_err(got, want) == 0,
+                  f"K7 dense ({kind}) at split {P or 'pick'} equals its "
+                  f"plain version")
+            if P == 0:
+                pick = build.splits["ac_sparse_count"]
+            row[P] = sum(kernel_ms(fn, K7_PATTERN).values())
+        out[kind] = {"pick": pick, "device_ms": row}
+        print(f"kernel ac_sparse_count {kind}: pick P={pick}; device ms "
+              f"(exact at each): "
+              + ", ".join(f"{'pick' if P == 0 else f'P={P}'} {ms:.4f}"
+                          for P, ms in row.items()), flush=True)
+    return out
+
+
+def enqueue_ms(fn, reps: int = 200) -> float:
+    """Mean host ms a call of fn() takes to return, over reps calls after
+    a warm-up, without a synchronisation between them (the card runs
+    them behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def k7_call(build, kernel, args, extra, fields: dict) -> dict:
+    """K7 dense's call at its pick split apart on the host: the wrapper's
+    enqueue (``sparse.sparse_count``), build.launch's alone and the C
+    entry point's alone (its plan, with the launchers' cached queries, and
+    the launch), each its mean ms over calls without a sync."""
+    lib = build.cuda_library()
+    form = fields.pop("form")
+    c_args = build.scan_args(**fields)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry():
+        check(lib.ac_sparse_count(ctypes.byref(c_args), stream) == 0,
+              "K7 dense's C entry point launches")
+    return {"wrapper": enqueue_ms(lambda: kernel(*args, *extra)),
+            "launch": enqueue_ms(lambda: build.launch(
+                "ac_sparse_count", torch.device("cuda"), form, **fields)),
+            "entry": enqueue_ms(entry)}
+
+
 def phase_sparse_kernels(build, state: dict, gate: dict, text: bytes
                          ) -> dict:
     """(d) K7, K8 and the K2 modes against their plain versions at the
-    sparse phase's shapes, exact; the kernel's mean over 10 runs. K8 and
-    K2's time-major form also at every forced split (K8's stream form also
-    with the tables through the read-only path), K8's passes timed apart,
-    K2's one-thread form also through the read-only path."""
+    sparse phase's shapes, exact; the kernel's mean over 10 runs. K7 dense
+    also at every forced split, with device times (``k7_sweep``), and its
+    call split into enqueue and device (``k7_call``), on the hunt's
+    windows and on the resident 1e-3 ids with words planted, all holding
+    matches. K8 and K2's time-major form also at every forced split (K8's
+    stream form also with the tables through the read-only path), K8's
+    passes timed apart, K2's one-thread form also through the read-only
+    path."""
     from aho_corasick_1975_tpu_torch.ops import hits, scan_dense, sparse
     sc, scb, scb1 = state["sc"], state["scb"], state["scb1"]
     sca1, t_ids = gate["sca1"], gate["t_ids"]
     res = {}
-
-    def resident_windows(s, tensor, halo, L_blk):
-        ext, idx, _, _ = s._sparse_filter_device(tensor, None, halo, L_blk)
-        return ext, idx
-
-    def elided(s, arr, lut, halo, L_blk):
-        if lut is None:
-            live = sparse.live_blocks(arr, L_blk)
-        else:
-            live = sparse.raw_live_blocks(arr, lut[0], lut[1], L_blk)[0]
-        tm, idx = sparse.elide_windows(arr, lut, len(arr), live,
-                                       int(live.sum()), None, halo, L_blk,
-                                       len(live))
-        return s._snap.place(tm), s._snap.place(idx.astype(np.int32))
 
     raw = np.frombuffer(state["text"], np.uint8)
     hunt_t = torch.from_numpy(state["hunt_ids"]).to("cuda")
@@ -1422,8 +1528,8 @@ def phase_sparse_kernels(build, state: dict, gate: dict, text: bytes
 
     # K7 stepped: the hunt's k-gram windows hold its matches
     k, halo, L_blk = sc._sparse_geometry()
-    hunt_tm, _ = elided(sc, raw, hunt_lut, halo, L_blk)
-    hunt_ext_k, hunt_idx_k = resident_windows(sc, hunt_t, halo, L_blk)
+    hunt_tm, _ = elided_windows(sc, raw, hunt_lut, halo, L_blk)
+    hunt_ext_k, hunt_idx_k = device_windows(sc, hunt_t, halo, L_blk)
     res["ac_sparse_count_stepped"] = compare(
         "ac_sparse_count_stepped", sparse.sparse_count_stepped,
         sparse.sparse_count_stepped_plain, stepped_args(sc),
@@ -1432,7 +1538,7 @@ def phase_sparse_kernels(build, state: dict, gate: dict, text: bytes
         f"windows {tuple(hunt_tm.shape)}, cap={hunt_idx_k.numel()} k={k}",
         hits=True, need=needs(sc, halo, L_blk), steps=(halo + L_blk) // k)
     kb, halob, L_b = scb._sparse_geometry()
-    ext_b, idx_b = resident_windows(scb, state["tensor"], halob, L_b)
+    ext_b, idx_b = device_windows(scb, state["tensor"], halob, L_b)
     res["ac_sparse_count_stepped"].update(compare(
         "ac_sparse_count_stepped", sparse.sparse_count_stepped,
         sparse.sparse_count_stepped_plain, stepped_args(scb),
@@ -1440,27 +1546,59 @@ def phase_sparse_kernels(build, state: dict, gate: dict, text: bytes
         need=needs(scb, halob, L_b), steps=(halob + L_b) // kb))
 
     # K7 dense and K8 windows: the hunt's 1-char windows hold its matches
-    hunt_hits_tm, hunt_hits_idx = elided(sc, raw, hunt_lut, sc.halo, 128)
-    hunt_ext, hunt_idx = resident_windows(sc, hunt_t, sc.halo, 128)
+    hunt_hits_tm, hunt_hits_idx = elided_windows(sc, raw, hunt_lut, sc.halo,
+                                                 128)
+    hunt_ext, hunt_idx = device_windows(sc, hunt_t, sc.halo, 128)
     hunt_args = (sc._snap.dflat, sc._snap.nb_out, sc.V, sc.halo, 128)
     hunt_shape = (f"windows {tuple(hunt_hits_tm.shape)}, "
                   f"cap={hunt_idx.numel()}")
+    k7 = functools.partial(sparse.sparse_count, **sc._dense_fields())
+    k7_hunt = {"elided (a)": (hunt_hits_tm, None),
+               "idx (a) tensor": (hunt_ext, hunt_idx)}
     res["ac_sparse_count"] = compare(
-        "ac_sparse_count", sparse.sparse_count, sparse.sparse_count_plain,
-        hunt_args, {"elided (a)": (hunt_hits_tm, None),
-                    "idx (a) tensor": (hunt_ext, hunt_idx)},
-        hunt_shape, hits=True, need=needs(sc, sc.halo, 128),
+        "ac_sparse_count", k7, sparse.sparse_count_plain, hunt_args,
+        k7_hunt, hunt_shape, hits=True, need=needs(sc, sc.halo, 128),
         steps=sc.halo + 128)
     snap1 = scb1._snap
-    ext1, idx1 = resident_windows(scb1, state["tensor"], scb1.halo, 128)
-    tm1, tm1_idx = elided(scb1, state["corpora"][1e-3], None, scb1.halo, 128)
+    ext1, idx1 = device_windows(scb1, state["tensor"], scb1.halo, 128)
+    tm1, tm1_idx = elided_windows(scb1, state["corpora"][1e-3], None,
+                                  scb1.halo, 128)
+    planted = planted_resident(state["mr"], state["corpora"][1e-3])
+    ext1p, idx1p = device_windows(
+        scb1, torch.from_numpy(planted).to("cuda"), scb1.halo, 128)
+    tm1p, _ = elided_windows(scb1, planted, None, scb1.halo, 128)
     dense_args = (snap1.dflat, snap1.nb_out, scb1.V, scb1.halo, 128)
+    k7b = functools.partial(sparse.sparse_count, **scb1._dense_fields())
+    k7_res = {"idx (b) 1e-3 planted": (ext1p, idx1p),
+              "elided (b) 1e-3 planted": (tm1p, None)}
     res["ac_sparse_count"].update(compare(
-        "ac_sparse_count", sparse.sparse_count, sparse.sparse_count_plain,
-        dense_args, {"idx (b) 1e-3": (ext1, idx1),
-                     "elided (b) 1e-3": (tm1, None)},
-        f"cap={idx1.numel()} / windows {tuple(tm1.shape)}",
-        need=needs(scb1, scb1.halo, 128), steps=scb1.halo + 128))
+        "ac_sparse_count", k7b, sparse.sparse_count_plain, dense_args,
+        k7_res, f"cap={idx1p.numel()} / windows {tuple(tm1p.shape)}",
+        hits=True, need=needs(scb1, scb1.halo, 128), steps=scb1.halo + 128))
+    swept = k7_sweep(build, {
+        **{kind: (k7, sparse.sparse_count_plain, hunt_args, extra)
+           for kind, extra in k7_hunt.items()},
+        **{kind: (k7b, sparse.sparse_count_plain, dense_args, extra)
+           for kind, extra in k7_res.items()}})
+    out = torch.empty(hunt_hits_tm.shape[1], dtype=torch.int32,
+                      device="cuda")
+    call = k7_call(build, k7, hunt_args, k7_hunt["elided (a)"], dict(
+        table=sc._snap.dflat, nb_out=sc._snap.nb_out, out=out, L=128,
+        V=sc.V, halo=sc.halo,
+        **sparse.window_fields(128, hunt_hits_tm, None),
+        **scan_dense.dense_fields(sc._snap.dflat, sc.V, sc._warm_syms, 0,
+                                  sc.tables.n_states, False)))
+    for kind, row in res["ac_sparse_count"].items():
+        row["device_ms"] = swept[kind]["device_ms"][0]
+        row["ms_by_split"] = {P: ms for P, ms in
+                              swept[kind]["device_ms"].items() if P}
+    first_row = res["ac_sparse_count"]["elided (a)"]
+    first_row["enqueue_ms"] = call
+    print(f"kernel ac_sparse_count elided (a) call: device "
+          f"{first_row['device_ms']:.4f} ms at P={first_row['split']}, "
+          f"events {first_row['ms']:.4f} ms a call; enqueue "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in call.items()),
+          flush=True)
 
     def hits_of(fn):
         def run(*a, **kw):
@@ -2374,6 +2512,7 @@ def main() -> int:
          "lookup_bound_ms": first(entry, "lookup_bound_ms"),
          "seq_ms": first(entry, "seq_ms"),
          "slice_dictionary_ms": first(entry, "slice_dictionary_ms"),
+         "enqueue_ms": first(entry, "enqueue_ms"),
          "registers": registers_of(ptxas, entry)}
         for entry, (name, src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"plain_ops": plain_ops_line()}), flush=True)

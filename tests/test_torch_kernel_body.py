@@ -234,7 +234,10 @@ def _win_fields(s, form, L_blk):
 def test_sparse_count_kernels(lib, k, form):
     """K7's bodies (stepped; dense at k = 1) over both window sources,
     against the JAX sparse count and the JAX count of the elided
-    windows."""
+    windows; K7 dense at its launcher's pick (which its ``_split`` query
+    gives) and forced to every P of SPLITS (windows of 16 symbols: empty
+    sub-streams past 16), each warmed up over the tables' max_depth - 1
+    symbols, and against its plain version."""
     tab = tc.tables(k)
     V, cb, L_blk = tab["V"], tab["count_bits"], tc.L_BLK[k]
     hs = -(-5 // k)
@@ -256,20 +259,28 @@ def test_sparse_count_kernels(lib, k, form):
     if k > 1:
         return
     halo = hs
-    dense = torch.full((fields["B"],), -7, dtype=torch.int32)
-    _run(lib, "ac_sparse_count", table=_t(tab["dflat"]),
-         nb_out=_t(tab["nb_out"]), out=dense, L=L_blk, V=V, halo=halo,
-         **fields)
     jt = (jnp.asarray(tab["dflat"]), jnp.asarray(tab["nb_out"]))
     if form == "idx":
         want = jsp.make_sparse_count(V, halo, L_blk, s["nB"], 8)(
             *jt, jnp.asarray(s["ext"]), jnp.asarray(s["idx"]))
     else:
         want = jxla.make_blocked_count(V, halo)(*jt, jnp.asarray(s["tm"]))
-    np.testing.assert_array_equal(dense.numpy(), np.asarray(want))
-    assert torch.equal(dense, sparse.sparse_count_plain(
+    plain = sparse.sparse_count_plain(
         _t(tab["dflat"]), _t(tab["nb_out"]), V, halo, L_blk, src,
-        idx if form == "idx" else None))
+        idx if form == "idx" else None)
+    np.testing.assert_array_equal(plain.numpy(), np.asarray(want))
+    dense_fields = dict(table=_t(tab["dflat"]), nb_out=_t(tab["nb_out"]),
+                        L=L_blk, V=V, halo=halo,
+                        warm_steps=tab["warm_steps"],
+                        n_states=tab["n_states"], **fields)
+    P = ctypes.c_int(0)
+    args = build.scan_args(**dense_fields)
+    assert lib.ac_sparse_count_split(ctypes.byref(args), ctypes.byref(P)) == 0
+    for split in [0] + SPLITS:
+        dense = torch.full((fields["B"],), -7, dtype=torch.int32)
+        _run(lib, "ac_sparse_count", out=dense, split=split, **dense_fields)
+        assert lib.ac_last_split() == (split or P.value)
+        np.testing.assert_array_equal(dense.numpy(), np.asarray(want))
 
 
 def _hits_two_pass(lib, name, n_cols, offset=0, **fields):
@@ -1317,13 +1328,13 @@ def test_stepped_emit_boundary_needs_the_longer_warm_up(lib, k, kind):
 @pytest.mark.parametrize("case", ["k3_raw_u8", "k4_raw_u8", "k5_c3",
                                   "k9_batch", "k11_mixed", "k1_raw_u8",
                                   "k8_raw_u8", "k8_window", "k2_raw_u8",
-                                  "k2_tm", "k6_c3"])
+                                  "k2_tm", "k6_c3", "k7_idx", "k7_elided"])
 def test_stepped_launch_requires_warm_steps(lib, split_refs, dense_refs,
                                             case):
     """A split launch whose fields leave out warm_steps (scan_args sets
     it to -1) fails, at the launcher's pick and at every forced split, and
-    writes nothing: no launch counts without the warm-up. K8's launchers
-    also refuse to give a P for such fields."""
+    writes nothing: no launch counts without the warm-up. K7 dense's and
+    K8's launchers also refuse to give a P for such fields."""
     if case == "k4_raw_u8":
         name, (fields, plain, _) = "ac_stepped_emit", _emit_ref(2, "raw_u8")
     elif case in DENSE_CASES:
@@ -1341,7 +1352,7 @@ def test_stepped_launch_requires_warm_steps(lib, split_refs, dense_refs,
         assert args.warm_steps == -1
         assert getattr(lib, name)(ctypes.byref(args), None) != 0
         assert all(bool((o == -7).all()) for o in outs.values())
-        if name in HITS_ENTRIES:
+        if name in build.PICK_ENTRIES:
             P = ctypes.c_int(0)
             assert getattr(lib, f"{name}_split")(ctypes.byref(args),
                                                  ctypes.byref(P)) != 0
@@ -1362,8 +1373,9 @@ def test_launcher_split_choice(lib, split_refs, dense_refs, shape):
     chain beat two of a half and one of a full), above 8 for the batch
     launches only in one wave, and fewer where the warm-up cap bites. The
     host build picks as the card at full occupancy (K3, K1, K2's and
-    K8's stream forms, K8's window form), and K8's ``_split`` query gives
-    the P its launch then takes."""
+    K8's stream forms, K8's window form, K7 dense's two forms), and K7
+    dense's and K8's ``_split`` queries give the P its launch then
+    takes."""
     n_body, hs, warm = {"slice": (1408, 3, 3), "config3": (8192, 10, 10),
                         "slice_k1": (4224, 9, 9)}[shape]
     pick = functools.partial(build.pick_split, lib, 16384, n_body, hs, warm)
@@ -1391,21 +1403,27 @@ def test_launcher_split_choice(lib, split_refs, dense_refs, shape):
     if shape == "slice_k1":
         # K1 and K8 with their tables on the SM: one block of 512 an SM
         assert pick(_slots(512)) == 4
-        # the hunt's windows (128 symbols, warm-up 8) at most 4 ways
+        # the hunt's windows (128 symbols, warm-up 8) at most 4 ways; its
+        # 65,536 windows fill one block of 512 an SM alone, and split in
+        # two at two such blocks an SM, in four at four
         assert build.pick_split(lib, 2048, 128, 8, 8, _slots(512)) == 4
         assert build.pick_split(lib, 65536, 128, 8, 8, _slots(512)) == 1
-        for case in ("k1_raw_u8", "k8_raw_u8", "k8_window", "k2_raw_u8"):
+        assert build.pick_split(lib, 65536, 128, 8, 8, _slots(1024)) == 2
+        assert build.pick_split(lib, 65536, 128, 8, 8, _slots(2048)) == 4
+        for case in ("k1_raw_u8", "k8_raw_u8", "k8_window", "k2_raw_u8",
+                     "k7_idx", "k7_elided"):
             name, fields, plain, _ = dense_refs(case)
             want = build.pick_split(lib, fields["B"], fields["L"],
                                     fields["halo"], fields["warm_steps"],
                                     _slots(2048))
             assert want > 1
-            if name in HITS_ENTRIES:
+            if name in build.PICK_ENTRIES:
                 P = ctypes.c_int(0)
                 args = build.scan_args(**fields)
                 assert getattr(lib, f"{name}_split")(ctypes.byref(args),
                                                      ctypes.byref(P)) == 0
                 assert P.value == want
+            if name in HITS_ENTRIES:
                 got = _hits_two_pass(lib, name, fields["B"], **fields)
                 assert torch.equal(got[0], plain[0])
             else:
@@ -1431,7 +1449,8 @@ STATE_ENTRIES = ("ac_dense_states", "ac_dense_states_tm")
 # block) at the k = 1 tables (warm-up 5 symbols): a halo of 2, shorter
 # than the warm-up, and 0; remainders (37 symbols); a body of 2 symbols,
 # too short for most splits; K8's window form over the index list of
-# tc.sparse's stream, windows of 64 symbols (L_blk) behind a halo of 5;
+# tc.sparse's stream, windows of 64 symbols (L_blk) behind a halo of 5,
+# and K7 dense over the same windows, as the index list and elided;
 # K2's time-major form over 5 columns of 37 ids from the root; K6 over 4
 # documents, whole (c = 1) or in 3 blocks of 24 behind a halo of 5, the
 # last block short (61 symbols)
@@ -1445,6 +1464,8 @@ DENSE_CASES = {
     "k8_ids_halo0": ("k8", "ids", 0, 40),
     "k8_short": ("k8", "raw_u8", 5, 2),
     "k8_window": ("k8", "ids", 5, 64),
+    "k7_idx": ("k7", "idx", 5, 64),
+    "k7_elided": ("k7", "elided", 5, 64),
     "k2_raw_u8": ("k2", "raw_u8", 2, 40),
     "k2_raw_i32": ("k2", "raw_i32", 5, 37),
     "k2_ids_halo0": ("k2", "ids", 0, 40),
@@ -1477,7 +1498,8 @@ def _dense_ref(case):
     Pallas kernel's sum, in interpret mode, over the same windows); K8's
     (positions, states, n_hits, n_hit_pos); K2's states, stream order or
     [L, B]; K6's totals per batch column (the JAX package's count over
-    split_docs_layout)."""
+    split_docs_layout); K7 dense's totals per window (make_sparse_count
+    over the index list, make_blocked_count over the elided windows)."""
     from aho_corasick_1975_tpu.ops.scan_pallas import make_pallas_blocked_count
     kernel, kind, halo, L = DENSE_CASES[case]
     tab = tc.tables(1)
@@ -1506,6 +1528,18 @@ def _dense_ref(case):
             lambda h, w: jxla.blocked_count_core(V, h, *jt, w),
             lambda raw: jxla.make_blocked_count_many(V, halo, c, L, raw), jt)
         return "ac_dense_count_many", fields, plain, per_col
+    if kernel == "k7":
+        s = tc.sparse(tab, halo, L)
+        src, idx, fields = _win_fields(s, kind, L)
+        fields.update(base, L=L, V=V, halo=halo)
+        plain = sparse.sparse_count_plain(dflat, nb_out, V, halo, L, src,
+                                          idx if kind == "idx" else None)
+        if kind == "idx":
+            jwant = jsp.make_sparse_count(V, halo, L, s["nB"], len(s["idx"]))(
+                *jt, jnp.asarray(s["ext"]), jnp.asarray(s["idx"]))
+        else:
+            jwant = jxla.make_blocked_count(V, halo)(*jt, jnp.asarray(s["tm"]))
+        return "ac_sparse_count", fields, plain, np.asarray(jwant)
     if case == "k8_window":
         s = tc.sparse(tab, halo, L)
         src, idx, fields = _win_fields(s, "idx", L)
@@ -1568,7 +1602,8 @@ def _dense_launch(lib, name, fields, split, path, shape=None):
 def test_dense_split_kernels(lib, dense_refs, case, split, path):
     """K1, K2 and K8 (stream form: raw bytes, raw int32 past the LUT's end
     with head ids, ids at halo 0, a stream of 2 symbols), K8's window
-    form, K2's time-major form and K6 (c = 1, and c = 3 with a halo) with
+    form, K7 dense (the index list and the elided windows), K2's
+    time-major form and K6 (c = 1, and c = 3 with a halo) with
     each column forced into ``split`` sub-streams, each warmed up over the
     tables' 5 symbols, more than a halo of 2, over the tables staged as on
     the SM and in place (K6 and K2's time-major form read them in place on
@@ -1578,7 +1613,8 @@ def test_dense_split_kernels(lib, dense_refs, case, split, path):
     root) and the JAX package (make_blocked_count_stream / _raw and the
     Pallas kernel; make_blocked_scan_stream / _raw, make_blocked_scan;
     make_blocked_count_many's columns; make_blocked_hits_stream / _raw;
-    make_sparse_hits), and the library reports the split."""
+    make_sparse_hits; make_sparse_count, make_blocked_count), and the
+    library reports the split."""
     name, fields, plain, jwant = dense_refs(case)
     shape = None if name in HITS_ENTRIES else plain.shape
     got = _dense_launch(lib, name, fields, split, path, shape)
@@ -1597,12 +1633,12 @@ def test_dense_split_kernels(lib, dense_refs, case, split, path):
 
 
 @pytest.mark.parametrize("case", ["k1_raw_u8", "k8_raw_u8", "k2_raw_u8",
-                                  "k2_tm", "k6_c3"])
+                                  "k2_tm", "k6_c3", "k7_idx", "k7_elided"])
 def test_dense_split_warm_up_is_needed(lib, dense_refs, case):
     """The warm-up is what makes the 1-char split exact: with none, the
     same launch at 16 sub-streams a stream or column (over a dictionary 6
-    deep) loses the matches that straddle its sub-streams' starts (K1, K6;
-    K8 also writes wrong states), and K2 writes wrong states."""
+    deep) loses the matches that straddle its sub-streams' starts (K1, K6,
+    K7 dense; K8 also writes wrong states), and K2 writes wrong states."""
     name, fields, plain, _ = dense_refs(case)
     assert fields["warm_steps"] == 5
     shape = None if name in HITS_ENTRIES else plain.shape
@@ -1615,6 +1651,57 @@ def test_dense_split_warm_up_is_needed(lib, dense_refs, case):
         assert int((got != plain).sum()) > 0
     else:
         assert int(got.sum()) < int(plain.sum())
+
+
+@pytest.mark.parametrize("split", [2, 4])
+@pytest.mark.parametrize("form", ["idx", "elided"])
+def test_k7_boundary_needs_the_warm_up(lib, form, split):
+    """K7 dense at its boundary: the tables' longest keyword (max_depth = 6
+    letters) planted so that its last letter is the first counted row of
+    every sub-stream past the first, in every live window of tc.sparse's
+    stream (windows of 64 symbols behind a halo of 5), as the index list
+    and as elided windows. With max_depth - 1 symbols of warm-up each
+    window's count equals the plain version's and the JAX package's
+    (make_sparse_count, make_blocked_count); with one symbol less every
+    sub-stream past the first misses its planted match."""
+    tab = tc.tables(1)
+    V, halo, L = tab["V"], 5, 64
+    kw = max(tc.keywords(), key=len)
+    assert len(kw) == tab["warm_steps"] + 1
+    s = tc.sparse(tab, halo, L)
+    ext = s["ext"].copy()
+    planted = 0
+    for b in tc.LIVE:
+        for p in range(1, split):
+            end = b * L + halo + L * p // split    # ext index of row j0
+            ext[end - len(kw) + 1:end + 1] = tab["byte_lut"][
+                np.frombuffer(kw, np.uint8)]
+            planted += 1
+    jt = (jnp.asarray(tab["dflat"]), jnp.asarray(tab["nb_out"]))
+    dflat, nb_out = _t(tab["dflat"]), _t(tab["nb_out"])
+    idx = _t(s["idx"])
+    if form == "idx":
+        src = _t(ext)
+        jwant = jsp.make_sparse_count(V, halo, L, s["nB"], len(s["idx"]))(
+            *jt, jnp.asarray(ext), jnp.asarray(s["idx"]))
+    else:
+        src = sparse.window_gather(_t(ext), idx, L, halo).to(
+            torch.int32).contiguous()
+        jwant = jxla.make_blocked_count(V, halo)(*jt, jnp.asarray(src.numpy()))
+    plain = sparse.sparse_count_plain(dflat, nb_out, V, halo, L, src,
+                                      idx if form == "idx" else None)
+    np.testing.assert_array_equal(plain.numpy(), np.asarray(jwant))
+    fields = dict(sparse.window_fields(L, src, idx), table=dflat,
+                  nb_out=nb_out, L=L, V=V, halo=halo, split=split,
+                  n_states=tab["n_states"])
+    fields.pop("form")
+    outs = []
+    for warm in (tab["warm_steps"], tab["warm_steps"] - 1):
+        out = torch.full((fields["B"],), -7, dtype=torch.int32)
+        _run(lib, "ac_sparse_count", out=out, warm_steps=warm, **fields)
+        outs.append(out)
+    assert torch.equal(outs[0], plain)
+    assert int(outs[1].sum()) <= int(plain.sum()) - planted
 
 
 @pytest.mark.parametrize("split", [1, 2, 4])

@@ -166,11 +166,12 @@ CHIP_SCRIPT = textwrap.dedent("""
 
 
 def test_chip_scripts_refuse_without_cuda_and_import_no_jax():
-    """chip_smoke.py and probe_mxu_rows.py import neither JAX nor the JAX
-    package, and their main() returns 1 where torch sees no CUDA."""
+    """chip_smoke.py, probe_mxu_rows.py and probe_k7_dense.py import
+    neither JAX nor the JAX package, and their main() returns 1 where torch
+    sees no CUDA."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    for name in ("chip_smoke", "probe_mxu_rows"):
+    for name in ("chip_smoke", "probe_mxu_rows", "probe_k7_dense"):
         proc = subprocess.run([sys.executable, "-c", CHIP_SCRIPT, ROOT, name],
                               capture_output=True, text=True, timeout=120,
                               cwd=ROOT, env=env)

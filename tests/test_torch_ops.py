@@ -536,16 +536,22 @@ def test_k2_modes_match_jax():
 
 
 @pytest.mark.parametrize("wrapper", ["dense_states", "blocked_states",
-                                     "dense_count_many"])
+                                     "dense_count_many", "sparse_count"])
 def test_k2_k6_wrappers_need_the_warm_up(wrapper):
-    """K2's stream and time-major wrappers and K6's require ``warm_steps``
+    """K2's stream and time-major wrappers, K6's and K7 dense's
+    (``sparse.sparse_count``, over an index list) require ``warm_steps``
     (a keyword without a default) and refuse a negative one and a split
     that is no power of two up to 32, on every device, before any launch;
     given them, on the CPU each is its plain version, the one-thread
     chain over every column."""
     tab = tc.tables(1)
     V, dflat, nb_out = tab["V"], _t(tab["dflat"]), _t(tab["nb_out"])
-    if wrapper == "dense_states":
+    module = sparse if wrapper == "sparse_count" else scan_dense
+    if wrapper == "sparse_count":
+        s = tc.sparse(tab, 5, tc.L_BLK[1])
+        args = (dflat, nb_out, V, 5, tc.L_BLK[1], _t(s["ext"]),
+                _t(s["idx"]))
+    elif wrapper == "dense_states":
         s = tc.stream(tab, "raw_u8", 5, 24)
         args = (dflat, V, 5, B, 24, _t(s["ext"]), _t(s["lut"]),
                 _t(s["head_ids"]))
@@ -554,8 +560,8 @@ def test_k2_k6_wrappers_need_the_warm_up(wrapper):
     else:
         b = tc.batch(tab, "raw_i32", 61)
         args = (dflat, nb_out, V, 5, 3, 24, _t(b["tm"]), _t(b["lut"]))
-    fn = getattr(scan_dense, wrapper)
-    plain = getattr(scan_dense, f"{wrapper}_plain")(*args)
+    fn = getattr(module, wrapper)
+    plain = getattr(module, f"{wrapper}_plain")(*args)
     with pytest.raises(TypeError, match="warm_steps"):
         fn(*args)
     for bad in (dict(warm_steps=-1), dict(warm_steps=5, split=3),
@@ -575,9 +581,9 @@ def test_sparse_wrappers_on_cpu_are_the_plain_versions():
     tab, halo, L_blk, s = _sparse_case(1)
     targs = (_t(tab["dflat"]), _t(tab["nb_out"]), tab["V"], halo, L_blk,
              _t(s["ext"]), _t(s["idx"]))
-    assert torch.equal(sparse.sparse_count(*targs),
-                       sparse.sparse_count_plain(*targs))
     warm = tab["warm_steps"]
+    assert torch.equal(sparse.sparse_count(*targs, warm_steps=warm),
+                       sparse.sparse_count_plain(*targs))
     got = hits.window_hits(*targs, warm_steps=warm)
     want = hits.window_hits_plain(*targs)
     assert all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]))

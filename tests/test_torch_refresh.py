@@ -321,6 +321,41 @@ def test_refresh_grows_the_1char_warm_up_under_a_fixed_halo(monkeypatch):
     assert int(n_hits.sum()) == want_h[2] == n
 
 
+def test_refresh_grows_the_k7_warm_up(monkeypatch):
+    """A step_k=1 prefilter="on" scanner with a user halo of 2 counts
+    sparse text through K7 dense's 1-char windows: host-encoded text as
+    elided windows, a letter-id tensor over the device block filter's
+    index list. refresh() with a keyword of 20 letters grows the warm-up
+    K7 gets (``_warm_syms``, max_depth - 1 symbols) with the real rows,
+    and both counts still equal the JAX scanner's."""
+    from aho_corasick_1975_tpu_torch.ops import sparse
+    seen = []
+    real = sparse.sparse_count
+
+    def spy(*args, **kw):
+        seen.append((kw["warm_steps"], kw["n_states"], args[5].dim()))
+        return real(*args, **kw)
+    monkeypatch.setattr(sparse, "sparse_count", spy)
+    m = Machine()
+    for w in ["he", "she"]:
+        m.insert_keyword(w)
+    sc = fresh_like(m, step_k=1, halo=2, prefilter="on")
+    jsc = JaxScanner(m, n_streams=4, step_k=1, halo=2, prefilter="on")
+    long_kw = "hehehehehehehehehehe"
+    text = "." * 5000 + long_kw + "." * 3000 + "she" + "." * 900
+    assert sc.count(text) == jsc.count(text) == 12
+    assert {s[0] for s in seen} == {2}
+    m.insert_keyword(long_kw)
+    assert sc.refresh() is True and jsc.refresh() is True
+    assert sc._warm_syms == len(long_kw) - 1
+    seen.clear()
+    n = sc.count(text)
+    assert n == jsc.count(text) == 13
+    assert sc.count(torch.from_numpy(sc.encode(text))) == n
+    assert {s[:2] for s in seen} == {(len(long_kw) - 1, sc.tables.n_states)}
+    assert sorted({s[2] for s in seen}) == [1, 2]
+
+
 @pytest.mark.parametrize("step_k", [2, 3])
 def test_find_matches_after_refresh_uses_current_pk1(step_k):
     """The dense refinement's packed k=1 table is cached per dictionary

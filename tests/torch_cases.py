@@ -20,12 +20,17 @@ KINDS = ("ids", "raw_u8", "raw_i32")
 B = 8
 
 
-def machine(seed: int = 0) -> Machine:
+def keywords(seed: int = 0) -> list:
+    """The 40 byte keywords of ``machine(seed)``: 1-6 letters of "abcd"."""
     rng = random.Random(seed)
+    return [bytes(rng.choice(b"abcd") for _ in range(rng.randint(1, 6)))
+            for _ in range(40)]
+
+
+def machine(seed: int = 0) -> Machine:
     m = Machine()
-    for _ in range(40):
-        m.insert_keyword(bytes(rng.choice(b"abcd")
-                               for _ in range(rng.randint(1, 6))))
+    for kw in keywords(seed):
+        m.insert_keyword(kw)
     return m
 
 
