@@ -40,6 +40,8 @@ from .utils.checkpoint import (load_machine, load_tables, save_machine,
                                save_tables)
 from .utils.config import MachineConfig, MeshConfig, ScanConfig
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Machine", "Cursor", "Match", "MatchSet", "DenseScanner", "Builder",
     "DenseTables", "ByteMachine", "UnicodeMachine", "StreamSession",
@@ -49,5 +51,5 @@ __all__ = [
     "acm_insert_letter_of_keyword", "acm_insert_end_of_keyword", "acm_match",
     "acm_matcher_init", "acm_get_match", "acm_matcher_release",
     "acm_nb_keywords", "acm_foreach_keyword", "acm_print", "MatchHolder",
-    "ACM_CMP_DEFAULT", "ACM_INCREMENTAL_STRING_MATCHING",
+    "ACM_CMP_DEFAULT", "ACM_INCREMENTAL_STRING_MATCHING", "__version__",
 ]

@@ -693,6 +693,12 @@ struct AcSum {
 // through its ac_last_split() to report it.
 inline int g_ac_last_split = 0;
 
+// Bytes the 1-char tables of the last stream-form launch (K1, K2, K7 dense,
+// K8) took in shared memory; 0 where they stayed in device memory (forced,
+// past 65,536 states, or too large for a block). Read through
+// ac_last_dense_table().
+inline int64_t g_ac_last_dense_table = 0;
+
 AC_HD bool ac_valid_split(int P) {
   return P >= 1 && P <= AC_MAX_SPLIT && (P & (P - 1)) == 0;
 }
@@ -1813,6 +1819,7 @@ inline cudaError_t ac_dense_plan(const AcScanArgs& args, AcDenseKernel on_sm,
       p.a, 4 * ((int64_t)p.lut_n + (int64_t)stage.fit * kDenseSmThreads),
       &tab));
   p.tab_words = (int32_t)(tab / 4);
+  g_ac_last_dense_table = tab;
   p.kernel = tab > 0 ? on_sm : global;
   p.threads = tab > 0 ? kDenseSmThreads : kDenseThreads;
   const int words = tab > 0 ? stage.on_sm : stage.global;

@@ -74,6 +74,7 @@ template <bool Counts, typename Fn>
 int with_dense_table(const AcScanArgs& a, int64_t beside_words, Fn fn) {
   const int64_t bytes = ac_dense_smem_bytes(
       a, 4 * ((int64_t)ac_lut_entries(a) + beside_words));
+  g_ac_last_dense_table = bytes;
   if (bytes == 0) return fn(AcDenseTable<int32_t, Counts>::make(a));
   std::vector<int32_t> smem(bytes / 4);
   return fn(ac_dense_stage<Counts>(a, smem.data(), 0, 1));
@@ -335,6 +336,8 @@ int ac_assoc_scan(const AcScanArgs* args, void*) {
 const char* ac_error_string(int) { return "host build"; }
 
 int ac_last_split(void) { return g_ac_last_split; }
+
+int64_t ac_last_dense_table(void) { return g_ac_last_dense_table; }
 
 int ac_stepped_split(int64_t n_cols, int64_t n_body, int64_t halo_steps,
                      int64_t warm_steps, const int64_t* slots,

@@ -148,6 +148,8 @@ extern "C" int ac_stepped_count_2t(const AcScanArgs* a, void* stream) {
 
 extern "C" int ac_last_split(void) { return g_ac_last_split; }
 
+extern "C" int64_t ac_last_dense_table(void) { return g_ac_last_dense_table; }
+
 extern "C" int ac_stepped_split(int64_t n_cols, int64_t n_body,
                                 int64_t halo_steps, int64_t warm_steps,
                                 const int64_t* slots, int wide_split) {

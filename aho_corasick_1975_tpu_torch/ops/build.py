@@ -65,6 +65,12 @@ SPLIT_ENTRIES = ("ac_dense_count", "ac_dense_states", "ac_stepped_count",
 PICK_ENTRIES = ("ac_sparse_count", "ac_dense_hits", "ac_window_hits")
 MAX_SPLIT = 32
 splits: Dict[str, int] = {}
+# The 1-char stream forms (K1, K2, K7 dense, K8), whose launcher stages
+# the tables on the SM where they fit; the shared-memory bytes they took at
+# each one's last launch, by entry point (0: read from device memory).
+DENSE_ENTRIES = ("ac_dense_count", "ac_dense_states", "ac_sparse_count",
+                 "ac_dense_hits", "ac_window_hits")
+dense_tables: Dict[str, int] = {}
 # Seconds and compiler output of the last build this process ran (None
 # when the library was already built).
 last_build: Dict[str, object] = {"seconds": None, "log": ""}
@@ -182,6 +188,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ac_error_string.restype = ctypes.c_char_p
     lib.ac_last_split.argtypes = []
     lib.ac_last_split.restype = ctypes.c_int
+    lib.ac_last_dense_table.argtypes = []
+    lib.ac_last_dense_table.restype = ctypes.c_int64
     lib.ac_stepped_split.argtypes = [ctypes.c_int64] * 4 + [
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
     lib.ac_stepped_split.restype = ctypes.c_int
@@ -273,6 +281,8 @@ def launch(name: str, device: torch.device, form: Optional[str] = None,
     launches[name] += 1
     if name in SPLIT_ENTRIES:
         splits[name] = lib.ac_last_split()
+    if name in DENSE_ENTRIES:
+        dense_tables[name] = lib.ac_last_dense_table()
     if form is not None:
         key = f"{name}/{form}"
         form_launches[key] = form_launches.get(key, 0) + 1

@@ -97,10 +97,31 @@ card, importing nothing of JAX:
    ns a step too; K9 (stream and batch forms) and K11 (text in every
    column) also forced to every split P, exact at each, with their times
    by P. (probe_mxu_rows.py times K10 and K11 at other rows per warp.)
+15. mesh: every ShardedScanner path on 4 logical shards of cuda:0, each
+   shard's launches checked, beside DenseScanner, and one count through
+   a one-rank NCCL group;
+16. K12 against its plain version and K2's one-thread form, also over
+   the slice's dictionary;
+17. examples: each script of examples_torch/ loaded by path and run as
+   main(device="cuda") with its stdout captured and the launch counters
+   set to 0 just before and read just after, its result held against the
+   port's native host oracle: the demo's golden line; generic Test 1's
+   events against the host cursor's, Test 3's three totals against the
+   native host scan of the same ids (its dictionaries of 113,402 to
+   311,968 states, past uint16 state ids, which "auto" scans through the
+   packed k = 1 table: K3 at k = 1), then a step_k=1 scanner of Test 3's
+   last dictionary through K1 with its tables in device memory
+   (``build.dense_tables``), and K1 and K3 at those tables and ids
+   against their plain versions (their bounds at the entries the walk
+   reads); the needle hunt's 12 matches, its events and its restore; the
+   serving demo's replies against the host cursor's; the sharded demo's
+   total against a DenseScanner's and the host scan's, and its first
+   events; the host-parallel demo's own asserts.
 
-Each of phases 4, 6-8, 9's (a)-(b) and (c), and 10-12 runs with the launch
-counters set to 0 just before it and read just after, and fails unless
-every kernel of its path (and every input form named) was launched.
+Each of phases 4, 6-8, 9's (a)-(b) and (c), 10-12 and each example of 17
+runs with the launch counters set to 0 just before it and read just after,
+and fails unless every kernel of its path (and every input form named) was
+launched.
 Every kernel comparison gives its bound: every tensor of the call read
 once and its output written once over 3.35 TB/s (a capacity-padded
 table at its real states' rows, a stream read through an index list at
@@ -122,7 +143,8 @@ call's ``ms``, the bound of its T*S lookups at 32 a clock an SM
 same ids (``seq_ms``) and its time over the slice's dictionary
 (``slice_dictionary_ms``). Prints the kernels' JSON line, a {"plain_ops": ...} line (the
 plain-torch steps no kernel replaces, each with its card time a call and
-bytes bound: ``plain_ops``), the mesh line, the card's name and power
+bytes bound: ``plain_ops``), the mesh line, the examples line (each
+example's seconds, launches and checks), the card's name and power
 limit, and last the line {"ok": true, "device": {...}}. Any failure exits
 non-zero, and so does a machine without CUDA.
 """
@@ -2321,6 +2343,278 @@ def phase_assoc(act, build, sc, text: bytes) -> dict:
     return {"ac_assoc_scan": res}, launches
 
 
+# The examples of examples_torch/, in the order phase_examples runs them,
+# each with the kernels (or "entry/form") it must launch on the card: none
+# for the two on the host, one a shard for the sharded demo.
+EXAMPLES = {
+    "demo": (),
+    "generic_demo": ("ac_stepped_emit", "ac_stepped_count"),
+    "needle_hunt_demo": ("ac_sparse_count_stepped/elided",
+                         "ac_window_hits/elided"),
+    "serving_demo": ("ac_stepped_count", "ac_stepped_emit"),
+    "sharded_demo": ("ac_stepped_count", "ac_dense_states"),
+    "host_parallel_demo": (),
+}
+
+
+def load_example(name: str):
+    """examples_torch/<name>.py, loaded by path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples_torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_events(m, text, offset: int = 0, cur=None) -> list:
+    """(start, end, keyword) of every match of ``text`` through the host
+    cursor ``cur`` (a fresh one by default), longest first at each end
+    (acm_get_match's index order), positions shifted by ``offset``."""
+    cur = m.initiate() if cur is None else cur
+    out = []
+    for i, ch in enumerate(text):
+        for j in range(m.match(cur, ch)):
+            mt = m.get_match(cur, j)
+            out.append((offset + i + 1 - mt.length, offset + i, mt.text()))
+    return out
+
+
+def test3_inputs(sc, text: np.ndarray, halo: int, unit: int):
+    """Test 3's ids as count() stages them for a stream kernel: B =
+    sc.n_streams streams of L ids (a multiple of ``unit``), zero-padded,
+    behind ``halo`` OOV head ids; (B, L, ids on the card)."""
+    B, L = sc._layout(len(text), unit)
+    ids = np.zeros(halo + B * L, np.int32)
+    ids[halo:halo + len(text)] = text
+    return B, L, sc._snap.place(ids)
+
+
+def touched(sc1, ids, B: int, L: int):
+    """Distinct (state, letter) entries and distinct states the 1-char
+    walk of B streams of L ids reads: the transition into body symbol t
+    reads entry (state after t - 1, letter t), and K1 reads nb_out at the
+    state it reaches, from K2's states over the same streams (each
+    stream's first symbol left out: a lower bound of the bytes the data
+    needs)."""
+    from aho_corasick_1975_tpu_torch.ops import scan_dense
+    snap = sc1._snap
+    states = scan_dense.dense_states(snap.dflat, sc1.V, sc1.halo, B, L, ids,
+                                     **sc1._dense_fields()).view(B, L).long()
+    body = ids[sc1.halo:].view(B, L).long()
+    keys = states[:, :-1] * sc1.V + body[:, 1:]
+    return (int(torch.unique(keys).numel()),
+            int(torch.unique(states[:, 1:]).numel()))
+
+
+def check_generic(act, build, res: dict) -> dict:
+    """Test 1: every event equals the host cursor's over the same text.
+    Test 3: each round's total equals the native host scan of its ids on
+    a machine built from the same keywords, its dictionary is past uint16
+    state ids, and its scanner ("auto": the packed k = 1 table) ran K3 at
+    k = 1. Then the user's step_k=1 scanner of round 3's dictionary counts
+    the same ids through K1 with its tables in device memory, and K1 and
+    K3 at round 3's tables and ids equal their plain versions."""
+    from aho_corasick_1975_tpu_torch.ops import multistep, scan_dense
+    t1 = res["test1"]
+    want = host_events(t1["machine"], t1["text"])
+    check(t1["events"] == want and len(want) > 0,
+          f"generic Test 1: find_matches' {len(t1['events'])} events equal "
+          f"the host cursor's {len(want)}")
+    oracle = act.Machine()
+    for c in range(26):
+        oracle.vocab.register(chr(ord("a") + c))
+    totals = []
+    for rnd in res["test3"]:
+        kws, text, sc = rnd["keywords"], rnd["text"], rnd["scanner"]
+        oracle._b.insert_keywords_bulk(
+            kws.reshape(-1), np.arange(len(kws) + 1, dtype=np.int64) * 7)
+        _, want = oracle._b.match_bulk(0, text)
+        check(rnd["total"] == want, f"generic Test 3: count {rnd['total']} "
+              f"equals the native host scan {want}")
+        check(sc.tables.n_states == oracle.n_states > 65536,
+              f"generic Test 3: {sc.tables.n_states} states, past uint16")
+        check(sc.step_k == 1 and sc._snap.packed is not None,
+              "generic Test 3: 'auto' takes the packed k = 1 table")
+        totals.append(want)
+    sc = res["test3"][-1]["scanner"]
+    text = res["test3"][-1]["text"]
+    st, snap = sc._stepped, sc._snap
+    sc1 = sc.machine.scanner(n_streams=sc.n_streams, step_k=1)
+    n1, k1_launches = driven(build, ("ac_dense_count",),
+                             "generic Test 3 step_k=1",
+                             lambda: sc1.count(text))
+    on_sm = build.dense_tables.get("ac_dense_count")
+    check(n1 == totals[-1], f"step_k=1 count {n1} equals {totals[-1]}")
+    check(on_sm == 0,
+          f"K1 read {sc1.tables.n_states} states' tables from device memory "
+          f"(shared-memory bytes {on_sm})")
+    B, L, ids1 = test3_inputs(sc1, text, sc1.halo, 128)
+    entries, states = touched(sc1, ids1, B, L)
+    snap1 = sc1._snap
+    k1 = compare(
+        "ac_dense_count",
+        functools.partial(scan_dense.dense_count, **sc1._dense_fields()),
+        scan_dense.dense_count_plain,
+        (snap1.dflat, snap1.nb_out, sc1.V, sc1.halo, B, L),
+        {"test3_ids_i32": (ids1, None, None)},
+        f"Test 3 B={B} L={L} S={sc1.tables.n_states}", hits=True,
+        need=lambda *_: [(snap1.dflat, 4 * entries),
+                         (snap1.nb_out, 4 * states)],
+        steps=sc1.halo + L)
+    B3, L3, ids3 = test3_inputs(sc, text, sc._halo_sym, 128 * st.k)
+    k3 = compare(
+        "ac_stepped_count",
+        functools.partial(multistep.stepped_count,
+                          warm_steps=sc._warm_steps),
+        multistep.stepped_count_plain,
+        (snap.packed, st.V, st.k, st.count_bits, sc._halo_steps, B3, L3),
+        {"test3_k1_ids_i32": (ids3, None, None)},
+        f"Test 3 B={B3} L={L3} k={st.k} S={sc.tables.n_states}", hits=True,
+        need=lambda *_: [(snap.packed, 4 * entries)],
+        steps=sc._halo_steps + L3 // st.k)
+    return {"totals": totals, "n_states": sc.tables.n_states,
+            "V": sc.V, "step_k": sc.step_k,
+            "packed_bytes": nbytes(snap.packed),
+            "dflat_bytes": nbytes(snap1.dflat),
+            "entries_read": entries, "states_read": states,
+            "step_k1_launches": k1_launches,
+            "k1_tables_smem_bytes": on_sm, "k1": k1, "k3": k3}
+
+
+def check_needle(act, res: dict) -> dict:
+    """12 matches; the listed events are every occurrence of the
+    signatures (found by search of the corpus) and the native host scan
+    counts as many; the restore found them all."""
+    mod = load_example("needle_hunt_demo")
+    corpus = res["corpus"]
+    want = []
+    for sig in mod.SIGNATURES:
+        p = corpus.find(sig)
+        while p >= 0:
+            want.append((p, p + len(sig) - 1, sig.decode()))
+            p = corpus.find(sig, p + 1)
+    want.sort(key=lambda e: (e[1], e[0]))
+    m = act.Machine()
+    for sig in mod.SIGNATURES:
+        m.insert_keyword(sig)
+    host = m.match_stream(m.initiate(), corpus, parallel=False)
+    check(res["total"] == host == len(want) == 12,
+          f"needle hunt: count {res['total']}, host scan {host}, "
+          f"{len(want)} planted occurrences, 12 expected")
+    check(res["events"] == want, "needle hunt: the listed events equal "
+          "every occurrence of the signatures")
+    check(res["found"] == res["total"]
+          and res["offset"] == len(corpus) // 2 + 3,
+          f"needle hunt: the restore at {res['offset']} found "
+          f"{res['found']} of {res['total']}")
+    return {"total": res["total"], "host": host}
+
+
+def check_serving(act, res: dict) -> dict:
+    """Every reply of demo() equals the host cursor's on the same
+    stream: two FEEDs of one session, its TOTAL, the MATCHES after ADD
+    pencil at absolute positions, and a second session's FEED."""
+    text = GOLDEN
+    m = act.Machine()
+    for kw in ["he", "she", "his", "hers"]:
+        m.insert_keyword(kw)
+    cur = m.initiate()
+    n1 = m.match_stream(cur, text[:30])
+    n2 = m.match_stream(cur, text[30:])
+    m.insert_keyword("pencil")
+    hits = [f"{s} {e} {kw}" for s, e, kw in
+            host_events(m, " he lost his pencil again", len(text), cur)]
+    n3 = m.match_stream(m.initiate(), "a pencil for hers")
+    want = {"feed1": f"{n1} {n1}", "feed2": f"{n2} {n1 + n2}",
+            "total": str(n1 + n2), "add": "OK", "hits": hits,
+            "client2": f"{n3} {n3}"}
+    check(res == want and n1 + n2 == 9, f"serving: replies {res} equal the "
+          f"host cursor's {want}")
+    return want
+
+
+def check_sharded(act, res: dict) -> dict:
+    """The mesh's total equals a DenseScanner's and the native host
+    scan's, and its first events the host cursor's."""
+    m, text = res["machine"], res["text"]
+    dense = m.scanner().count(text)
+    host = m.match_stream(m.initiate(), text, parallel=False)
+    check(res["total"] == dense == host,
+          f"sharded: total {res['total']} equals DenseScanner {dense} and "
+          f"the host scan {host}")
+    want = [(s, kw) for s, _, kw in host_events(m, text[:5000])[:5]]
+    check(res["first"] == want and len(want) == 5,
+          f"sharded: first events {res['first']} equal the host's {want}")
+    return {"total": res["total"], "shards": res["mesh"].size}
+
+
+def phase_examples(act, build) -> dict:
+    """Each script of examples_torch/ loaded by path and run as
+    ``main(device="cuda")`` with its stdout captured and the launch counters set
+    to 0 just before and read just after, its result held against the
+    port's native host oracle (``check_*``); the demo's golden line, the
+    host-parallel demo's own asserts; each example's kernels of EXAMPLES
+    launched. Returns, by example, its seconds, the kernels and forms it
+    launched and the checks it passed."""
+    out = {}
+    for name, entries in EXAMPLES.items():
+        mod = load_example(name)
+        buf = io.StringIO()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {e: v for e, v in {**build.launches,
+                                      **build.form_launches}.items() if v}
+        for line in buf.getvalue().splitlines()[:12]:
+            log(f"  {name}: {line}")
+        each = res["mesh"].size if name == "sharded_demo" else 1
+        check(all(launches.get(e, 0) >= each for e in entries)
+              and (entries or not launches),
+              f"{name} launched {entries or 'nothing'} ({each} each): "
+              f"{launches}")
+        row = {"seconds": secs, "launches": launches}
+        if name == "demo":
+            check(res == GOLDEN_LINE and GOLDEN_LINE in buf.getvalue(),
+                  f"demo: golden line {res!r}")
+            row["checks"] = ["golden line"]
+        elif name == "generic_demo":
+            row.update(check_generic(act, build, res))
+            row["checks"] = ["Test 1 events == host cursor",
+                             "Test 3 totals == native host scan",
+                             "Test 3 states > 65536, K3 at k = 1",
+                             "step_k=1: K1 with device-memory tables",
+                             "K1, K3 at Test 3 == plain"]
+        elif name == "needle_hunt_demo":
+            row.update(check_needle(act, res))
+            row["checks"] = ["12 matches == host scan",
+                             "events == the signatures' occurrences",
+                             "restore exact"]
+        elif name == "serving_demo":
+            check(buf.getvalue().rstrip().endswith("demo OK"),
+                  "serving: the demo ends in 'demo OK'")
+            row["replies"] = check_serving(act, res)
+            row["checks"] = ["replies == host cursor", "demo OK"]
+        elif name == "sharded_demo":
+            row.update(check_sharded(act, res))
+            row["checks"] = ["total == DenseScanner == host scan",
+                             "first events == host cursor"]
+        else:
+            check(res["serial"] > 0 and all(
+                res["seen"][0] <= n <= res["after"] for n in res["seen"]),
+                "host-parallel: its counts")
+            row["checks"] = ["serial == threaded", "monotone counts"]
+        print(f"example {name}: {secs:.2f} s, launches {launches}, checks "
+              f"{row['checks']}", flush=True)
+        out[name] = row
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2484,6 +2778,12 @@ def main() -> int:
     assoc, assoc_launches = phase_assoc(act, build, sc, text)
     kern.update(assoc)
     launches["ac_assoc_scan"] = assoc_launches["ac_assoc_scan"]
+    # 17. the examples of examples_torch/, each through main(device="cuda")
+    t0 = time.perf_counter()
+    examples = phase_examples(act, build)
+    kern["ac_dense_count"].update(examples["generic_demo"]["k1"])
+    kern["ac_stepped_count"].update(examples["generic_demo"]["k3"])
+    print(f"examples phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def first(entry, key):
         return next(iter(kern[entry].values())).get(key)
@@ -2519,6 +2819,7 @@ def main() -> int:
     print(json.dumps({"mesh": {"device": kind, "shards": MESH_SHARDS,
                                "n_streams_per_device": MESH_STREAMS,
                                "paths": MESH_PATHS}}), flush=True)
+    print(json.dumps({"examples": examples}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,7 +5,7 @@ The port keeps its own copies of the JAX package's jax-free host modules
 functional API). For the same keywords, on both builder backends, the
 copies must give the JAX package's dense tables and host matches, the
 reference's golden line, and checkpoints that load in either package to
-the same automaton. The native core builds into the port's build
+the same automaton; the port exports the same public names. The native core builds into the port's build
 directory, not beside its source.
 """
 
@@ -92,6 +92,14 @@ def test_golden_line_through_the_acm_api():
     assert act.acm_nb_keywords(machine) == 4
     act.acm_matcher_release(matcher)
     act.acm_release(machine)
+
+
+def test_public_api_equals_reference():
+    """The port exports the JAX package's names, ``__version__`` included,
+    at the same version."""
+    assert set(act.__all__) == set(ac.__all__)
+    assert all(hasattr(act, name) for name in act.__all__)
+    assert act.__version__ == ac.__version__
 
 
 def _roundtrip(save, load, machine):

@@ -1794,6 +1794,31 @@ def test_k2_one_chain(lib, kind, offset):
                     and (buf[offset + L:] == -7).all())
 
 
+@pytest.mark.parametrize("case", ["k1_raw_u8", "k2_raw_u8", "k8_raw_u8"])
+def test_dense_launch_reports_its_table_path(lib, dense_refs, case):
+    """A 1-char stream launch reports the bytes its tables took on the SM
+    (``ac_last_dense_table``, ``build.dense_tables`` on the card): the
+    real rows' where they fit, 0 through the read-only path or past
+    65,536 states (rows of zeros appended to dflat, which the walk never
+    reaches), exact on each path."""
+    name, fields, plain, _ = dense_refs(case)
+    shape = None if name in HITS_ENTRIES else plain.shape
+    S, V = fields["n_states"], fields["V"]
+    rows = 2 * S * V + 3 & ~3
+    on_sm = rows + (0 if name == "ac_dense_states" else 4 * S)
+    wide = torch.zeros((65_537 - S) * V + fields["table"].numel(),
+                       dtype=torch.int32)
+    wide[:fields["table"].numel()] = fields["table"]
+    for path, extra, want in (("sm", {}, on_sm), ("global", {}, 0),
+                              ("sm", dict(table=wide, n_states=65_537), 0)):
+        got = _dense_launch(lib, name, dict(fields, **extra), 4, path, shape)
+        assert lib.ac_last_dense_table() == want, (path, extra.keys())
+        if name in HITS_ENTRIES:
+            assert all(torch.equal(a, b) for a, b in zip(got[:2], plain[:2]))
+        else:
+            assert torch.equal(got, plain)
+
+
 def test_dense_table_staging(lib, dense_refs):
     """The copy on the SM from any table: the real rows (their entries no
     multiple of 4, so a scalar tail follows the 16-byte loads), a table 4

@@ -12,9 +12,13 @@ a bounded session), the associative scan and the utils. Then no module
 of the JAX package may be loaded, by name or by file: the port keeps its
 own copies of the host modules it needs, and its native core builds in
 the port's build directory. The card's scripts, ``chip_smoke.py`` and
-``probe_mxu_rows.py``, import neither and refuse to run without CUDA.
+``probe_mxu_rows.py``, import neither and refuse to run without CUDA. The
+examples of ``examples_torch/`` import neither (nor ``examples/``) and run
+on the CPU with every such import blocked.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -177,3 +181,64 @@ def test_chip_scripts_refuse_without_cuda_and_import_no_jax():
                               cwd=ROOT, env=env)
         assert proc.returncode == 0, proc.stdout + proc.stderr
         assert "REFUSED" in proc.stdout
+
+
+EXAMPLES_SCRIPT = textwrap.dedent("""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import sys
+
+    class BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib",
+                                      "aho_corasick_1975_tpu", "examples"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, BlockJax())
+    root = sys.argv[1]
+    for name in ("demo", "generic_demo", "needle_hunt_demo", "serving_demo",
+                 "sharded_demo", "host_parallel_demo"):
+        path = os.path.join(root, "examples_torch", name + ".py")
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with contextlib.redirect_stdout(io.StringIO()):
+            mod.main(device="cpu")
+    loaded = sorted(n for n in sys.modules
+                    if n.split(".")[0] in ("jax", "jaxlib",
+                                           "aho_corasick_1975_tpu"))
+    assert not loaded, loaded
+    print("EXAMPLES-NOJAX-OK")
+""")
+
+
+def test_examples_import_and_run_without_jax():
+    """Every script of examples_torch/ names no module of JAX, of the JAX
+    package or of examples/ in its imports, and all six run on the CPU
+    with those imports blocked."""
+    paths = sorted(glob.glob(os.path.join(ROOT, "examples_torch", "*.py")))
+    assert len(paths) == 6, paths
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in (
+                    "jax", "jaxlib", "aho_corasick_1975_tpu", "examples"), (
+                    path, name)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", EXAMPLES_SCRIPT, ROOT],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "EXAMPLES-NOJAX-OK" in proc.stdout
