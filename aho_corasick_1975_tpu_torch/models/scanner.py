@@ -45,7 +45,11 @@ package's does for a ``jax.Array``.
 (ops/autotune.py). Retrieval (``find_matches``, ``scan_states``) ignores
 the engine.
 
-Not ported yet (ROADMAP): upload overlap.
+Host inputs reach the card through the scanner's staging ring
+(models/staging.py): pinned slots and a copy stream, so that no upload
+copies from pageable memory and the host waits on no copy but a slot's
+last; a large raw input is counted in chunks, each chunk's upload
+enqueued before the previous chunk's scan.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ from ..ops.scan_dense import (dense_count, dense_count_many, dense_states,
                               lookup, sequential_states)
 from .results import MatchSet
 from .snapshot import DeviceSnapshot
+from .staging import Stager
 
 
 def _guard_pos32(n_symbols: int) -> None:
@@ -181,10 +186,19 @@ def raw_stream_for(machine, signs, get_lut):
 class DenseScanner:
     # Past _pipeline_min symbols a raw host input is counted in
     # _pipeline_chunk-symbol chunks, each with its halo taken from the raw
-    # input itself. Kept from the JAX package (tuned there for a TPU);
-    # overlapping the uploads is ROADMAP A.4.
+    # input itself, staged through a ring of _pipeline_depth pinned slots
+    # (models/staging.py). Chunk and depth are chip_smoke.py's sweep on an
+    # H100 80GB HBM3 at 700 W (count() of the 64 MiB slice from bytes,
+    # 16,384 streams; best ms at depths 2-4, four runs, a call each):
+    # 2 MiB chunks 8.2-20.6, 4 MiB 5.6-12.6, 8 MiB 4.3-9.1, 16 MiB 3.1-6.5,
+    # 16 MiB the best in every run and its depths within each other's
+    # noise, so 2, the least pinned memory. A single staged upload and
+    # launch ties it there (3.3-5.4 ms); _pipeline_min stays the JAX
+    # package's, since the pipeline holds only its ring on the device
+    # whatever the input's size.
     _pipeline_min = 16 << 20
-    _pipeline_chunk = 8 << 20
+    _pipeline_chunk = 16 << 20
+    _pipeline_depth = 2
 
     def __init__(self, machine, n_streams: "int | str" = "auto",
                  halo: Optional[int] = None, tables=None,
@@ -250,6 +264,7 @@ class DenseScanner:
         self._device_encode_max_cp = int(device_encode_max_cp)
         self._lut_cache: dict = {}
         self._pk1_cache = None
+        self._ring: Optional[Stager] = None
         self._bind()
         if calibrate and engine == "auto":
             self._calibrate_engine()
@@ -425,6 +440,17 @@ class DenseScanner:
         B = self._streams_for(T)
         return B, max(unit, -(-(-(-T // B)) // unit) * unit)
 
+    @property
+    def _stager(self) -> Stager:
+        """The scanner's staging ring (models/staging.py), made at first
+        use: ``_pipeline_depth`` pinned slots of a chunk's bytes at least.
+        Every host upload of a scan goes through it, under the dispatch
+        lock; ``DeviceSnapshot.place`` uploads only tables."""
+        if self._ring is None:
+            self._ring = Stager(self.device, self._pipeline_depth,
+                                self._pipeline_chunk)
+        return self._ring
+
     def _head_ids(self, head, halo: int) -> np.ndarray:
         """The last ``halo`` letter ids of ``head`` (the symbols before the
         stream), left-padded with OOV; checked against [0, V) because the
@@ -443,20 +469,17 @@ class DenseScanner:
         stream 0's warm-up rows; B, L, T)."""
         T = len(raw)
         B, L = self._layout(T, unit)
-        buf = np.zeros(halo + B * L, raw.dtype)
-        buf[halo:halo + T] = raw
-        place = self._snap.place
-        return place(buf), place(self._head_ids(head, halo)), B, L, T
+        stager = self._stager
+        return (stager.padded(raw, halo, B * L),
+                stager.upload(self._head_ids(head, halo)), B, L, T)
 
     def _stream_ext(self, ids: np.ndarray, head, halo: int, unit: int):
         """Stage letter ids: (ext [halo + B*L] int32 = head, ids, OOV pad;
         B, L, T)."""
         T = len(ids)
         B, L = self._layout(T, unit)
-        buf = np.zeros(halo + B * L, np.int32)
-        buf[:halo] = self._head_ids(head, halo)
-        buf[halo:halo + T] = ids
-        return self._snap.place(buf), B, L, T
+        return self._stager.padded(np.asarray(ids, np.int32), halo, B * L,
+                                   self._head_ids(head, halo)), B, L, T
 
     def _check_ids(self, ids: torch.Tensor) -> None:
         """Tensor input: 1-D integer letter ids within [0, V)."""
@@ -474,7 +497,7 @@ class DenseScanner:
         T = ids.numel()
         B, L = self._layout(T, unit)
         ext = torch.cat([
-            self._snap.place(self._head_ids(head, halo)),
+            self._stager.upload(self._head_ids(head, halo)),
             ids.to(device=self.device, dtype=torch.int32),
             torch.zeros(B * L - T, dtype=torch.int32, device=self.device)])
         return ext, B, L
@@ -621,7 +644,7 @@ class DenseScanner:
         nB_real = -(-T // L_blk)
         nB = 1 << (nB_real - 1).bit_length()
         ext = torch.cat([
-            self._snap.place(self._head_ids(head, halo)),
+            self._stager.upload(self._head_ids(head, halo)),
             ids.to(device=self.device, dtype=torch.int32),
             torch.zeros((nB + 1) * L_blk - T, dtype=torch.int32,
                         device=self.device)])
@@ -685,14 +708,13 @@ class DenseScanner:
         (ext [halo + (nB+1)*L_blk] int32 = head, ids, OOV pad to a pow2 nB
         of blocks and one spare all-OOV block; idx [cap] int32, the live
         blocks, then pad slots at the spare block)."""
-        T = len(ids)
         nB = 1 << (len(live) - 1).bit_length()
-        buf = np.zeros(halo + (nB + 1) * L_blk, np.int32)
-        buf[:halo] = self._head_ids(head, halo)
-        buf[halo:halo + T] = ids
         idx = np.full(max(8, 1 << (n_live - 1).bit_length()), nB, np.int32)
         idx[:n_live] = np.flatnonzero(live)
-        return self._snap.place(buf), self._snap.place(idx)
+        stager = self._stager
+        return (stager.padded(np.asarray(ids, np.int32), halo,
+                              (nB + 1) * L_blk, self._head_ids(head, halo)),
+                stager.upload(idx))
 
     def _sparse_count_raw(self, raw, head):
         """Filter and elision over raw symbols before any encode
@@ -723,7 +745,7 @@ class DenseScanner:
         tm, _ = sparse.elide_windows(arr, lut, T, live, n_live, head, halo,
                                      L_blk, nB_real)
         self._guard_acc(halo + L_blk)
-        n = self._window_count(self._snap.place(tm))
+        n = self._window_count(self._stager.upload(tm))
         self.stats["sparse_elided_upload_bytes"] = int(tm.nbytes)
         return n
 
@@ -775,9 +797,13 @@ class DenseScanner:
     def _count_raw_pipelined(self, raw, ent, head) -> Optional[int]:
         """Raw count of a large host input in independent chunks through
         the engine's stream count, each chunk with its halo encoded from
-        the raw input through the host LUT. Chunks are staged and launched
-        one after another with one synchronisation at the end. None when
-        the input is under two chunks."""
+        the raw input through the host LUT. Each chunk is staged in the
+        next slot of the staging ring (models/staging.py) and launched on
+        the device buffer its copy filled, with no synchronisation but the
+        one at the end. Chunk i+1 is staged (filled, its copy enqueued)
+        before chunk i launches, so its copy is in flight while chunk i's
+        work is enqueued and run. None when the input is under two
+        chunks."""
         lut_dev, n_lut, _, lut_host = ent
         halo, unit, count = self._count_kernel()
         T = len(raw)
@@ -787,12 +813,10 @@ class DenseScanner:
             return None
         B, L = self._layout(C, unit)
         self._guard_acc(L)
-        place = self._snap.place
-        partials = []
-        for i in range(n_chunks):
-            start, end = i * C, min(T, (i + 1) * C)
-            buf = np.zeros(halo + B * L, raw.dtype)
-            buf[halo:halo + (end - start)] = raw[start:end]
+        stager = self._stager
+
+        def stage(i):
+            start = i * C
             if i == 0:
                 head_ids = self._head_ids(head, halo)
             else:
@@ -801,9 +825,18 @@ class DenseScanner:
                 head_raw = np.minimum(
                     raw[start - halo:start].astype(np.int64), n_lut - 1)
                 head_ids = lut_host[head_raw]
-            partials.append(count(B, L, place(buf), lut_dev,
-                                  place(head_ids)).sum(dtype=torch.int64))
-        return int(torch.stack(partials).sum())
+            return stager.stage(head_ids, raw[start:start + C], halo + B * L)
+
+        totals = []
+        staged = stage(0)
+        for i in range(n_chunks):
+            slot = staged
+            if i + 1 < n_chunks:
+                staged = stage(i + 1)
+            ext, head_dev = stager.ready(slot)
+            totals.append(count(B, L, ext, lut_dev, head_dev))
+            stager.release(slot)
+        return int(torch.stack(totals).sum(dtype=torch.int64))
 
     def _guard_acc(self, stream_symbols: int) -> None:
         """Per-stream totals accumulate in int32 on the device: a stream of
@@ -931,7 +964,8 @@ class DenseScanner:
                       else np.int32)
         for j, e in enumerate(encoded):
             tm[:len(e), j] = e
-        return self._count_many_kernel(self._snap.place(tm), L, B, ent)[:n]
+        return self._count_many_kernel(self._stager.upload(tm), L, B,
+                                       ent)[:n]
 
     def _count_many_kernel(self, tm: torch.Tensor, L: int, B: int,
                            ent=None) -> np.ndarray:
@@ -1178,8 +1212,8 @@ class DenseScanner:
         _guard_pos32(T)
         tm, idx = sparse.elide_windows(arr, lut, T, live, n_live, head,
                                        self.halo, 128, nB_real)
-        out = self._window_matches(self._snap.place(tm),
-                                   self._snap.place(idx.astype(np.int32)),
+        out = self._window_matches(self._stager.upload(tm),
+                                   self._stager.upload(idx.astype(np.int32)),
                                    T, offset, max_hits)
         self.stats["sparse_elided_upload_bytes"] = int(tm.nbytes)
         return out
@@ -1219,7 +1253,7 @@ class DenseScanner:
             return np.zeros(0, dtype=np.int32)
         with self._dispatch:
             return sequential_states(
-                self._snap.dflat, self.V, self._snap.place(ids),
+                self._snap.dflat, self.V, self._stager.upload(ids),
                 n_states=self.tables.n_states).cpu().numpy()
 
     def _record(self, op: str, n_symbols: int, seconds: float) -> None:

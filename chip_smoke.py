@@ -21,7 +21,18 @@ card, importing nothing of JAX:
    corpus, through Machine.scanner(): count() against the native host
    scan, find_matches() (length equal to the count, a seeded sample of
    1,000 matches checked against the text), and a step_k=1 scanner (K1
-   and K2) giving the same count and match ends;
+   and K2) giving the same count and match ends; then the staging ring
+   (models/staging.py, ``phase_staging``): the pageable and the pinned
+   upload of the slice's bytes and their host fill into the ring, each
+   alone; count() from bytes, best of 5, each run equal to the host
+   oracle, beside them; a torch.profiler run's device busy share and the
+   copy stream's copies that overlap a kernel or the next chunk's host
+   fill; the pipeline's chunk (2-16 MiB) and ring depth (2-4) swept, and
+   the count without the pipeline, exact at every point; a stale-slot
+   case (a short last chunk of prime length in a slot that held keyword
+   bytes); the slice as a str (int32 code points through the pipeline)
+   and a step_k=1 scanner's count (K1's raw form through it);
+   find_matches() and the sessions' 121 chunks, timed;
 5. batch kernels: K5 and K6 against their plain versions, exact, at
    BASELINE config 3's count_many shapes (k = 1, 64 blocks of 8,192 + 10
    of 256 documents), K5 at the slice's k = 3 tables and K6 at its
@@ -145,8 +156,9 @@ same ids (``seq_ms``) and its time over the slice's dictionary
 plain-torch steps no kernel replaces, each with its card time a call and
 bytes bound: ``plain_ops``), the mesh line, the examples line (each
 example's seconds, launches and checks), the card's name and power
-limit, and last the line {"ok": true, "device": {...}}. Any failure exits
-non-zero, and so does a machine without CUDA.
+limit, and last the line {"ok": true, "device": {...}}; the staging
+phase's {"staging": ...} line comes before the kernels' line. Any failure
+exits non-zero, and so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -184,6 +196,11 @@ TWO_TABLE_DOC = 12_288  # K9's batch form against its plain version
 MESH_SHARDS, MESH_STREAMS = 4, 4096   # 16,384 streams in all, as the slice
 ASSOC_T = 1 << 20       # K12's stream
 ASSOC_SLICE_T = 1 << 16   # K12 over the slice's dictionary
+# phase_staging: the pipeline's chunk (symbols) and ring depth swept
+STAGING_CHUNKS = (2 << 20, 4 << 20, 8 << 20, 16 << 20)
+STAGING_DEPTHS = (2, 3, 4)
+STAGING_RUNS = 5        # count() from bytes: best of these runs
+STAGING_ROUNDS = 7      # the sweep's points, timed in turns
 GOLDEN = "To ushers: he found his pencil, but she could not find hers."
 GOLDEN_LINE = " 6:he 5:she 6:hers 12:he 21:his 38:he 37:she 56:he 56:hers"
 # entry point, or "entry/form" for a form counted in build.form_launches
@@ -1119,6 +1136,290 @@ def resident_ids(density: float, n_live_ids: int) -> np.ndarray:
     pos = (starts[:, None] + np.arange(8)[None, :]).reshape(-1)
     ids[pos] = rng.integers(1, n_live_ids + 1, pos.shape[0]).astype(np.int32)
     return ids
+
+
+def wall_ms(fn, runs: int):
+    """(fn()'s wall milliseconds in each of ``runs`` runs after a warm-up
+    run, each ended by a device synchronisation; the runs' results)."""
+    fn()
+    torch.cuda.synchronize()
+    ms, outs = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, outs
+
+
+def upload_floors(raw: np.ndarray, slot_bytes: int, depth: int) -> dict:
+    """The three floors of an upload of ``raw`` (a writable uint8 array),
+    each alone, wall ms of STAGING_RUNS runs: the pageable upload (what
+    DeviceSnapshot.place does, a synchronous copy), the pinned upload
+    (one non-blocking copy of a pinned copy of the bytes), and the host
+    fill of the bytes into a ring of ``depth`` pinned slots of
+    ``slot_bytes`` by the stager's own fill (``staging._fill``, torch's
+    copy on its intra-op threads) and, beside it, by ``np.copyto``. The
+    staging floor is the slower of the pinned upload and the stager's
+    fill."""
+    from aho_corasick_1975_tpu_torch.models import staging
+    T = raw.size
+    src = torch.from_numpy(raw)
+    pinned = torch.empty(T, dtype=torch.uint8, pin_memory=True)
+    pinned.copy_(src)
+    dev = torch.empty(T, dtype=torch.uint8, device="cuda")
+    ring = [torch.empty(slot_bytes, dtype=torch.uint8, pin_memory=True)
+            for _ in range(depth)]
+    ring_np = [r.numpy() for r in ring]
+    pieces = [(i, a, min(slot_bytes, T - a))
+              for i, a in enumerate(range(0, T, slot_bytes))]
+
+    def fill(how):
+        def run():
+            for i, a, n in pieces:
+                how(i % depth, a, n)
+        return run
+
+    runs = {
+        "pageable_upload": lambda: src.to("cuda"),
+        "pinned_upload": lambda: dev.copy_(pinned, non_blocking=True),
+        "host_fill": fill(lambda j, a, n: staging._fill(ring[j][:n],
+                                                        raw[a:a + n])),
+        "host_fill_numpy": fill(lambda j, a, n: np.copyto(ring_np[j][:n],
+                                                          raw[a:a + n])),
+    }
+    out = {}
+    for k, fn in runs.items():
+        ms, _ = wall_ms(fn, STAGING_RUNS)
+        out[k] = {"best_ms": min(ms), "runs_ms": ms}
+    out["staging_floor_ms"] = max(out["pinned_upload"]["best_ms"],
+                                  out["host_fill"]["best_ms"])
+    out["fill_threads"] = torch.get_num_threads()
+    return out
+
+
+def overlap_profile(build, fn) -> dict:
+    """torch.profiler over one fn() (a pipelined count), the stager's host
+    fill marked by a "stage_fill" annotation for the run: the device's busy
+    share (the union of its kernel, copy and memset spans over the wall
+    time, the profiler's cost in it) and the host-to-device copies of the
+    copy stream (the stream of the copies that is not the kernels') that
+    overlap a kernel span (any kernel, the pad's zeroing among them, and
+    apart the scans': the kernels that are not PyTorch's own), a host
+    fill begun after the copy was (the next chunk's), or host work begun
+    during the copy."""
+    from aho_corasick_1975_tpu_torch.models import staging
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fill = staging._fill
+
+    def marked(dst, src):
+        with record_function("stage_fill"):
+            fill(dst, src)
+
+    torch.cuda.synchronize()
+    staging._fill = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        staging._fill = fill
+    path = os.path.join(build.BUILD_DIR, "staging_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+
+    def spans(cat, name="", but=None):
+        return [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                 e.get("args", {}).get("stream"))
+                for e in events if e.get("cat") == cat
+                and name in e.get("name", "")
+                and (but is None or but not in e.get("name", ""))]
+
+    kernels = spans("kernel")
+    h2d = spans("gpu_memcpy", "HtoD")
+    fills = spans("user_annotation", "stage_fill")
+    device = sorted(kernels + h2d + spans("gpu_memcpy", "DtoH")
+                    + spans("gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b, _ in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    k_streams = {st for _, _, st in kernels}
+    copies = [c for c in h2d if c[2] not in k_streams]
+
+    def overlaps(c, others):
+        return any(a < c[1] and c[0] < b for a, b, _ in others)
+
+    scans = spans("kernel", but="at::native")
+    host_ops = spans("cpu_op")
+
+    def next_fill(c):
+        return [f for f in fills if f[0] > c[0]]
+
+    with_kernel = sum(overlaps(c, kernels) for c in copies)
+    with_scan = sum(overlaps(c, scans) for c in copies)
+    with_fill = sum(overlaps(c, next_fill(c)) for c in copies)
+    with_either = sum(overlaps(c, kernels) or overlaps(c, next_fill(c))
+                      for c in copies)
+    with_host = sum(any(c[0] < a < c[1] for a, _, _ in host_ops)
+                    for c in copies)
+    return {"result": got, "wall_ms": wall, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / 1e3 / wall,
+            "kernels": len(kernels), "host_fills": len(fills),
+            "copy_stream_h2d": len(copies),
+            "h2d_ms": sum(b - a for a, b, _ in copies) / 1e3,
+            "scan_kernels": len(scans),
+            "h2d_overlapping_kernel": with_kernel,
+            "h2d_overlapping_scan_kernel": with_scan,
+            "h2d_overlapping_next_fill": with_fill,
+            "h2d_overlapping_either": with_either,
+            "h2d_overlapping_host_work": with_host}
+
+
+def is_prime(n: int) -> bool:
+    return n > 1 and all(n % d for d in range(2, int(n ** 0.5) + 1))
+
+
+def phase_staging(act, build, machine, sc, sc1, text: bytes, n: int,
+                  ranked) -> dict:
+    """The staging ring (models/staging.py) on the slice: the upload
+    floors of its bytes; count() from bytes, best of STAGING_RUNS, each
+    run equal to the host oracle, beside the floors; the profile's
+    evidence of overlap; the sweep of the pipeline's chunk and ring depth
+    (and the count without the pipeline), exact at every point; a
+    stale-slot case (a count of depth + 2 chunks of keywords, then one
+    whose short last chunk lands in a slot that held keywords); the slice
+    as a str through a machine of the same words as str keywords (int32
+    code points through the pipeline) and a step_k=1 scanner's count
+    (K1's raw form through it); find_matches() and the sessions' chunks.
+    The main path's part runs with the launch counters set to 0 just
+    before it and read just after."""
+    raw = np.frombuffer(text, np.uint8).copy()
+    C, depth = sc._pipeline_chunk, sc._pipeline_depth
+    floors = upload_floors(raw, sc._stager.slot_bytes, depth)
+    chunks = session_chunks(text)
+    keywords = b"".join(ranked[:N_KEYWORDS])
+    dense = (keywords * (((depth + 2) * C) // len(keywords) + 1))[
+        :(depth + 1) * C + C // 2]
+    short_len = 2 * C + C // 3
+    while not is_prime(short_len):
+        short_len += 1
+    short = dense[:short_len]
+    want = {name: machine.match_stream(machine.initiate(), t,
+                                       parallel=False)
+            for name, t in (("dense", dense), ("short", short))}
+    as_str = text.decode()
+    str_sc = keyword_machine(act, [w.decode() for w in ranked[:N_KEYWORDS]]
+                             ).scanner(n_streams=N_STREAMS)
+
+    def run():
+        out = {"count": [sc.count(text) for _ in range(2)],
+               "str": str_sc.count(as_str), "step_k1": sc1.count(text)}
+        used = sc._stager.slots_used
+        out["dense"] = sc.count(dense)
+        out["short"] = sc.count(short)
+        out["slots"] = sc._stager.slots_used - used
+        t0 = time.perf_counter()
+        out["find_matches"] = len(sc.find_matches(text))
+        out["find_matches_ms"] = (time.perf_counter() - t0) * 1e3
+        s = sc.session()
+        t0 = time.perf_counter()
+        for ch in chunks:
+            s.feed_count(ch)
+        out["sessions_ms"] = (time.perf_counter() - t0) * 1e3
+        out["sessions"] = s.total
+        return out
+
+    got, launches = driven(build, ("ac_stepped_count", "ac_dense_count",
+                                   "ac_stepped_emit"), "staging", run)
+    check(got["count"] == [n, n] and got["str"] == n
+          and got["step_k1"] == n, f"staged counts {got['count']}, str "
+          f"{got['str']}, step_k=1 {got['step_k1']} equal {n}")
+    check(got["dense"] == want["dense"] and got["short"] == want["short"],
+          f"stale-slot case: {got['dense']}, {got['short']} equal the host "
+          f"oracle {want['dense']}, {want['short']}")
+    check(got["find_matches"] == n and got["sessions"] == n,
+          f"find_matches {got['find_matches']}, sessions {got['sessions']}"
+          f" equal {n}")
+
+    runs, counts = wall_ms(lambda: sc.count(text), STAGING_RUNS)
+    check(counts == [n] * STAGING_RUNS, f"count() runs {counts} equal {n}")
+    best = min(runs)
+    overlap = overlap_profile(build, lambda: sc.count(text))
+    check(overlap.pop("result") == n, "the profiled count equals the oracle")
+    check(overlap["h2d_overlapping_either"] >= 1, "a copy of the copy "
+          "stream overlaps a kernel or the next chunk's host fill")
+    pageable = floors["pageable_upload"]["best_ms"]
+    check(best < pageable, f"count() from bytes {best:.2f} ms beats the "
+          f"pageable upload alone of the same bytes {pageable:.2f} ms")
+
+    sweep = []
+    for c, d in [(c, d) for c in STAGING_CHUNKS for d in STAGING_DEPTHS] + [
+            (None, depth)]:
+        s = act.DenseScanner(machine, n_streams=N_STREAMS, snapshot=sc._snap)
+        if c is None:   # no pipeline: one staged upload and one launch
+            s._pipeline_min = len(text) + 1
+        else:
+            s._pipeline_chunk, s._pipeline_depth = c, d
+        check(s.count(text) == n, f"sweep chunk {c} depth {d} (warm-up)")
+        sweep.append({"chunk": c, "depth": d, "scanner": s, "runs_ms": []})
+    # the points in turns, so that a slow spell of the host falls on all
+    for _ in range(STAGING_ROUNDS):
+        for point in sweep:
+            t0 = time.perf_counter()
+            got_n = point["scanner"].count(text)
+            point["runs_ms"].append((time.perf_counter() - t0) * 1e3)
+            check(got_n == n, f"sweep chunk {point['chunk']} depth "
+                  f"{point['depth']}: {got_n} equals {n}")
+    for point in sweep:
+        del point["scanner"]
+        point["best_ms"] = min(point["runs_ms"])
+        point["median_ms"] = float(np.median(point["runs_ms"]))
+        point["exact"] = True
+
+    def feed_all():
+        s = sc.session()
+        for ch in chunks:
+            s.feed_count(ch)
+        return s.total
+
+    find_ms, found = wall_ms(lambda: len(sc.find_matches(text)), 2)
+    sess_ms, totals = wall_ms(feed_all, 2)
+    check(found == totals == [n, n], f"timed find_matches {found} and "
+          f"sessions {totals} equal {n}")
+    res = {"bytes": len(text), "chunk": C, "depth": depth,
+           "slot_bytes": sc._stager.slot_bytes, "floors": floors,
+           "count": {"best_ms": best, "runs_ms": runs, "equal_oracle": True,
+                     "share_of_staging_floor_rate":
+                         floors["staging_floor_ms"] / best,
+                     "faster_than_pageable_upload": best < pageable},
+           "overlap": overlap, "sweep": sweep,
+           "stale_slot": {"dense_bytes": len(dense), "dense": got["dense"],
+                          "short_bytes": short_len, "short": got["short"],
+                          "slots_taken": got["slots"],
+                          "pad_zeroed_bytes": sc._stager.pad_zeroed,
+                          "equal_oracle": True},
+           "str": got["str"], "step_k1": got["step_k1"],
+           "find_matches": {"matches": got["find_matches"],
+                            "first_ms": got["find_matches_ms"],
+                            "runs_ms": find_ms},
+           "sessions": {"chunks": len(chunks), "total": got["sessions"],
+                        "first_ms": got["sessions_ms"], "runs_ms": sess_ms},
+           "launches": launches}
+    print(f"staging: count() from bytes best {best:.2f} ms of "
+          f"{', '.join(f'{t:.2f}' for t in runs)}; floors: pageable "
+          f"{pageable:.2f}, pinned {floors['pinned_upload']['best_ms']:.2f},"
+          f" host fill {floors['host_fill']['best_ms']:.2f} ms (numpy "
+          f"{floors['host_fill_numpy']['best_ms']:.2f}); "
+          f"{res['count']['share_of_staging_floor_rate']:.3f} of the staging"
+          f" floor's rate; overlap {overlap}", flush=True)
+    return res
 
 
 def took(build, fn):
@@ -2717,6 +3018,11 @@ def main() -> int:
           f" s = {mib / min(find_times):.1f} MiB/s; {len(ms)} matches",
           flush=True)
 
+    # the staging ring: floors, overlap, sweep, stale slots
+    t0 = time.perf_counter()
+    staging = phase_staging(act, build, machine, sc, sc1, text, n, ranked)
+    print(f"staging phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 5. K5 and K6 against their plain versions at config 3's shapes
     t0 = time.perf_counter()
     m3, docs = config3_setup(act)
@@ -2794,6 +3100,7 @@ def main() -> int:
             print(f"ptxas: {name}: {regs} registers, spill {st_b} bytes "
                   f"stored, {ld_b} loaded", flush=True)
 
+    print(json.dumps({"staging": staging}), flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[entry],

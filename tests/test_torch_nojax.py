@@ -6,13 +6,14 @@ golden flow, then a ByteMachine through save_machine/load_machine, a
 session, count_many (raw bytes and a resident tensor), refresh(), a
 prefilter scanner's count and find_matches (raw bytes, host ids and a
 tensor) and scan_states_sequential, an ``engine="mxu"`` and an
-``engine="hybrid"`` count and a ``calibrate=True`` scanner, a mesh of CPU
+``engine="hybrid"`` count (each staged through the scanner's ring,
+``models/staging.py``) and a ``calibrate=True`` scanner, a mesh of CPU
 shards (a ShardedScanner's count, also of a ShardedTensor, find_matches and
 a bounded session), the associative scan and the utils. Then no module
 of the JAX package may be loaded, by name or by file: the port keeps its
 own copies of the host modules it needs, and its native core builds in
-the port's build directory. The card's scripts, ``chip_smoke.py`` and
-``probe_mxu_rows.py``, import neither and refuse to run without CUDA. The
+the port's build directory. The card's scripts, ``chip_smoke.py`` and the
+``probe_*.py`` scripts, import neither and refuse to run without CUDA. The
 examples of ``examples_torch/`` import neither (nor ``examples/``) and run
 on the CPU with every such import blocked.
 """
@@ -90,6 +91,9 @@ SCRIPT = textwrap.dedent("""
     for engine in ("mxu", "hybrid"):
         se = m.scanner(device="cpu", engine=engine, n_streams=4)
         assert se.count(text) == 9 and se.count(text * 40) == 360
+    from aho_corasick_1975_tpu_torch.models import staging
+    assert isinstance(se._stager, staging.Stager)
+    assert se._stager.slots_used > 0 and sp._stager.slots_used > 0
     import os
     import tempfile
     from aho_corasick_1975_tpu_torch.core import native
@@ -170,12 +174,13 @@ CHIP_SCRIPT = textwrap.dedent("""
 
 
 def test_chip_scripts_refuse_without_cuda_and_import_no_jax():
-    """chip_smoke.py, probe_mxu_rows.py and probe_k7_dense.py import
-    neither JAX nor the JAX package, and their main() returns 1 where torch
-    sees no CUDA."""
+    """chip_smoke.py, probe_mxu_rows.py, probe_k7_dense.py and
+    probe_staging.py import neither JAX nor the JAX package, and their
+    main() returns 1 where torch sees no CUDA."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    for name in ("chip_smoke", "probe_mxu_rows", "probe_k7_dense"):
+    for name in ("chip_smoke", "probe_mxu_rows", "probe_k7_dense",
+                 "probe_staging"):
         proc = subprocess.run([sys.executable, "-c", CHIP_SCRIPT, ROOT, name],
                               capture_output=True, text=True, timeout=120,
                               cwd=ROOT, env=env)
