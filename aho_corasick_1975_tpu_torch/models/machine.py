@@ -1,7 +1,10 @@
 """The flagship model: a generic-alphabet Aho–Corasick machine.
 
-The port's copy of ``aho_corasick_1975_tpu/models/machine.py``, unchanged:
-``scanner()`` imports ``.scanner``, which here is the port's scanner.
+The port's copy of ``aho_corasick_1975_tpu/models/machine.py``:
+``scanner()`` imports ``.scanner``, which here is the port's scanner, and
+``insert_keywords`` and ``compile`` are spans of utils/profiling.py
+(``ac.insert`` and its ``ac.insert.vocab``; ``ac.compile`` when it
+emits).
 
 Public object-API equivalent of the reference's 12 exported symbols
 (aho_corasick.h:45-98; see also the thin functional shim in ``api.py``):
@@ -39,6 +42,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, IO, List, Optional
 
 from ..core.builder import Builder, DenseTables, ROOT
+from ..utils import profiling
 from ..utils.vocab import Vocab
 
 
@@ -167,11 +171,16 @@ class Machine:
                         ) -> List[Any]:
         """Bulk-register many keywords; returns the previous value per
         keyword (None where fresh), following the duplicate protocol."""
-        with self._lock:
-            return self._insert_keywords_locked(keywords, values)
+        with profiling.span("ac.insert") as sp, self._lock:
+            with profiling.span("ac.insert.vocab"):
+                id_lists = [[self.vocab.register(s) for s in kw]
+                            for kw in keywords]
+            if sp:
+                sp.note("keywords", len(id_lists))
+                sp.note("letters", sum(map(len, id_lists)))
+            return self._insert_keywords_locked(id_lists, values)
 
-    def _insert_keywords_locked(self, keywords, values):
-        id_lists = [[self.vocab.register(s) for s in kw] for kw in keywords]
+    def _insert_keywords_locked(self, id_lists, values):
         if any(not ids for ids in id_lists):
             raise ValueError("empty keyword (ref c:345)")
         b = self._b
@@ -340,7 +349,9 @@ class Machine:
             if (c is not None and c.version == self._b.version
                     and c.vocab_size == self.vocab.size):
                 return c
-            tabs = self._b.emit_tables(vocab_size=self.vocab.size)
+            with profiling.span("ac.compile") as sp:
+                tabs = self._b.emit_tables(vocab_size=self.vocab.size)
+                sp.note("states", tabs.n_states)
             self._compiled = tabs
             return tabs
 

@@ -1,6 +1,7 @@
 """Columnar match results — C-speed retrieval at TPU-scale match counts.
 
-The port's copy of ``aho_corasick_1975_tpu/models/results.py``, unchanged.
+The port's copy of ``aho_corasick_1975_tpu/models/results.py``; the lazy
+columns' gathers are ``ac.decode`` spans (utils/profiling.py).
 
 The reference streams matches one at a time through ``acm_get_match``
 (aho_corasick.c:450-482): a fail-chain walk plus a backward
@@ -28,6 +29,7 @@ from typing import Any, List, Sequence
 import numpy as np
 
 from ..ops.decode import MatchEvent
+from ..utils import profiling
 
 
 class MatchSet(Sequence):
@@ -65,20 +67,27 @@ class MatchSet(Sequence):
     @property
     def lengths(self) -> np.ndarray:
         if self._lengths is None:
-            self._lengths = self.tables.depth[self.end_states]
+            with profiling.span("ac.decode") as sp:
+                sp.note("events", len(self))
+                self._lengths = self.tables.depth[self.end_states]
         return self._lengths
 
     @property
     def starts(self) -> np.ndarray:
         if self._starts is None:
-            self._starts = self.ends - self.lengths + 1
+            lengths = self.lengths
+            with profiling.span("ac.decode") as sp:
+                sp.note("events", len(self))
+                self._starts = self.ends - lengths + 1
         return self._starts
 
     @property
     def ranks(self) -> np.ndarray:
         """Keyword rank per event (insertion order id of the keyword)."""
         if self._ranks is None:
-            self._ranks = self.tables.kw_rank[self.end_states]
+            with profiling.span("ac.decode") as sp:
+                sp.note("events", len(self))
+                self._ranks = self.tables.kw_rank[self.end_states]
         return self._ranks
 
     def match_for(self, end_state: int):

@@ -50,13 +50,19 @@ Host inputs reach the card through the scanner's staging ring
 copies from pageable memory and the host waits on no copy but a slot's
 last; a large raw input is counted in chunks, each chunk's upload
 enqueued before the previous chunk's scan.
+
+``count``, ``find_matches`` and ``refresh`` are the root spans ``ac.count``,
+``ac.find_matches`` and ``ac.refresh`` of utils/profiling.py, whose
+children are the staging, the launches, the refinement (``ac.refine``), the
+read-back (``ac.readback``), the decode (``ac.decode``), the compile, the
+snapshot's diff, rebuild and uploads; ``stats["last_op"]`` names the path
+the last call took.
 """
 
 from __future__ import annotations
 
 import functools
 import threading
-import time
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -71,6 +77,7 @@ from ..ops.multistep import (emit_warm_steps_for, pack, stepped_count,
                              stepped_count_many_2t, warm_steps_for)
 from ..ops.scan_dense import (dense_count, dense_count_many, dense_states,
                               lookup, sequential_states)
+from ..utils import profiling
 from .results import MatchSet
 from .snapshot import DeviceSnapshot
 from .staging import Stager
@@ -390,19 +397,24 @@ class DenseScanner:
         dictionary from their next chunk on. The refresh holds the dispatch
         lock, so no scan of this scanner runs against half-written
         tables."""
-        t0 = time.perf_counter()
-        new = self.machine.compile()
-        if new.version == self.tables.version:
-            return True
-        with self._dispatch:
-            status = self._snap.refresh(new)
-            self._refresh_halo()
-            self._bind()
-        rows = self._snap.last_refresh.get("rows", 0)
-        self._record("refresh", rows, time.perf_counter() - t0)
+        with profiling.span("ac.refresh") as sp:
+            new = self.machine.compile()
+            if new.version == self.tables.version:
+                sp.note("outcome", "noop")
+                return True
+            with self._dispatch:
+                status = self._snap.refresh(new)
+                self._refresh_halo()
+                self._bind()
+            rows = self._snap.last_refresh.get("rows", 0)
+            cells = self._snap.last_refresh.get("cells", 0)
+            sp.note("outcome", status)
+            sp.note("rows", rows)
+            sp.note("cells", cells)
+        self._record("refresh")
         self.stats["refresh_rows"] = rows
-        self.stats["refresh_cells"] = self._snap.last_refresh.get("cells", 0)
-        return status != "rebuild"
+        self.stats["refresh_cells"] = cells
+        return not status.startswith("rebuild")
 
     def _refresh_halo(self) -> None:
         """Grow an automatic halo when a new keyword outgrows it, rounded up
@@ -523,7 +535,6 @@ class DenseScanner:
         """states[t] after consuming symbol t, for the whole stream (K2)."""
         if len(signs) == 0:
             return np.zeros(0, dtype=np.int32)
-        t0 = time.perf_counter()
         # The LUT and the tables are read under the lock: refresh() swaps
         # them.
         with self._dispatch:
@@ -533,21 +544,21 @@ class DenseScanner:
             out = dense_states(self._snap.dflat, self.V, self.halo, B, L,
                                ext, lut, head_ids, **self._dense_fields())
             out = out[:T].cpu().numpy()
-        self._record("scan_states", T, time.perf_counter() - t0)
+        self._record("scan_states")
         return out
 
     def count(self, signs, head=None) -> int:
         """Total number of keyword occurrences in the stream."""
         if len(signs) == 0:
             return 0
-        t0 = time.perf_counter()
-        with self._dispatch:
+        with profiling.span("ac.count") as sp, self._dispatch:
+            sp.note("symbols", len(signs))
             raw = self._raw_stream(signs)
             if self._prefilter != "off":
                 n = self._count_prefilter(signs, raw, head)
             else:
                 n = self._count_dense(signs, raw, head)
-        self._record("count", len(signs), time.perf_counter() - t0)
+        self._record("count")
         return n
 
     def _count_dense(self, signs, raw, head) -> int:
@@ -872,7 +883,6 @@ class DenseScanner:
         n = len(docs)
         if n == 0:
             return np.zeros(0, dtype=np.int64)
-        t0 = time.perf_counter()
         out = np.zeros(n, dtype=np.int64)
         with self._dispatch:
             unit = 128 * (self._stepped.k if self._stepped is not None
@@ -887,8 +897,7 @@ class DenseScanner:
                 self._guard_acc(L)
                 out[idx] = self._count_many_launch(
                     [docs_arrs[i] for i in idx], L, ent)
-        self._record("count_many" if ent is None else "count_many_raw",
-                     int(lengths.sum()), time.perf_counter() - t0)
+        self._record("count_many" if ent is None else "count_many_raw")
         return out
 
     def _raw_docs(self, docs):
@@ -925,12 +934,11 @@ class DenseScanner:
             raise ValueError(
                 f"device-resident letter ids fall outside [0, {self.V})")
         L, B = tm.shape
-        t0 = time.perf_counter()
         tm = tm.to(device=self.device, dtype=torch.int32).contiguous()
         with self._dispatch:
             self._guard_acc(L)
             out = self._count_many_kernel(tm, L, B)
-        self._record("count_many_device", L * B, time.perf_counter() - t0)
+        self._record("count_many_device")
         return out
 
     @staticmethod
@@ -1016,15 +1024,20 @@ class DenseScanner:
         match."""
         # Under the lock from the scan to the decode: refresh() swaps the
         # tables both read.
-        with self._dispatch:
+        with profiling.span("ac.find_matches") as sp, self._dispatch:
+            sp.note("symbols", len(signs))
             if (max_hits is not None or self._snap.packed is not None
                     or self._prefilter != "off"):
-                return self._find_matches_device(signs, offset, head,
-                                                 max_hits)
-            states = self.scan_states(signs, head=head)
-            ends, end_states, idx = decode_matches_arrays(
-                states, self.tables, offset)
-            return MatchSet(self.machine, self.tables, ends, end_states, idx)
+                out = self._find_matches_device(signs, offset, head,
+                                                max_hits)
+            else:
+                states = self.scan_states(signs, head=head)
+                ends, end_states, idx = decode_matches_arrays(
+                    states, self.tables, offset)
+                out = MatchSet(self.machine, self.tables, ends, end_states,
+                               idx)
+            sp.note("events", len(out))
+        return out
 
     def _empty_matches(self) -> MatchSet:
         return MatchSet(self.machine, self.tables, np.zeros(0, np.int64),
@@ -1033,7 +1046,6 @@ class DenseScanner:
     def _find_matches_device(self, signs, offset, head, max_hits):
         if len(signs) == 0:
             return self._empty_matches()
-        t0 = time.perf_counter()
         raw = self._raw_stream(signs)
         if max_hits is not None:
             max_hits = int(max_hits)
@@ -1043,8 +1055,7 @@ class DenseScanner:
             else:
                 out = self._sparse_hits(signs, offset, head, max_hits, raw)
             if out is not None:
-                self._record("find_matches_sparse", len(signs),
-                             time.perf_counter() - t0)
+                self._record("find_matches_sparse")
                 return out
         auto = max_hits is None
         _guard_pos32(len(raw[0]) if raw is not None else len(signs))
@@ -1067,8 +1078,7 @@ class DenseScanner:
                     snap.dflat, snap.nb_out, self.V, self.halo, B, L, ext,
                     lut, head_ids, max_hits=max_hits, **self._dense_fields())
                 out = self._hits_matchset(positions, sts, T, offset)
-                self._record("find_matches_device", T,
-                             time.perf_counter() - t0)
+                self._record("find_matches_device")
                 return out
             ext, lut, head_ids, B, L, T = self._stage(
                 signs, raw, head, self._halo_sym, 128 * st.k)
@@ -1078,6 +1088,7 @@ class DenseScanner:
                 snap.packed, st.V, st.k, st.count_bits, self._halo_steps, B,
                 L, ext, lut, head_ids, warm_steps=self._emit_warm)
             n_live = int(n_live_dev.sum(dtype=torch.int64))
+            profiling.note("n_live", n_live)
             if not auto and n_live > max_hits:
                 raise ValueError(
                     f"at least {n_live} matching positions exceed "
@@ -1098,41 +1109,56 @@ class DenseScanner:
                 else:
                     out_size = min(max_hits, cap * st.k)
                 body = ext[self._halo_sym:]
-                # Past 1/8 live grams refining every position beats
-                # compacting the live ones (the JAX package's threshold).
-                pk1 = self._pk1()
-                if pk1 is not None and n_live * 8 > (B * L) // st.k:
-                    syms = body.long() if lut is None else lookup(lut, body)
-                    pk1, cb1 = pk1
-                    positions, sts, n_hit_pos = hits_extract_dense(
-                        st.V, st.k, st.count_bits, cb1, out_size, pk1, emit,
-                        syms)
-                else:
-                    positions, sts, n_hit_pos = hits_extract(
-                        st.V, st.k, st.count_bits, cap, out_size, emit,
-                        (lambda p: body[p].long()) if lut is None
-                        else (lambda p: lookup(lut, body[p])),
-                        snap.dflat, snap.nb_out)
-                positions = positions.cpu().numpy()
-                sts = sts.cpu().numpy()
-        keep = (positions >= 0) & (positions < T)
-        positions, sts = positions[keep], sts[keep]
+                with profiling.span("ac.refine") as rsp:
+                    rsp.note("out_size", out_size)
+                    # Past 1/8 live grams refining every position beats
+                    # compacting the live ones (the JAX package's
+                    # threshold).
+                    pk1 = self._pk1()
+                    if pk1 is not None and n_live * 8 > (B * L) // st.k:
+                        syms = (body.long() if lut is None
+                                else lookup(lut, body))
+                        pk1, cb1 = pk1
+                        positions, sts, n_hit_pos = hits_extract_dense(
+                            st.V, st.k, st.count_bits, cb1, out_size, pk1,
+                            emit, syms)
+                    else:
+                        positions, sts, n_hit_pos = hits_extract(
+                            st.V, st.k, st.count_bits, cap, out_size, emit,
+                            (lambda p: body[p].long()) if lut is None
+                            else (lambda p: lookup(lut, body[p])),
+                            snap.dflat, snap.nb_out)
+                positions, sts = self._read_back(positions, sts)
         if not auto and n_hit_pos > max_hits:
             raise max_hits_error(n_hit_pos, max_hits)
-        order = np.argsort(positions, kind="stable")
-        ends, end_states, idx = expand_hits_arrays(
-            positions[order], sts[order], self.tables, offset)
-        self._record("find_matches_device", T, time.perf_counter() - t0)
+        with profiling.span("ac.decode") as dsp:
+            keep = (positions >= 0) & (positions < T)
+            positions, sts = positions[keep], sts[keep]
+            order = np.argsort(positions, kind="stable")
+            ends, end_states, idx = expand_hits_arrays(
+                positions[order], sts[order], self.tables, offset)
+            dsp.note("events", len(ends))
+        self._record("find_matches_device")
         return MatchSet(self.machine, self.tables, ends, end_states, idx)
+
+    @staticmethod
+    def _read_back(positions: torch.Tensor, states: torch.Tensor):
+        """The hits' positions and states as host arrays: the host waits
+        here for the scan and the refinement that make them."""
+        with profiling.span("ac.readback") as sp:
+            sp.note("bytes", positions.nbytes + states.nbytes)
+            return positions.cpu().numpy(), states.cpu().numpy()
 
     def _hits_matchset(self, positions: torch.Tensor, states: torch.Tensor,
                        T: int, offset: int) -> MatchSet:
         """MatchSet of K8's hits (stream order), those at positions past
         the stream's T symbols dropped."""
-        positions = positions.cpu().numpy()
-        keep = positions < T
-        ends, end_states, idx = expand_hits_arrays(
-            positions[keep], states.cpu().numpy()[keep], self.tables, offset)
+        positions, states = self._read_back(positions, states)
+        with profiling.span("ac.decode") as sp:
+            keep = positions < T
+            ends, end_states, idx = expand_hits_arrays(
+                positions[keep], states[keep], self.tables, offset)
+            sp.note("events", len(ends))
         return MatchSet(self.machine, self.tables, ends, end_states, idx)
 
     # -- sparse prefilter: retrieval -----------------------------------------
@@ -1256,14 +1282,10 @@ class DenseScanner:
                 self._snap.dflat, self.V, self._stager.upload(ids),
                 n_states=self.tables.n_states).cpu().numpy()
 
-    def _record(self, op: str, n_symbols: int, seconds: float) -> None:
+    def _record(self, op: str) -> None:
+        """The path the last public call took (``stats["last_op"]``); its
+        time is the ``ac.*`` spans' (utils/profiling.py)."""
         self.stats["last_op"] = op
-        self.stats["last_symbols"] = n_symbols
-        self.stats["last_seconds"] = seconds
-        self.stats["last_symbols_per_sec"] = (
-            n_symbols / seconds if seconds > 0 else float("inf"))
-        self.stats["total_symbols"] = (
-            self.stats.get("total_symbols", 0) + n_symbols)
 
 
 class StreamSession:

@@ -29,6 +29,7 @@ import torch
 from ..core.builder import round_cap
 from ..ops import multistep
 from ..ops.multistep import SteppedTables, choose_k, stepped_delta_cells
+from ..utils import profiling
 
 
 class DeviceSnapshot:
@@ -57,9 +58,13 @@ class DeviceSnapshot:
 
     def place(self, a: np.ndarray, device=None) -> torch.Tensor:
         """Synchronous upload of a host array to ``device`` (default: the
-        snapshot's device)."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device if device is None else device)
+        snapshot's device): every table upload and scatter goes through
+        here, the span ``ac.upload``."""
+        with profiling.span("ac.upload") as sp:
+            a = np.ascontiguousarray(a)
+            sp.note("bytes", a.nbytes)
+            return torch.from_numpy(a).to(
+                self.device if device is None else device)
 
     def _table(self, a: np.ndarray) -> torch.Tensor:
         """An int32 table's own copy on the device. On the CPU ``place``
@@ -88,8 +93,14 @@ class DeviceSnapshot:
 
     def _build(self, tables) -> None:
         """The tables of ``_build_tables`` on the snapshot's device, then
-        their replicas."""
-        self._build_tables(tables)
+        their replicas. The host work is the span ``ac.snapshot.build``,
+        its uploads (``place``) its children."""
+        with profiling.span("ac.snapshot.build") as sp:
+            self._build_tables(tables)
+            if sp:
+                sp.note("bytes", sum(getattr(self, n).nbytes
+                                     for n in self._TABLES
+                                     if getattr(self, n) is not None))
         self._replicate()
 
     def _build_tables(self, tables) -> None:
@@ -210,54 +221,63 @@ class DeviceSnapshot:
 
         Returns "noop" (same content), "inplace" (row and cell scatter into
         the device tables, both k-gram tables in the two-table form), or
-        "rebuild" (a full rebuild: vocabulary growth, state capacity,
-        packed count width, or a delta past a quarter of the k-gram
-        table). The scatters are enqueued on the
+        "rebuild:<reason>", a full rebuild for its reason: "vocab"
+        (vocabulary growth), "cap" (state capacity), "count_bits" (the
+        packed entry's width), or "delta" (a delta past a quarter of the
+        k-gram table). The row diff and the k-gram delta are the span
+        ``ac.refresh.diff``. The scatters are enqueued on the
         device's current stream; the caller serialises this against scans
         (the scanner's dispatch lock), so a scan on that stream sees either
         the old tables or the new ones."""
         old = self.tables
         t0 = time.perf_counter()
         self.last_refresh = {}
-        if new.vocab_size != self.V or new.n_states > self.cap:
-            self._build(new)
-            return "rebuild"
+        if new.vocab_size != self.V:
+            return self._rebuild(new, "vocab")
+        if new.n_states > self.cap:
+            return self._rebuild(new, "cap")
 
         S_old, S_new = old.n_states, new.n_states
-        changed = np.zeros(S_new, dtype=bool)
-        changed[:S_old] = (
-            np.any(old.delta != new.delta[:S_old], axis=1)
-            | (old.nb_outputs != new.nb_outputs[:S_old]))
-        changed[S_old:] = True
-        rows1 = np.flatnonzero(changed)
-        if not len(rows1):
-            self.tables = new
-            return "noop"
+        with profiling.span("ac.refresh.diff") as sp:
+            changed = np.zeros(S_new, dtype=bool)
+            changed[:S_old] = (
+                np.any(old.delta != new.delta[:S_old], axis=1)
+                | (old.nb_outputs != new.nb_outputs[:S_old]))
+            changed[S_old:] = True
+            rows1 = np.flatnonzero(changed)
+            sp.note("rows", len(rows1))
+            if not len(rows1):
+                self.tables = new
+                return "noop"
 
-        n_cells = 0
-        cell_update = None
-        st = self.stepped
-        if st is not None:
-            cells, land, cnt = stepped_delta_cells(old, new, st.k)
-            n_cells = len(cells)
-            # Past a quarter of the table a rebuild beats the scatter (the
-            # JAX package's measured rule); below 64k cells stay in place.
-            if n_cells > max(S_new * st.Vk // 4, 1 << 16):
-                self._build(new)
-                return "rebuild"
-            if self.packed is not None:
-                max_cnt = int(cnt.max()) if cnt.size else 0
-                state_bits = max(1, int(S_new - 1).bit_length())
-                if (max_cnt.bit_length() > st.count_bits
-                        or state_bits + st.count_bits > 31):
-                    self._build(new)
-                    return "rebuild"
-                cell_update = [("packed", (
-                    (land.astype(np.int64) << st.count_bits)
-                    | cnt).astype(np.int32))]
-            else:
-                cell_update = [("delta_k", land),
-                               ("cnt_k", cnt.astype(np.int32))]
+            n_cells = 0
+            cell_update = None
+            rebuild = None
+            st = self.stepped
+            if st is not None:
+                cells, land, cnt = stepped_delta_cells(old, new, st.k)
+                n_cells = len(cells)
+                sp.note("cells", n_cells)
+                # Past a quarter of the table a rebuild beats the scatter
+                # (the JAX package's measured rule); below 64k cells stay
+                # in place.
+                if n_cells > max(S_new * st.Vk // 4, 1 << 16):
+                    rebuild = "delta"
+                elif self.packed is not None:
+                    max_cnt = int(cnt.max()) if cnt.size else 0
+                    state_bits = max(1, int(S_new - 1).bit_length())
+                    if (max_cnt.bit_length() > st.count_bits
+                            or state_bits + st.count_bits > 31):
+                        rebuild = "count_bits"
+                    else:
+                        cell_update = [("packed", (
+                            (land.astype(np.int64) << st.count_bits)
+                            | cnt).astype(np.int32))]
+                else:
+                    cell_update = [("delta_k", land),
+                                   ("cnt_k", cnt.astype(np.int32))]
+        if rebuild is not None:
+            return self._rebuild(new, rebuild)
 
         self._scatter("dflat", rows1, new.delta[rows1], self.V)
         self._scatter("nb_out", rows1, new.nb_outputs[rows1], 1)
@@ -268,6 +288,10 @@ class DeviceSnapshot:
         self.last_refresh = {"rows": int(len(rows1)), "cells": int(n_cells),
                              "seconds": time.perf_counter() - t0}
         return "inplace"
+
+    def _rebuild(self, new, reason: str) -> str:
+        self._build(new)
+        return f"rebuild:{reason}"
 
     def _scatter(self, name: str, rows: np.ndarray, vals: np.ndarray,
                  width: int) -> None:

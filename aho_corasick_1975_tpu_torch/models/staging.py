@@ -46,6 +46,10 @@ tensor filled by ``upload_into`` needs no such mark: the compute stream,
 whose pool it returns to, waits on the copies before ``upload_into``
 returns.
 
+The host's wait for a slot's last copy (``_take``) is the span
+``ac.stage.wait``, and the host fill of a slot the span ``ac.stage.fill``
+(utils/profiling.py).
+
 On a CUDA device the slots are pinned and there is no fallback: if pinning
 or the stream fails, the error is raised, and nothing is ever staged from
 pageable memory. On the CPU (the tests) the slots and device buffers are
@@ -57,6 +61,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 _ALIGN = 16   # bytes: where ``ext`` starts in a slot, after the head ids
 
@@ -150,8 +156,10 @@ class Stager:
         """The next slot in ring order, once its last copy is done."""
         slot = self._slots[self.slots_used % self.depth]
         self.slots_used += 1
-        if self._cuda:
-            slot.copied.synchronize()
+        with profiling.span("ac.stage.wait") as sp:
+            sp.note("slot", slot.index)
+            if self._cuda:
+                slot.copied.synchronize()
         return slot
 
     def _device_buffer(self, slot: _Slot) -> torch.Tensor:
@@ -196,9 +204,11 @@ class Stager:
             self._grow(end)
         slot = self._take()
         used = at + (halo + len(body)) * item
-        slot.host_np[:4 * halo].view(np.int32)[:] = head_ids
-        slot.host_np[at:at + halo * item] = 0
-        _fill(slot.host[at + halo * item:used], body.view(np.uint8))
+        with profiling.span("ac.stage.fill") as sp:
+            sp.note("bytes", used)
+            slot.host_np[:4 * halo].view(np.int32)[:] = head_ids
+            slot.host_np[at:at + halo * item] = 0
+            _fill(slot.host[at + halo * item:used], body.view(np.uint8))
         self._send(self._device_buffer(slot)[:used], slot, used,
                    after_consumed=True)
         slot.chunk = (halo, at, used, end, body.dtype)
@@ -270,7 +280,9 @@ class Stager:
         for a0 in range(0, src.size, self.slot_bytes):
             n = min(self.slot_bytes, src.size - a0)
             slot = self._take()
-            _fill(slot.host[:n], src[a0:a0 + n])
+            with profiling.span("ac.stage.fill") as sp:
+                sp.note("bytes", n)
+                _fill(slot.host[:n], src[a0:a0 + n])
             self._send(out[a0:a0 + n], slot, n, after_consumed=False)
         if self._cuda:
             self._compute().wait_stream(self._copy)

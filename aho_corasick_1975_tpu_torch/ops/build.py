@@ -11,7 +11,9 @@ with g++ for the CPU tests.
 Every launch goes through ``launch()``, which raises on a non-zero
 ``cudaGetLastError()`` and counts the launch per entry point in
 ``launches``, so that a run can show which kernels it went through, and
-keeps the sub-streams per column of each split launch in ``splits``.
+keeps the sub-streams per column of each split launch in ``splits``; the
+library call is the span ``ac.launch`` (utils/profiling.py), and a build
+the span ``ac.build``.
 ``launch_split()`` asks an entry point's launcher for the P it would take,
 without launching.
 """
@@ -29,6 +31,8 @@ import time
 from typing import Dict, Optional
 
 import torch
+
+from ..utils import profiling
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -144,7 +148,8 @@ def build_library(name: str, paths, stages, headers=()) -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
+    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock, \
+            profiling.span("ac.build"):
         fcntl.flock(lock, fcntl.LOCK_EX)
         if os.path.exists(so):
             return so
@@ -272,7 +277,9 @@ def launch(name: str, device: torch.device, form: Optional[str] = None,
     under ``name/form`` when a form is given)."""
     lib = cuda_library()
     args = scan_args(**fields)
-    with torch.cuda.device(device):
+    with profiling.span("ac.launch") as sp, torch.cuda.device(device):
+        sp.note("entry", name)
+        sp.note("form", form)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, name)(ctypes.byref(args), stream)
     if err:

@@ -344,7 +344,7 @@ class ShardedScanner:
             if need > self.halo:
                 self.halo = -(-need // 8) * 8
             self._bind()
-            return status != "rebuild"
+            return not status.startswith("rebuild")
 
     # -- encoding and staging ----------------------------------------------
 
