@@ -1,7 +1,8 @@
 """Columnar match results — C-speed retrieval at TPU-scale match counts.
 
 The port's copy of ``aho_corasick_1975_tpu/models/results.py``; the lazy
-columns' gathers are ``ac.decode`` spans (utils/profiling.py).
+columns' gathers are ``ac.decode`` spans (utils/profiling.py). A retrieval
+decoded on the device hands ``ranks`` in with the other columns.
 
 The reference streams matches one at a time through ``acm_get_match``
 (aho_corasick.c:450-482): a fail-chain walk plus a backward
@@ -24,7 +25,7 @@ keyword (the reference's acm_get_match index order, c:459-466).
 
 from __future__ import annotations
 
-from typing import Any, List, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 
@@ -44,14 +45,17 @@ class MatchSet(Sequence):
     ``indices``     int32 [E]  per-position match index (0 = longest)
     ``lengths``     int32 [E]  keyword length
     ``starts``      int64 [E]  ends - lengths + 1
-    ``ranks``       int32 [E]  keyword rank (insertion order)
+    ``ranks``       int32 [E]  keyword rank (insertion order); given to
+                               the constructor by a retrieval decoded on
+                               the device, else gathered on first read
     """
 
     __slots__ = ("machine", "tables", "ends", "end_states", "indices",
                  "_lengths", "_starts", "_ranks", "_match_cache")
 
     def __init__(self, machine, tables, ends: np.ndarray,
-                 end_states: np.ndarray, indices: np.ndarray):
+                 end_states: np.ndarray, indices: np.ndarray,
+                 ranks: Optional[np.ndarray] = None):
         self.machine = machine
         self.tables = tables
         self.ends = np.asarray(ends, np.int64)
@@ -59,7 +63,7 @@ class MatchSet(Sequence):
         self.indices = np.asarray(indices, np.int32)
         self._lengths = None
         self._starts = None
-        self._ranks = None
+        self._ranks = None if ranks is None else np.asarray(ranks, np.int32)
         self._match_cache: dict = {}
 
     # -- columnar views ------------------------------------------------------

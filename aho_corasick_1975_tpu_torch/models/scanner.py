@@ -49,12 +49,14 @@ Host inputs reach the card through the scanner's staging ring
 (models/staging.py): pinned slots and a copy stream, so that no upload
 copies from pageable memory and the host waits on no copy but a slot's
 last; a large raw input is counted in chunks, each chunk's upload
-enqueued before the previous chunk's scan.
+enqueued before the previous chunk's scan. A retrieval decodes its hits
+into events on the device (ops/decode.py) and reads back only the events'
+columns, through the same ring.
 
 ``count``, ``find_matches`` and ``refresh`` are the root spans ``ac.count``,
 ``ac.find_matches`` and ``ac.refresh`` of utils/profiling.py, whose
 children are the staging, the launches, the refinement (``ac.refine``), the
-read-back (``ac.readback``), the decode (``ac.decode``), the compile, the
+decode (``ac.decode``), the read-back (``ac.readback``), the compile, the
 snapshot's diff, rebuild and uploads; ``stats["last_op"]`` names the path
 the last call took.
 """
@@ -68,7 +70,8 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.decode import decode_matches_arrays, expand_hits_arrays
+from ..ops.decode import (DecodeTables, decode_matches_arrays,
+                          expand_hits_device)
 from ..ops import autotune, scan_hybrid, scan_mxu, sparse
 from ..ops.hits import (dense_hits, hits_extract, hits_extract_dense,
                         max_hits_error, stepped_emit, window_hits)
@@ -271,6 +274,7 @@ class DenseScanner:
         self._device_encode_max_cp = int(device_encode_max_cp)
         self._lut_cache: dict = {}
         self._pk1_cache = None
+        self._dec_cache = None
         self._ring: Optional[Stager] = None
         self._bind()
         if calibrate and engine == "auto":
@@ -1031,13 +1035,20 @@ class DenseScanner:
                 out = self._find_matches_device(signs, offset, head,
                                                 max_hits)
             else:
-                states = self.scan_states(signs, head=head)
-                ends, end_states, idx = decode_matches_arrays(
-                    states, self.tables, offset)
-                out = MatchSet(self.machine, self.tables, ends, end_states,
-                               idx)
+                out = self._host_matchset(
+                    self.scan_states(signs, head=head), offset)
             sp.note("events", len(out))
         return out
+
+    def _host_matchset(self, states: np.ndarray, offset: int) -> MatchSet:
+        """MatchSet of a full per-position state stream, decoded on the
+        host."""
+        with profiling.span("ac.decode") as sp:
+            sp.note("on_device", 0)
+            ends, end_states, idx = decode_matches_arrays(
+                states, self.tables, offset)
+            sp.note("events", len(ends))
+        return MatchSet(self.machine, self.tables, ends, end_states, idx)
 
     def _empty_matches(self) -> MatchSet:
         return MatchSet(self.machine, self.tables, np.zeros(0, np.int64),
@@ -1065,11 +1076,8 @@ class DenseScanner:
                 if auto:
                     # the full decode of K2's states (the prefilter
                     # declined and no packed table exists)
-                    states = self.scan_states(signs, head=head)
-                    ends, end_states, idx = decode_matches_arrays(
-                        states, self.tables, offset)
-                    return MatchSet(self.machine, self.tables, ends,
-                                    end_states, idx)
+                    return self._host_matchset(
+                        self.scan_states(signs, head=head), offset)
                 # K8 over the whole stream: exactly the hit positions
                 ext, lut, head_ids, B, L, T = self._stage(signs, raw, head,
                                                           self.halo, 128)
@@ -1095,8 +1103,9 @@ class DenseScanner:
                     f"max_hits={max_hits}; raise max_hits or chunk the "
                     "stream with a session")
             if n_live == 0:
-                positions = np.zeros(0, np.int64)
-                sts = np.zeros(0, np.int32)
+                positions = torch.zeros(0, dtype=torch.int64,
+                                        device=emit.device)
+                sts = torch.zeros(0, dtype=torch.int32, device=emit.device)
                 n_hit_pos = 0
             else:
                 cap = max(8, 1 << (n_live - 1).bit_length())
@@ -1128,38 +1137,28 @@ class DenseScanner:
                             (lambda p: body[p].long()) if lut is None
                             else (lambda p: lookup(lut, body[p])),
                             snap.dflat, snap.nb_out)
-                positions, sts = self._read_back(positions, sts)
         if not auto and n_hit_pos > max_hits:
             raise max_hits_error(n_hit_pos, max_hits)
-        with profiling.span("ac.decode") as dsp:
-            keep = (positions >= 0) & (positions < T)
-            positions, sts = positions[keep], sts[keep]
-            order = np.argsort(positions, kind="stable")
-            ends, end_states, idx = expand_hits_arrays(
-                positions[order], sts[order], self.tables, offset)
-            dsp.note("events", len(ends))
+        out = self._hits_matchset(positions, sts, T, offset)
         self._record("find_matches_device")
-        return MatchSet(self.machine, self.tables, ends, end_states, idx)
-
-    @staticmethod
-    def _read_back(positions: torch.Tensor, states: torch.Tensor):
-        """The hits' positions and states as host arrays: the host waits
-        here for the scan and the refinement that make them."""
-        with profiling.span("ac.readback") as sp:
-            sp.note("bytes", positions.nbytes + states.nbytes)
-            return positions.cpu().numpy(), states.cpu().numpy()
+        return out
 
     def _hits_matchset(self, positions: torch.Tensor, states: torch.Tensor,
                        T: int, offset: int) -> MatchSet:
-        """MatchSet of K8's hits (stream order), those at positions past
-        the stream's T symbols dropped."""
-        positions, states = self._read_back(positions, states)
+        """MatchSet of hits in stream order (the refinements' or K8's:
+        ascending positions, those past the stream's T symbols and the -1
+        pads last), decoded on their device; only the events' four
+        columns are read back."""
         with profiling.span("ac.decode") as sp:
-            keep = positions < T
-            ends, end_states, idx = expand_hits_arrays(
-                positions[keep], states[keep], self.tables, offset)
-            sp.note("events", len(ends))
-        return MatchSet(self.machine, self.tables, ends, end_states, idx)
+            sp.note("on_device", 1)
+            cols = expand_hits_device(positions, states, T,
+                                      self._decode_tables(), offset)
+            sp.note("events", len(cols[0]))
+        with profiling.span("ac.readback") as sp:
+            sp.note("bytes", sum(c.nbytes for c in cols))
+            ends, end_states, idx, ranks = self._stager.download(*cols)
+        return MatchSet(self.machine, self.tables, ends, end_states, idx,
+                        ranks)
 
     # -- sparse prefilter: retrieval -----------------------------------------
 
@@ -1265,6 +1264,17 @@ class DenseScanner:
                      cb1)
         self._pk1_cache = (ver, entry)
         return entry
+
+    def _decode_tables(self) -> DecodeTables:
+        """The decode's tables on the device, uploaded at the first
+        retrieval after a change of tables (cached per table version, as
+        ``_pk1``): count() and refresh() never carry them."""
+        ver = self.tables.version
+        if self._dec_cache is None or self._dec_cache[0] != ver:
+            self._dec_cache = (ver, DecodeTables(*(
+                self._snap.place(getattr(self.tables, f))
+                for f in DecodeTables._fields)))
+        return self._dec_cache[1]
 
     def session(self) -> "StreamSession":
         """Open a chunked streaming session (exact across chunk edges)."""

@@ -14,8 +14,9 @@ scanner's dispatch lock. It holds ``depth`` slots in a ring, used in order
 (slot i % depth). A slot is a pinned host buffer and, once a pipelined
 scan uses it, a device buffer of the same bytes, with two events:
 
-* ``copied``, recorded on the copy stream after the slot's host-to-device
-  copy. The host waits on it before it refills the slot, and the compute
+* ``copied``, recorded on the copy stream after the slot's copy (to the
+  device, or from it for ``download``). The host waits on it before it
+  refills the slot or copies it out, and the compute
   stream (the caller's current stream, where the kernels launch) waits on
   it before it launches on the device buffer;
 * ``consumed``, recorded on the compute stream after the kernel that reads
@@ -44,7 +45,9 @@ with ``record_stream`` for the copy stream: when the ring grows, its
 memory is not handed out again before the copies into it are done. A
 tensor filled by ``upload_into`` needs no such mark: the compute stream,
 whose pool it returns to, waits on the copies before ``upload_into``
-returns.
+returns. ``download`` reads device tensors back the other way through the
+ring, into host arrays of their own: the host copies a piece out of its
+slot while the next piece is copied into the other slot.
 
 The host's wait for a slot's last copy (``_take``) is the span
 ``ac.stage.wait``, and the host fill of a slot the span ``ac.stage.fill``
@@ -73,6 +76,10 @@ def _aligned(nbytes: int) -> int:
 
 def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
 
 
 class _ReadOnlyBytes:
@@ -286,3 +293,46 @@ class Stager:
             self._send(out[a0:a0 + n], slot, n, after_consumed=False)
         if self._cuda:
             self._compute().wait_stream(self._copy)
+
+    def download(self, *tensors: torch.Tensor) -> list:
+        """Host copies of contiguous tensors on the stager's device, each
+        a NumPy array that owns its memory, read back through the ring in
+        slot-sized pieces: the copy stream (after the compute stream's
+        work so far) copies a piece into a slot while the host copies the
+        piece before it out of its slot."""
+        outs, pieces = [], []
+        for t in tensors:
+            if not t.is_contiguous() or t.device != self.device:
+                raise ValueError("download needs contiguous tensors on "
+                                 f"{self.device}")
+            out = np.empty(tuple(t.shape), _numpy_dtype(t.dtype))
+            outs.append(out)
+            src = t.view(-1).view(torch.uint8)
+            dst = torch.from_numpy(out.reshape(-1).view(np.uint8))
+            pieces += [(dst[a0:a0 + self.slot_bytes],
+                        src[a0:a0 + self.slot_bytes])
+                       for a0 in range(0, src.numel(), self.slot_bytes)]
+        if self._cuda:
+            self._copy.wait_stream(self._compute())
+        pending = []
+        for dst, src in pieces:
+            slot = self._take()
+            host = slot.host[:src.numel()]
+            if self._cuda:
+                with torch.cuda.stream(self._copy):
+                    host.copy_(src, non_blocking=True)
+                    slot.copied.record(self._copy)
+            else:
+                host.copy_(src)
+            pending.append((dst, host, slot))
+            if len(pending) > 1:
+                self._copy_out(*pending.pop(0))
+        for p in pending:
+            self._copy_out(*p)
+        return outs
+
+    def _copy_out(self, dst: torch.Tensor, host: torch.Tensor,
+                  slot: _Slot) -> None:
+        if self._cuda:
+            slot.copied.synchronize()
+        dst.copy_(host)

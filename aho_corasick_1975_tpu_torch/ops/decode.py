@@ -1,6 +1,11 @@
 """Match decoding: per-position states -> (position, keyword) tuples.
 
-The port's copy of ``aho_corasick_1975_tpu/ops/decode.py``, unchanged.
+The NumPy functions are the port's copy of
+``aho_corasick_1975_tpu/ops/decode.py``: the host decode of the mesh
+scanner and of the full-state fallback, and the tests' oracle.
+``expand_hits_device`` is their torch counterpart for hits already on the
+device, which the single-device retrieval decodes there before it reads
+back only the events' columns.
 
 The reference retrieves matches by walking the fail chain at scan time
 (acm_get_match, aho_corasick.c:450-482: index-th end-of-keyword state along
@@ -16,6 +21,7 @@ from __future__ import annotations
 from typing import List, NamedTuple
 
 import numpy as np
+import torch
 
 from ..core.builder import DenseTables
 
@@ -59,6 +65,43 @@ def expand_hits_arrays(positions: np.ndarray, states: np.ndarray,
                          counts) + idx
     end_states = tables.emit_state[emit_idx]
     return ends, end_states, idx.astype(np.int32)
+
+
+class DecodeTables(NamedTuple):
+    """The decode's tables on a device, int32 each: ``DenseTables``'
+    fields of the same names."""
+
+    nb_outputs: torch.Tensor
+    emit_start: torch.Tensor
+    emit_state: torch.Tensor
+    kw_rank: torch.Tensor
+
+
+def expand_hits_device(positions: torch.Tensor, states: torch.Tensor,
+                       T: int, dec: DecodeTables, offset: int = 0):
+    """``expand_hits_arrays`` on the hits' device, with each event's
+    keyword rank: (ends int64, end_states int32, indices int32, ranks
+    int32), tensors of exactly E entries, element for element the host
+    decode's.
+
+    ``positions`` must be ascending before their tail of -1 pads, with
+    those at or past ``T`` last among the real ones: the order in which
+    both refinements and K8 return them (stream order). The kept hits are
+    then a prefix, cut at its count; the count and E are the one host
+    synchronisation."""
+    keep = (positions >= 0) & (positions < T)
+    counts = torch.where(keep, dec.nb_outputs[states.long()], 0)
+    n, total = torch.stack([keep.sum(), counts.sum()]).tolist()
+    counts = counts[:n].long()
+    hit = torch.repeat_interleave(counts, output_size=total)
+    # per-position 0..count-1 index ramp
+    idx = (torch.arange(total, device=positions.device)
+           - (torch.cumsum(counts, 0) - counts)[hit])
+    ends = positions[:n].long()[hit] + offset
+    emit_idx = dec.emit_start[states[:n].long()][hit].long() + idx
+    end_states = dec.emit_state[emit_idx]
+    return (ends, end_states, idx.to(torch.int32),
+            dec.kw_rank[end_states.long()])
 
 
 def decode_matches_arrays(states: np.ndarray, tables: DenseTables,

@@ -176,6 +176,25 @@ def test_upload_goes_through_the_ring_in_slot_pieces(shape, dtype):
         st.upload_into(torch.empty(3, dtype=torch.int32), a.reshape(-1)[:4])
 
 
+def test_download_goes_through_the_ring_in_slot_pieces():
+    """Tensors of several dtypes, larger and smaller than a slot, and
+    empty, come back as host arrays that own their memory, one slot a
+    piece."""
+    st = Stager("cpu", 2, 64)
+    ts = [torch.arange(100, dtype=torch.int64) - 50,
+          torch.arange(7, dtype=torch.int32).reshape(7, 1),
+          torch.zeros(0, dtype=torch.int32),
+          torch.arange(300, dtype=torch.int16).to(torch.uint8)]
+    got = st.download(*ts)
+    for g, t in zip(got, ts):
+        assert g.flags.owndata and g.base is None and g.shape == t.shape
+        assert torch.from_numpy(g).dtype == t.dtype
+        np.testing.assert_array_equal(g, t.numpy())
+    assert st.slots_used == sum(-(-t.nbytes // 64) for t in ts)
+    with pytest.raises(ValueError):
+        st.download(torch.arange(8)[::2])
+
+
 # -- (c) no fallback -------------------------------------------------------
 
 def test_cuda_stager_never_stages_pageable_memory(monkeypatch):
