@@ -75,9 +75,10 @@ from ..ops.decode import (DecodeTables, decode_matches_arrays,
 from ..ops import autotune, scan_hybrid, scan_mxu, sparse
 from ..ops.hits import (dense_hits, hits_extract, hits_extract_dense,
                         max_hits_error, stepped_emit, window_hits)
-from ..ops.multistep import (emit_warm_steps_for, pack, stepped_count,
-                             stepped_count_2t, stepped_count_many,
-                             stepped_count_many_2t, warm_steps_for)
+from ..ops.multistep import (compose_packed, emit_warm_steps_for,
+                             stepped_count, stepped_count_2t,
+                             stepped_count_many, stepped_count_many_2t,
+                             warm_steps_for)
 from ..ops.scan_dense import (dense_count, dense_count_many, dense_states,
                               lookup, sequential_states)
 from ..utils import profiling
@@ -1246,22 +1247,24 @@ class DenseScanner:
     def _pk1(self):
         """(packed k=1 table (next_state << cb1) | nb on the device, cb1)
         for the dense refinement: one gather per position. The snapshot's
-        own table when step_k == 1; otherwise built at first use and cached
-        per table version, so a refresh invalidates it. None when it does
-        not fit 31 bits."""
+        own table when step_k == 1; otherwise composed on the device from
+        the snapshot's 1-char tables at first use and cached per table
+        version, so a refresh invalidates it. None when it does not fit 31
+        bits."""
         st = self._stepped
         if st is not None and st.k == 1 and self._snap.packed is not None:
             return self._snap.packed, st.count_bits
         ver = self.tables.version
         if self._pk1_cache is not None and self._pk1_cache[0] == ver:
             return self._pk1_cache[1]
-        cb1 = max(1, int(self._snap.max_nb).bit_length())
-        state_bits = max(1, int(self.tables.n_states - 1).bit_length())
+        snap = self._snap
+        S = self.tables.n_states
+        cb1 = max(1, int(snap.max_nb).bit_length())
+        state_bits = max(1, int(S - 1).bit_length())
         entry = None
         if state_bits + cb1 <= 31:
-            entry = (self._snap.place(pack(self.tables.delta,
-                                           self.tables.nb_outputs, 1, cb1)),
-                     cb1)
+            entry = (compose_packed(snap.dflat.view(snap.cap, snap.V),
+                                    snap.nb_out, S, 1, cb1, S), cb1)
         self._pk1_cache = (ver, entry)
         return entry
 

@@ -5,6 +5,8 @@ The port of ``models/snapshot.py:DeviceSnapshot``: the 1-char tables
 tensors on one explicit device: the packed table [cap*V^k], or, where
 (state, count) need more than 31 bits, the two-table form ``delta_k`` and
 ``cnt_k`` [cap*V^k] each, as in the JAX package's single-device snapshot.
+The packed table is composed on the device from the uploaded 1-char
+tables; the two tables are built on the host and uploaded.
 Rows are padded to the JAX package's ``round_cap`` state capacity so that
 both packages hold bit-identical tables, and so that ``refresh`` can bring
 an online insertion in without changing a shape.
@@ -94,19 +96,25 @@ class DeviceSnapshot:
     def _build(self, tables) -> None:
         """The tables of ``_build_tables`` on the snapshot's device, then
         their replicas. The host work is the span ``ac.snapshot.build``,
-        its uploads (``place``) its children."""
+        its uploads (``place``) its children; its note ``compose`` says
+        where the k-gram table was made: "device" (packed), "host" (the
+        two tables) or "none"."""
         with profiling.span("ac.snapshot.build") as sp:
             self._build_tables(tables)
             if sp:
                 sp.note("bytes", sum(getattr(self, n).nbytes
                                      for n in self._TABLES
                                      if getattr(self, n) is not None))
+                sp.note("compose", "device" if self.packed is not None
+                        else "host" if self.delta_k is not None else "none")
+                sp.note("k", self.step_k)
         self._replicate()
 
     def _build_tables(self, tables) -> None:
         """``models/snapshot.py:DeviceSnapshot._build``: the 1-char tables
-        and the choice of k; the k-gram tables packed, else in two
-        tables (none with ``packed_only``)."""
+        and the choice of k; the k-gram table packed, composed on the
+        device (``_compose``), else in two tables from the host's
+        ``build_stepped`` (none with ``packed_only``)."""
         self.tables = tables
         S = tables.n_states
         self.V = tables.vocab_size
@@ -135,48 +143,45 @@ class DeviceSnapshot:
             # adds the packed k=1 table when it fits the budget (never the
             # unpacked one, which would repeat the 1-char tables).
             if auto_k and self.cap * V * 4 <= budget:
-                self._adopt_packed(multistep.build_stepped(
-                    tables, 1, cap_rows=self.cap))
+                self._compose(1)
             return
-        st = multistep.build_stepped(tables, self.step_k, cap_rows=self.cap)
         # the unpacked form needs 8 bytes an entry: lower k until it fits
-        while (st is not None and st.packed is None and self.step_k > 1
-               and S * (V ** st.k) * 8 > budget):
+        while not self._compose(self.step_k):
+            if S * (V ** self.step_k) * 8 <= budget:
+                break
             self.step_k -= 1
-            st = (multistep.build_stepped(tables, self.step_k,
-                                          cap_rows=self.cap)
-                  if self.step_k > 1 else None)
-        if st is None or self.step_k <= 1:
-            self.step_k = max(1, self.step_k)
-            if self.step_k == 1 and self.cap * V * 4 <= budget:
-                self._adopt_packed(multistep.build_stepped(
-                    tables, 1, cap_rows=self.cap))
-            return
-        if st.packed is not None:
-            self._adopt_packed(st)
-        elif not self.packed_only:
+            if self.step_k == 1:
+                if self.cap * V * 4 <= budget:
+                    self._compose(1)
+                return
+        if self.stepped is None and not self.packed_only:
+            st = multistep.build_stepped(tables, self.step_k,
+                                         cap_rows=self.cap)
             self.delta_k = self._table(self._at_cap(st.delta_k, st.Vk))
             self.cnt_k = self._table(self._at_cap(st.cnt_k, st.Vk))
             self.stepped = dataclasses.replace(st, delta_k=None, cnt_k=None)
+
+    def _compose(self, k: int) -> bool:
+        """The packed k-gram table at capacity, composed on the device from
+        the uploaded 1-char tables (one sync, for the largest count): False,
+        and no table, where (state, count) need more than 31 bits."""
+        S = self.tables.n_states
+        delta = self.dflat.view(self.cap, self.V)
+        count_bits = multistep.packed_count_bits(
+            multistep.max_gram_count(delta, self.nb_out, S, k), S)
+        if count_bits is None:
+            return False
+        self.packed = multistep.compose_packed(delta, self.nb_out, S, k,
+                                               count_bits, self.cap)
+        self.stepped = SteppedTables(k=k, V=self.V, count_bits=count_bits,
+                                     packed=None)
+        return True
 
     def _at_cap(self, table: np.ndarray, Vk: int) -> np.ndarray:
         """A k-gram table's [S*V^k] entries in a zeroed [cap*V^k] array."""
         host = np.zeros(self.cap * Vk, np.int32)
         host[:table.size] = table
         return host
-
-    def _adopt_packed(self, st: SteppedTables) -> None:
-        """Upload a packed table at capacity; keep its geometry, not its
-        host arrays."""
-        if st.packed is None:
-            return
-        if (st.cap_packed is not None
-                and st.cap_packed.size == self.cap * st.Vk):
-            host = st.cap_packed
-        else:
-            host = self._at_cap(st.packed, st.Vk)
-        self.packed = self._table(host)
-        self.stepped = dataclasses.replace(st, packed=None, cap_packed=None)
 
     @classmethod
     def from_arrays(cls, tables, dflat: np.ndarray, nb_out: np.ndarray,

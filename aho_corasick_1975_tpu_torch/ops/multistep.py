@@ -9,7 +9,10 @@ one gather advances k symbols and counts every match inside them (the
 native threaded ``compose_pack`` does the work where it is available), or,
 where (state, count) need more than 31 bits, the two tables ``delta_k``
 and ``cnt_k``; and they find the cells an online insertion changes
-(refresh).
+(refresh). A snapshot composes its packed table on its own device instead
+(``max_gram_count``, ``packed_count_bits``, ``compose_packed``: the same
+DP and entries in torch ops over the uploaded 1-char tables), and keeps
+``build_stepped`` for the two-table form; tests hold the two equal.
 
 Device half: K3 (csrc/stepped_scan.cu) is the count of
 ``ops/multistep.py:stepped_count_core`` (``make_stepped_count_stream`` /
@@ -211,6 +214,72 @@ def pack(delta: np.ndarray, nb: np.ndarray, k: int, count_bits: int,
             return packed
         out[:packed.size] = packed
         return out[:packed.size]
+
+
+# The snapshot's packed table, composed on its device from the uploaded
+# 1-char tables: the same DP and entries as build_stepped, in torch ops.
+# Row blocks keep each [rows, V^k] temporary, at 8 bytes an entry, within
+# this size.
+COMPOSE_BLOCK_BYTES = 1 << 30
+
+
+def _row_blocks(S: int, Vk: int):
+    step = max(1, COMPOSE_BLOCK_BYTES // (8 * Vk))
+    return [(r, min(r + step, S)) for r in range(0, S, step)]
+
+
+def packed_count_bits(max_cnt: int, S: int) -> Optional[int]:
+    """``count_bits`` of the packed entry ``(state << count_bits) | count``
+    for S states whose k-gram counts reach ``max_cnt``, with
+    build_stepped's headroom; None where the entry needs more than 31 bits
+    (the two-table form)."""
+    count_bits = max(1, int(max_cnt).bit_length()) if max_cnt else 1
+    state_bits = max(1, int(S - 1).bit_length())
+    grow_bits = max(1, int(round_cap(S) - 1).bit_length())
+    count_bits = max(count_bits,
+                     min(count_bits + 3, 31 - max(state_bits, grow_bits)))
+    return count_bits if state_bits + count_bits <= 31 else None
+
+
+def max_gram_count(delta: torch.Tensor, nb: torch.Tensor, S: int,
+                   k: int) -> int:
+    """The largest k-gram match count from the first S rows of ``delta``
+    [>= S, V] and ``nb`` (int32 tensors on one device), by build_stepped's
+    DP in int64: h_j[m] = max_c (nb + h_{j-1})[delta[m, c]], h_0 = 0. One
+    host sync."""
+    if not S:
+        return 0
+    nb64 = nb[:S].long()
+    h = torch.zeros(S, dtype=torch.int64, device=delta.device)
+    for _ in range(k):
+        g, h = nb64 + h, torch.empty_like(h)
+        for r0, r1 in _row_blocks(S, delta.shape[1]):
+            h[r0:r1] = g.index_select(0, delta[r0:r1].reshape(-1)).view(
+                r1 - r0, -1).amax(dim=1)
+    return int(h.max())
+
+
+def compose_packed(delta: torch.Tensor, nb: torch.Tensor, S: int, k: int,
+                   count_bits: int, rows: int) -> torch.Tensor:
+    """The packed k-gram table of the first S rows of ``delta`` [>= S, V]
+    and ``nb`` on their device: int32 [rows * V^k], rows S.. zero, entry
+    for entry build_stepped's (``compose_rows``' order of grams). In int32
+    throughout: ``count_bits`` from ``packed_count_bits`` bounds every
+    entry, and every partial count (a gram's prefix counts no more than
+    the gram), below 2^31."""
+    V = delta.shape[1]
+    Vk = V ** k
+    out = torch.zeros(rows * Vk, dtype=torch.int32, device=delta.device)
+    nb = nb[:S]
+    for r0, r1 in _row_blocks(S, Vk):
+        d = delta[r0:r1].reshape(-1)
+        cnt = nb.index_select(0, d)
+        for _ in range(k - 1):
+            d = delta.index_select(0, d).reshape(-1)
+            cnt = (cnt.view(-1, 1)
+                   + nb.index_select(0, d).view(-1, V)).reshape(-1)
+        torch.bitwise_or(d << count_bits, cnt, out=out[r0 * Vk:r1 * Vk])
+    return out
 
 
 def combine_grams(win: torch.Tensor, V: int, k: int) -> torch.Tensor:

@@ -2010,10 +2010,11 @@ def phase_sparse_kernels(build, state: dict, gate: dict, text: bytes
 
 def forced_two_table():
     """Force the two-table k-gram form as tests/test_torch_unpacked.py
-    does: build_stepped returns its packed table as delta_k and cnt_k.
-    Returns the function that undoes it."""
+    does: the packed entry's width reads as too wide, and build_stepped
+    returns its packed table as delta_k and cnt_k. Returns the function
+    that undoes it."""
     from aho_corasick_1975_tpu_torch.ops import multistep
-    orig = multistep.build_stepped
+    orig, orig_bits = multistep.build_stepped, multistep.packed_count_bits
 
     def unpacked(tables, k, cap_rows=None):
         st = orig(tables, k)
@@ -2025,8 +2026,13 @@ def forced_two_table():
             st.count_bits = 0
         return st
 
+    def undo():
+        multistep.build_stepped = orig
+        multistep.packed_count_bits = orig_bits
+
     multistep.build_stepped = unpacked
-    return lambda: setattr(multistep, "build_stepped", orig)
+    multistep.packed_count_bits = lambda max_cnt, S: None
+    return undo
 
 
 def oracle_docs(m, docs) -> np.ndarray:

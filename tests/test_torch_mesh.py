@@ -430,6 +430,8 @@ def test_packed_only_snapshot_is_bit_identical(monkeypatch, unpacked):
                             _unpacked(jms.build_stepped))
         monkeypatch.setattr(pms, "build_stepped",
                             _unpacked(pms.build_stepped))
+        monkeypatch.setattr(pms, "packed_count_bits",
+                            lambda max_cnt, S: None)
     m, _ = _words_machine(3, 40, "abcd", 6)
     t = m.compile()
     js = JaxSnapshot(t, step_k=2, packed_only=True)
