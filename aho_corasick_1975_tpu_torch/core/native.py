@@ -98,8 +98,6 @@ def load_library():
         lib.acx_set_version.argtypes = [ct.c_void_p, i64]
         lib.acx_keyword_letters.restype = i64
         lib.acx_keyword_letters.argtypes = [ct.c_void_p, i32, p(i32), i64]
-        lib.acx_compose_pack.argtypes = [p(i32), p(i32), i64, i32, i32,
-                                         i32, p(i32)]
         lib.acx_kw_rank.restype = i64
         lib.acx_kw_rank.argtypes = [ct.c_void_p, i32]
         lib.acx_max_letter_id.restype = i32
@@ -429,34 +427,3 @@ class NativeBuilder:
             version=self.version, n_keywords=self.nb_sequences,
             cap_delta=cap_delta)
 
-
-def compose_pack(delta: np.ndarray, nb: np.ndarray, k: int,
-                 count_bits: int, out: Optional[np.ndarray] = None
-                 ) -> np.ndarray:
-    """Threaded native k-gram composition into a packed stepped table
-    (acx_compose_pack) — the cold-start fast path used by
-    ops/multistep.build_stepped; the numpy composition remains the
-    fallback and the test oracle. ``out``: optional destination with at
-    least S*V^k leading entries (e.g. a capacity-padded calloc buffer);
-    the composed view out[:S*V^k] is returned."""
-    lib = load_library()
-    S, V = delta.shape
-    delta = np.ascontiguousarray(delta, np.int32)
-    nb = np.ascontiguousarray(nb, np.int32)
-    n = S * (V ** k)
-    if out is None:
-        out = np.empty(n, np.int32)
-    else:
-        # Contract check must survive python -O (assert is stripped there,
-        # and a wrong-size buffer would be overrun/sliced silently).
-        if out.size < n or out.dtype != np.int32 \
-                or not out.flags.c_contiguous:
-            raise ValueError(
-                f"compose_pack out buffer must be C-contiguous int32 with "
-                f">= {n} entries (got size={out.size}, dtype={out.dtype})")
-        out = out.reshape(-1)
-    p32 = ct.POINTER(ct.c_int32)
-    lib.acx_compose_pack(delta.ctypes.data_as(p32), nb.ctypes.data_as(p32),
-                         ct.c_int64(S), ct.c_int32(V), ct.c_int32(k),
-                         ct.c_int32(count_bits), out.ctypes.data_as(p32))
-    return out[:n]

@@ -194,6 +194,100 @@ def raw_stream_for(machine, signs, get_lut):
     return None
 
 
+_UNFIT = {
+    "mxu": "automaton too large for the MXU engine (padded states or digit "
+           "planes over the ops/scan_mxu.py limits); use engine='gather'",
+    "hybrid": "automaton too large for the hybrid engine (padded states over "
+              "ops/scan_hybrid.MAX_HYBRID_STATES, or no packed stepped "
+              "table); use engine='gather'",
+}
+
+
+def engine_planes(tables, packed: bool) -> dict:
+    """Each engine's host digit planes by name, ``scan_mxu.build_planes``'
+    (planes, count_bits, n_planes, S_pad), or None where the engine does
+    not fit: "mxu" within ``scan_mxu.MAX_MXU_STATES`` padded states,
+    "hybrid" within ``scan_hybrid.MAX_HYBRID_STATES`` and with a packed
+    k-gram table. One build serves both: the planes depend on the tables
+    alone, an engine's limit only on whether it takes them."""
+    limits = {"mxu": scan_mxu.MAX_MXU_STATES}
+    if packed:
+        limits["hybrid"] = scan_hybrid.MAX_HYBRID_STATES
+    built = scan_mxu.build_planes(tables.delta, tables.nb_outputs,
+                                  max_states=max(limits.values()))
+    return {e: built if built is not None and built[3] <= limits.get(e, -1)
+            else None for e in _UNFIT}
+
+
+def bind_scanner(sc, place) -> None:
+    """Derive what a scanner's kernels take from its snapshot, its halo
+    and its engine, for ``DenseScanner`` and the mesh's ``ShardedScanner``
+    alike: the halo in gram steps (``_halo_steps``; ``_halo_sym`` in
+    symbols), the stepped kernels' warm-up (``_warm_steps``, from the
+    tables' depth whatever the halo, ``multistep.warm_steps_for``), K4's,
+    one symbol longer (``_emit_warm``, ``emit_warm_steps_for``), and the
+    1-char kernels' (K1, K2, K6, K7 dense, K8: ``_warm_syms``, in symbols,
+    whether or not a stepped table exists); a wrong value counts wrong
+    with no error. Then it drops the raw-encode LUTs, whose exactness
+    rests on the tables (raw_lut_entry), and binds the engine's digit
+    planes (``_mxu`` or ``_hybrid``: (placed planes, count_bits, n_planes,
+    S_pad)) with the kernels' copy keyed by (state, letter) (``_planes_t``,
+    ``scan_mxu.transpose_planes``), made here and never per call.
+    ``place`` puts the host planes on the scanner's device (a tensor), or
+    on each device of a mesh (a dict by device). The planes come from
+    ``sc._engine_planes`` while a calibration holds them, else from
+    ``engine_planes``."""
+    st, tables = sc._stepped, sc.tables
+    k = st.k if st is not None else 0
+    sc._halo_steps = -(-sc.halo // k) if k else 0
+    sc._halo_sym = sc._halo_steps * k
+    sc._warm_syms, grams = (warm_steps_for(tables, j) for j in (1, k or 1))
+    sc._warm_steps = grams if k else 0
+    sc._emit_warm = emit_warm_steps_for(tables, k) if k else 0
+    sc._lut_cache.clear()
+    sc._mxu = sc._hybrid = sc._planes_t = None
+    if sc._engine not in _UNFIT:
+        return
+    built = (sc._engine_planes
+             or engine_planes(tables, sc._snap.packed is not None))[sc._engine]
+    if built is None:
+        raise ValueError(_UNFIT[sc._engine])
+    planes = place(built[0])
+    setattr(sc, "_" + sc._engine, (planes,) + built[1:])
+    sc._planes_t = ({d: scan_mxu.transpose_planes(p, sc.V, built[2])
+                     for d, p in planes.items()} if isinstance(planes, dict)
+                    else scan_mxu.transpose_planes(planes, sc.V, built[2]))
+
+
+def calibrate_scanner(sc, device, force: bool, key_suffix: str = "",
+                      agree=None) -> None:
+    """Bind the engine measured fastest on ``device`` (ops/autotune.py):
+    the probe runs where more than one engine fits, else gather is bound;
+    the choice is cached per geometry, its key ended by ``key_suffix``.
+    ``agree`` turns the choice into the one every process takes. The
+    planes are built once, for the candidates, the probe's rebinds and the
+    winner's. Holds the scanner's dispatch lock, so no scan on another
+    thread sees a half-rebound scanner."""
+    with sc._dispatch:
+        tabs = sc.tables
+        sc._engine_planes = engine_planes(tabs, sc._snap.packed is not None)
+        try:
+            candidates = ["gather"] + [e for e, p in sc._engine_planes.items()
+                                       if p is not None]
+            choice = "gather"
+            if len(candidates) > 1:
+                key = autotune.geometry_key(tabs.n_states, sc.V, sc.step_k,
+                                            device) + key_suffix
+                choice = None if force else autotune.cached_choice(key)
+                if choice not in candidates:
+                    choice = autotune.probe(sc, candidates)
+                    autotune.store_choice(key, choice)
+            sc._engine = choice if agree is None else agree(choice)
+            sc._bind()
+        finally:
+            sc._engine_planes = None
+
+
 class DenseScanner:
     # Past _pipeline_min symbols a raw host input is counted in
     # _pipeline_chunk-symbol chunks, each with its halo taken from the raw
@@ -277,35 +371,14 @@ class DenseScanner:
         self._pk1_cache = None
         self._dec_cache = None
         self._ring: Optional[Stager] = None
+        self._engine_planes = None
         self._bind()
         if calibrate and engine == "auto":
             self._calibrate_engine()
 
     def _calibrate_engine(self, force: bool = False) -> None:
-        """Bind the engine measured fastest on this device
-        (ops/autotune.py): the probe runs where more than one engine
-        fits, else gather is bound; the choice is cached per geometry.
-        Holds the dispatch lock, so no scan on another thread sees a
-        half-rebound scanner."""
-        with self._dispatch:
-            tabs = self.tables
-            candidates = ["gather"]
-            if scan_mxu.build_planes(tabs.delta, tabs.nb_outputs) is not None:
-                candidates.append("mxu")
-            if self._snap.packed is not None and scan_mxu.build_planes(
-                    tabs.delta, tabs.nb_outputs,
-                    max_states=scan_hybrid.MAX_HYBRID_STATES) is not None:
-                candidates.append("hybrid")
-            choice = "gather"
-            if len(candidates) > 1:
-                key = autotune.geometry_key(tabs.n_states, self.V,
-                                            self.step_k, self.device)
-                choice = None if force else autotune.cached_choice(key)
-                if choice not in candidates:
-                    choice = autotune.probe(self, candidates)
-                    autotune.store_choice(key, choice)
-            self._engine = choice
-            self._bind()
+        """``calibrate_scanner`` on the scanner's device."""
+        calibrate_scanner(self, self.device, force)
 
     def recalibrate(self) -> str:
         """Measure the engines again now, ignoring the cached choice, and
@@ -335,55 +408,9 @@ class DenseScanner:
         return self.tables.version
 
     def _bind(self) -> None:
-        """Derive what depends on the snapshot and the halo: the halo in
-        gram steps, the stepped kernels' warm-up (``_warm_steps``, from the
-        tables' depth whatever the halo, ``multistep.warm_steps_for``; K4's,
-        one symbol longer, ``_emit_warm``, ``emit_warm_steps_for``) and
-        the 1-char kernels' (K1, K2, K6, K7 dense, K8: ``_warm_syms``, in
-        symbols, whether or not a stepped table exists), the raw-encode
-        LUTs, whose exactness rests on the tables (raw_lut_entry), and the
-        engine's digit planes, rebuilt
-        from the tables (``_mxu`` and ``_hybrid``: (planes int8 tensor
-        [S_pad, n_planes*V], count_bits, n_planes, S_pad), as in the JAX
-        scanner), with the kernels' copy keyed by (state, letter)
-        (``_planes_t``, ``scan_mxu.transpose_planes``), made here and
-        never per call. ``__init__``, ``refresh()`` and calibration call
-        it."""
-        st = self._stepped
-        self._halo_steps = -(-self.halo // st.k) if st is not None else 0
-        self._halo_sym = self._halo_steps * st.k if st is not None else 0
-        self._warm_steps = (warm_steps_for(self.tables, st.k)
-                            if st is not None else 0)
-        self._emit_warm = (emit_warm_steps_for(self.tables, st.k)
-                           if st is not None else 0)
-        self._warm_syms = warm_steps_for(self.tables, 1)
-        self._lut_cache.clear()
-        self._mxu = self._hybrid = self._planes_t = None
-        tabs = self.tables
-        if self._engine == "mxu":
-            built = scan_mxu.build_planes(tabs.delta, tabs.nb_outputs)
-            if built is None:
-                raise ValueError(
-                    "automaton too large for the MXU engine (padded states "
-                    "or digit planes over the ops/scan_mxu.py limits); use "
-                    "engine='gather'")
-            self._mxu = (self._snap.place(built[0]),) + built[1:]
-            self._planes_t = scan_mxu.transpose_planes(self._mxu[0], self.V,
-                                                       built[2])
-        elif self._engine == "hybrid":
-            built = None
-            if self._snap.packed is not None:
-                built = scan_mxu.build_planes(
-                    tabs.delta, tabs.nb_outputs,
-                    max_states=scan_hybrid.MAX_HYBRID_STATES)
-            if built is None:
-                raise ValueError(
-                    "automaton too large for the hybrid engine (padded "
-                    "states over ops/scan_hybrid.MAX_HYBRID_STATES, or no "
-                    "packed stepped table); use engine='gather'")
-            self._hybrid = (self._snap.place(built[0]),) + built[1:]
-            self._planes_t = scan_mxu.transpose_planes(self._hybrid[0],
-                                                       self.V, built[2])
+        """``bind_scanner`` with the planes on the scanner's device.
+        ``__init__``, ``refresh()`` and calibration call it."""
+        bind_scanner(self, self._snap.place)
 
     # -- incremental snapshot refresh ----------------------------------------
 

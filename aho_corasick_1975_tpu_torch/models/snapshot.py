@@ -5,8 +5,8 @@ The port of ``models/snapshot.py:DeviceSnapshot``: the 1-char tables
 tensors on one explicit device: the packed table [cap*V^k], or, where
 (state, count) need more than 31 bits, the two-table form ``delta_k`` and
 ``cnt_k`` [cap*V^k] each, as in the JAX package's single-device snapshot.
-The packed table is composed on the device from the uploaded 1-char
-tables; the two tables are built on the host and uploaded.
+Either form is composed on the device from the uploaded 1-char tables
+(ops/multistep.py); no k-gram table is made on the host.
 Rows are padded to the JAX package's ``round_cap`` state capacity so that
 both packages hold bit-identical tables, and so that ``refresh`` can bring
 an online insertion in without changing a shape.
@@ -21,7 +21,6 @@ the same rows and cells into every replica.
 
 from __future__ import annotations
 
-import dataclasses
 import time
 from typing import Optional
 
@@ -97,24 +96,24 @@ class DeviceSnapshot:
         """The tables of ``_build_tables`` on the snapshot's device, then
         their replicas. The host work is the span ``ac.snapshot.build``,
         its uploads (``place``) its children; its note ``compose`` says
-        where the k-gram table was made: "device" (packed), "host" (the
-        two tables) or "none"."""
+        where the k-gram table was made: "device" (either form) or
+        "none"."""
         with profiling.span("ac.snapshot.build") as sp:
             self._build_tables(tables)
             if sp:
                 sp.note("bytes", sum(getattr(self, n).nbytes
                                      for n in self._TABLES
                                      if getattr(self, n) is not None))
-                sp.note("compose", "device" if self.packed is not None
-                        else "host" if self.delta_k is not None else "none")
+                sp.note("compose",
+                        "device" if self.stepped is not None else "none")
                 sp.note("k", self.step_k)
         self._replicate()
 
     def _build_tables(self, tables) -> None:
         """``models/snapshot.py:DeviceSnapshot._build``: the 1-char tables
-        and the choice of k; the k-gram table packed, composed on the
-        device (``_compose``), else in two tables from the host's
-        ``build_stepped`` (none with ``packed_only``)."""
+        and the choice of k; the k-gram table composed on the device
+        (``_compose``), packed where (state, count) fit 31 bits, else in two
+        tables (none with ``packed_only``)."""
         self.tables = tables
         S = tables.n_states
         self.V = tables.vocab_size
@@ -155,11 +154,10 @@ class DeviceSnapshot:
                     self._compose(1)
                 return
         if self.stepped is None and not self.packed_only:
-            st = multistep.build_stepped(tables, self.step_k,
-                                         cap_rows=self.cap)
-            self.delta_k = self._table(self._at_cap(st.delta_k, st.Vk))
-            self.cnt_k = self._table(self._at_cap(st.cnt_k, st.Vk))
-            self.stepped = dataclasses.replace(st, delta_k=None, cnt_k=None)
+            self.delta_k, self.cnt_k = multistep.compose_two_tables(
+                self.dflat.view(self.cap, V), self.nb_out, S, self.step_k,
+                self.cap)
+            self.stepped = SteppedTables(k=self.step_k, V=V, count_bits=0)
 
     def _compose(self, k: int) -> bool:
         """The packed k-gram table at capacity, composed on the device from
@@ -173,15 +171,8 @@ class DeviceSnapshot:
             return False
         self.packed = multistep.compose_packed(delta, self.nb_out, S, k,
                                                count_bits, self.cap)
-        self.stepped = SteppedTables(k=k, V=self.V, count_bits=count_bits,
-                                     packed=None)
+        self.stepped = SteppedTables(k=k, V=self.V, count_bits=count_bits)
         return True
-
-    def _at_cap(self, table: np.ndarray, Vk: int) -> np.ndarray:
-        """A k-gram table's [S*V^k] entries in a zeroed [cap*V^k] array."""
-        host = np.zeros(self.cap * Vk, np.int32)
-        host[:table.size] = table
-        return host
 
     @classmethod
     def from_arrays(cls, tables, dflat: np.ndarray, nb_out: np.ndarray,
@@ -209,8 +200,7 @@ class DeviceSnapshot:
         snap.step_k = k
         snap.stepped = snap.packed = snap.delta_k = snap.cnt_k = None
         if packed is not None or delta_k is not None:
-            snap.stepped = SteppedTables(k=k, V=snap.V, count_bits=count_bits,
-                                         packed=None)
+            snap.stepped = SteppedTables(k=k, V=snap.V, count_bits=count_bits)
         if packed is not None:
             snap.packed = snap._table(packed)
         elif delta_k is not None:

@@ -1234,61 +1234,4 @@ void acx_set_version(Machine* m, int64_t v) {
 // kLetterBits bits; callers must reject larger ids).
 int32_t acx_max_letter_id(void) { return (1 << kLetterBits) - 1; }
 
-// k-gram composition of a fail-collapsed dense table into the packed
-// stepped scan table (ops/multistep.py):
-//   out[s, c_1..c_k] = (m_k << count_bits) | sum_i nb[m_i],
-//   m_0 = s, m_i = delta[m_{i-1}*V + c_i].
-// Standalone (no Machine): operates on the arrays emitted by
-// acx_emit_delta/acx_export_arrays. Threaded over contiguous state
-// ranges — this is the cold-start analogue of acx_emit_delta's
-// threading; the numpy composition stays as fallback and test oracle.
-static void compose_rec(const int32_t* delta, const int32_t* nb, int32_t V,
-                        int32_t k_left, int32_t m, int32_t cnt,
-                        int32_t count_bits, int32_t** out) {
-  const int32_t* drow = delta + static_cast<int64_t>(m) * V;
-  if (k_left == 1) {
-    int32_t* o = *out;
-    for (int32_t c = 0; c < V; ++c) {
-      int32_t t = drow[c];
-      o[c] = (t << count_bits) | (cnt + nb[t]);
-    }
-    *out += V;
-    return;
-  }
-  for (int32_t c = 0; c < V; ++c) {
-    int32_t t = drow[c];
-    compose_rec(delta, nb, V, k_left - 1, t, cnt + nb[t], count_bits, out);
-  }
-}
-
-void acx_compose_pack(const int32_t* delta, const int32_t* nb, int64_t S,
-                      int32_t V, int32_t k, int32_t count_bits,
-                      int32_t* out) {
-  int64_t Vk = 1;
-  for (int32_t i = 0; i < k; ++i) Vk *= V;
-  unsigned hw = std::thread::hardware_concurrency();
-  size_t n_threads = hw >= 4 ? hw / 2 : (hw ? hw : 1);
-  if (S < 4096 || n_threads <= 1) {
-    int32_t* o = out;
-    for (int64_t s = 0; s < S; ++s)
-      compose_rec(delta, nb, V, k, static_cast<int32_t>(s), 0, count_bits,
-                  &o);
-    return;
-  }
-  size_t per = (static_cast<size_t>(S) + n_threads - 1) / n_threads;
-  std::vector<std::thread> workers;
-  for (size_t t = 0; t < n_threads; ++t) {
-    size_t lo = t * per;
-    size_t hi = std::min<size_t>(lo + per, static_cast<size_t>(S));
-    if (lo >= hi) break;
-    workers.emplace_back([=] {
-      int32_t* o = out + static_cast<int64_t>(lo) * Vk;
-      for (size_t s = lo; s < hi; ++s)
-        compose_rec(delta, nb, V, k, static_cast<int32_t>(s), 0, count_bits,
-                    &o);
-    });
-  }
-  for (auto& w : workers) w.join();
-}
-
 }  // extern "C"

@@ -1,18 +1,16 @@
-"""k-char stepped scan tables (host), K3 the packed k-gram count, K5 its
+"""k-char stepped scan tables, K3 the packed k-gram count, K5 its
 count_many form and K9 the two-table count.
 
-Host half: ``choose_k``, ``compose_rows``, ``build_stepped`` and
-``stepped_delta_cells`` are the numpy functions of the JAX package's
-``ops/multistep.py``, which cannot be imported without JAX. They build the
-packed table ``(next_state << count_bits) | gram_count`` over k-grams, so
-one gather advances k symbols and counts every match inside them (the
-native threaded ``compose_pack`` does the work where it is available), or,
-where (state, count) need more than 31 bits, the two tables ``delta_k``
-and ``cnt_k``; and they find the cells an online insertion changes
-(refresh). A snapshot composes its packed table on its own device instead
-(``max_gram_count``, ``packed_count_bits``, ``compose_packed``: the same
-DP and entries in torch ops over the uploaded 1-char tables), and keeps
-``build_stepped`` for the two-table form; tests hold the two equal.
+Tables: ``choose_k`` and ``stepped_delta_cells`` are the numpy functions
+of the JAX package's ``ops/multistep.py``, which cannot be imported
+without JAX: the choice of k, and the cells an online insertion changes
+(refresh). A snapshot composes its k-gram table on its own device from the
+uploaded 1-char tables, in torch ops (``max_gram_count``,
+``packed_count_bits``, ``compose_packed``, ``compose_two_tables``): the
+packed table ``(next_state << count_bits) | gram_count``, so that one
+gather advances k symbols and counts every match inside them, or, where
+(state, count) need more than 31 bits, the two tables ``delta_k`` and
+``cnt_k``, entry for entry the JAX package's ``build_stepped``.
 
 Device half: K3 (csrc/stepped_scan.cu) is the count of
 ``ops/multistep.py:stepped_count_core`` (``make_stepped_count_stream`` /
@@ -24,8 +22,8 @@ version. Inputs follow ``ops/scan_dense.py``, with
 ``halo = halo_steps * k`` and ``L % k == 0``. On the card K3, K5 and K9
 split every stream or column into sub-streams that each warm up over
 ``warm_steps`` grams before their body (``split_fields``); every card-path
-wrapper requires ``warm_steps``, which the scanners derive from the
-tables (``warm_steps_for``) in their ``_bind()``.
+wrapper requires ``warm_steps``, which both scanners derive from the
+tables (``warm_steps_for``) in ``models/scanner.py:bind_scanner``.
 """
 
 from __future__ import annotations
@@ -37,7 +35,6 @@ import numpy as np
 import torch
 
 from ..core.builder import round_cap
-from ..core.native import compose_pack
 from . import build
 from .scan_dense import (_check_inputs, check_batch, check_stream,
                          split_window, window)
@@ -45,20 +42,10 @@ from .scan_dense import (_check_inputs, check_batch, check_stream,
 
 @dataclass
 class SteppedTables:
+    """A snapshot's record of its k-gram table, whose tensors it holds."""
     k: int                      # symbols per gather
     V: int                      # base vocab size
-    count_bits: int             # 0 when unpacked
-    # int32 [S * V^k] as built; None where (state, count) need more than 31
-    # bits, and in a snapshot's own record, whose tables are the device
-    # copies
-    packed: Optional[np.ndarray]
-    # the two-table form where packed is None: landing states and k-gram
-    # counts, int32 [S * V^k] each
-    delta_k: Optional[np.ndarray] = None
-    cnt_k: Optional[np.ndarray] = None
-    # capacity-padded backing buffer of ``packed`` (its first S*V^k
-    # entries), set when build_stepped was given cap_rows
-    cap_packed: Optional[np.ndarray] = None
+    count_bits: int             # 0 in the two-table form
 
     @property
     def Vk(self) -> int:
@@ -73,20 +60,6 @@ def choose_k(n_states: int, vocab_size: int, budget_bytes: int,
         if n_states * (vocab_size ** cand) * 4 <= budget_bytes:
             k = cand
     return k
-
-
-def compose_rows(delta: np.ndarray, nb: np.ndarray, rows: np.ndarray,
-                 k: int) -> tuple:
-    """k-gram composition of a subset of state rows: (landing states
-    [R, V^k] int32, summed match counts [R, V^k] int64)."""
-    R = len(rows)
-    d = delta[rows]                          # [R, V]
-    cnt = nb[d].astype(np.int64)
-    for _ in range(k - 1):
-        d2 = delta[d]                        # [R, G, V]
-        cnt = (cnt[..., None] + nb[d2]).reshape(R, -1)
-        d = d2.reshape(R, -1)
-    return d, cnt
 
 
 def stepped_delta_cells(old, new, k: int):
@@ -165,61 +138,10 @@ def stepped_delta_cells(old, new, k: int):
     return cells, m.astype(np.int32), cnt
 
 
-def build_stepped(tables, k: int,
-                  cap_rows: Optional[int] = None) -> SteppedTables:
-    """Compose delta/nb_outputs over k-grams and pack, or return the two
-    unpacked tables where (state, count) need more than 31 bits.
-    ``cap_rows``: also allocate the packed table inside a
-    [cap_rows * V^k] zeroed capacity buffer (returned as ``cap_packed``)."""
-    delta = tables.delta                     # [S, V]
-    nb = tables.nb_outputs
-    S, V = delta.shape
-    # Exact max k-gram count by DP over tail lengths (O(S*V*k)):
-    #   h_j[m] = max_c (nb[delta[m,c]] + h_{j-1}[delta[m,c]]), h_0 = 0.
-    h = np.zeros(S, np.int64)
-    for _ in range(k):
-        h = (nb[delta] + h[delta]).max(axis=1)
-    max_cnt = int(h.max()) if S else 0
-    count_bits = max(1, int(max_cnt).bit_length()) if max_cnt else 1
-    state_bits = max(1, int(S - 1).bit_length())
-    # The JAX package's headroom for in-place refresh; kept so that both
-    # packages build bit-identical tables.
-    grow_bits = max(1, int(round_cap(S) - 1).bit_length())
-    count_bits = max(count_bits,
-                     min(count_bits + 3, 31 - max(state_bits, grow_bits)))
-    if state_bits + count_bits <= 31:
-        cap_buf = (np.zeros(cap_rows * V ** k, np.int32)
-                   if cap_rows is not None and cap_rows >= S else None)
-        return SteppedTables(k=k, V=V, count_bits=count_bits,
-                             packed=pack(delta, nb, k, count_bits, cap_buf),
-                             cap_packed=cap_buf)
-    d, cnt = compose_rows(delta, nb, np.arange(S, dtype=np.int64), k)
-    return SteppedTables(k=k, V=V, count_bits=0, packed=None,
-                         delta_k=d.reshape(-1).astype(np.int32),
-                         cnt_k=cnt.reshape(-1).astype(np.int32))
-
-
-def pack(delta: np.ndarray, nb: np.ndarray, k: int, count_bits: int,
-         out: Optional[np.ndarray] = None) -> np.ndarray:
-    """Packed k-gram table [S * V^k] int32, into ``out`` when given: the
-    native threaded compose, or numpy where the native core cannot be
-    built."""
-    try:
-        return compose_pack(delta, nb, k, count_bits, out=out)
-    except (OSError, RuntimeError):
-        d, cnt = compose_rows(delta, nb, np.arange(len(delta)), k)
-        packed = (((d.astype(np.int64) << count_bits) | cnt)
-                  .astype(np.int32).reshape(-1))
-        if out is None:
-            return packed
-        out[:packed.size] = packed
-        return out[:packed.size]
-
-
-# The snapshot's packed table, composed on its device from the uploaded
-# 1-char tables: the same DP and entries as build_stepped, in torch ops.
-# Row blocks keep each [rows, V^k] temporary, at 8 bytes an entry, within
-# this size.
+# A snapshot's k-gram table, composed on its device from the uploaded 1-char
+# tables: the JAX package's build_stepped DP and entries, in torch ops. Row
+# blocks keep each [rows, V^k] temporary, at 8 bytes an entry, within this
+# size.
 COMPOSE_BLOCK_BYTES = 1 << 30
 
 
@@ -230,8 +152,9 @@ def _row_blocks(S: int, Vk: int):
 
 def packed_count_bits(max_cnt: int, S: int) -> Optional[int]:
     """``count_bits`` of the packed entry ``(state << count_bits) | count``
-    for S states whose k-gram counts reach ``max_cnt``, with
-    build_stepped's headroom; None where the entry needs more than 31 bits
+    for S states whose k-gram counts reach ``max_cnt``, with the JAX
+    package's headroom for in-place refresh (so that both packages build
+    bit-identical tables); None where the entry needs more than 31 bits
     (the two-table form)."""
     count_bits = max(1, int(max_cnt).bit_length()) if max_cnt else 1
     state_bits = max(1, int(S - 1).bit_length())
@@ -259,27 +182,50 @@ def max_gram_count(delta: torch.Tensor, nb: torch.Tensor, S: int,
     return int(h.max())
 
 
-def compose_packed(delta: torch.Tensor, nb: torch.Tensor, S: int, k: int,
-                   count_bits: int, rows: int) -> torch.Tensor:
-    """The packed k-gram table of the first S rows of ``delta`` [>= S, V]
-    and ``nb`` on their device: int32 [rows * V^k], rows S.. zero, entry
-    for entry build_stepped's (``compose_rows``' order of grams). In int32
-    throughout: ``count_bits`` from ``packed_count_bits`` bounds every
-    entry, and every partial count (a gram's prefix counts no more than
-    the gram), below 2^31."""
+def _gram_blocks(delta: torch.Tensor, nb: torch.Tensor, S: int, k: int):
+    """Each row block's (first row, last row + 1, landing states, counts)
+    of the k-gram table of the first S rows of ``delta`` [>= S, V] and
+    ``nb``: int32 [(r1 - r0) * V^k] each, in the JAX package's
+    ``compose_rows`` order of grams."""
     V = delta.shape[1]
-    Vk = V ** k
-    out = torch.zeros(rows * Vk, dtype=torch.int32, device=delta.device)
     nb = nb[:S]
-    for r0, r1 in _row_blocks(S, Vk):
+    for r0, r1 in _row_blocks(S, V ** k):
         d = delta[r0:r1].reshape(-1)
         cnt = nb.index_select(0, d)
         for _ in range(k - 1):
             d = delta.index_select(0, d).reshape(-1)
             cnt = (cnt.view(-1, 1)
                    + nb.index_select(0, d).view(-1, V)).reshape(-1)
+        yield r0, r1, d, cnt
+
+
+def compose_packed(delta: torch.Tensor, nb: torch.Tensor, S: int, k: int,
+                   count_bits: int, rows: int) -> torch.Tensor:
+    """The packed k-gram table of the first S rows of ``delta`` [>= S, V]
+    and ``nb`` on their device: int32 [rows * V^k], rows S.. zero, entry
+    for entry build_stepped's. In int32 throughout: ``count_bits`` from
+    ``packed_count_bits`` bounds every entry, and every partial count (a
+    gram's prefix counts no more than the gram), below 2^31."""
+    Vk = delta.shape[1] ** k
+    out = torch.zeros(rows * Vk, dtype=torch.int32, device=delta.device)
+    for r0, r1, d, cnt in _gram_blocks(delta, nb, S, k):
         torch.bitwise_or(d << count_bits, cnt, out=out[r0 * Vk:r1 * Vk])
     return out
+
+
+def compose_two_tables(delta: torch.Tensor, nb: torch.Tensor, S: int,
+                       k: int, rows: int) -> tuple:
+    """The two-table form of ``compose_packed``'s table: (``delta_k``,
+    ``cnt_k``), int32 [rows * V^k] each, rows S.. zero, entry for entry
+    build_stepped's unpacked tables (whose int64 counts it casts to int32
+    as this sums them)."""
+    Vk = delta.shape[1] ** k
+    land, cnt_k = (torch.zeros(rows * Vk, dtype=torch.int32,
+                               device=delta.device) for _ in range(2))
+    for r0, r1, d, cnt in _gram_blocks(delta, nb, S, k):
+        land[r0 * Vk:r1 * Vk] = d
+        cnt_k[r0 * Vk:r1 * Vk] = cnt
+    return land, cnt_k
 
 
 def combine_grams(win: torch.Tensor, V: int, k: int) -> torch.Tensor:

@@ -27,8 +27,9 @@ or batch column as P sub-streams, each warmed up over ``warm_steps``
 symbols from the root before its body; the stream forms stage the 1-char
 tables in shared memory where their real rows fit (``dense_fields``), the
 batch forms read them in device memory (``batch_fields``). Their
-wrappers require ``warm_steps``, which the scanners derive from the
-tables (``multistep.warm_steps_for(tables, 1)``) in their ``_bind()``.
+wrappers require ``warm_steps``, which both scanners derive from the
+tables (``multistep.warm_steps_for(tables, 1)``) in
+``models/scanner.py:bind_scanner``.
 K2's one-thread form is one chain from the root (P = 1) and takes none.
 
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA

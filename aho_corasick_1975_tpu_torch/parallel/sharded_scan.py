@@ -49,10 +49,11 @@ import torch.distributed as dist
 
 from ..models.results import MatchSet
 from ..models.scanner import (DenseScanner, StreamSession, _guard_pos32,
-                              encode_signs, raw_lut_entry, raw_stream_for)
+                              bind_scanner, calibrate_scanner, encode_signs,
+                              raw_lut_entry, raw_stream_for)
 from ..models.snapshot import DeviceSnapshot
-from ..ops import (autotune, build, hits, multistep, scan_dense,
-                   scan_hybrid, scan_mxu, sparse)
+from ..ops import (build, hits, multistep, scan_dense, scan_hybrid,
+                   scan_mxu, sparse)
 from ..ops.decode import decode_matches_arrays, expand_hits_arrays
 from .mesh import DATA_AXIS, Mesh, ShardedTensor, data_sharded
 
@@ -201,6 +202,7 @@ class ShardedScanner:
         # ops/build.py), so that a run can show every shard went through
         # its kernels; clear it to start a new tally.
         self.shard_launches: Dict[int, Dict[str, int]] = {}
+        self._engine_planes = None
         # One lock for scans, refresh() and recalibrate(): a rebind never
         # interleaves with a scan's reads of the tables.
         self._dispatch = threading.RLock()
@@ -218,34 +220,19 @@ class ShardedScanner:
             return self._engine
 
     def _calibrate_engine(self, force: bool = False) -> None:
-        """Bind the engine measured fastest on this mesh (ops/autotune.py,
-        whose probe rebinds through ``_bind`` as for DenseScanner), cached
-        per geometry with the mesh size in the key. Under a process group
-        rank 0's choice is taken by every process."""
-        with self._dispatch:
-            tabs = self.tables
-            candidates = ["gather"]
-            if scan_mxu.build_planes(tabs.delta, tabs.nb_outputs) is not None:
-                candidates.append("mxu")
-            if self._snap.packed is not None and scan_mxu.build_planes(
-                    tabs.delta, tabs.nb_outputs,
-                    max_states=scan_hybrid.MAX_HYBRID_STATES) is not None:
-                candidates.append("hybrid")
-            choice = "gather"
-            if len(candidates) > 1:
-                key = autotune.geometry_key(
-                    tabs.n_states, self.V, self.step_k,
-                    self.mesh.local_devices()[0]) + f"|mesh{self.n_dev}"
-                choice = None if force else autotune.cached_choice(key)
-                if choice not in candidates:
-                    choice = autotune.probe(self, candidates)
-                    autotune.store_choice(key, choice)
-            if self.mesh.distributed:
-                box = [choice]
-                dist.broadcast_object_list(box, src=0)
-                choice = box[0]
-            self._engine = choice
-            self._bind()
+        """``calibrate_scanner`` on this mesh (the probe rebinds through
+        ``_bind`` as for DenseScanner), with the mesh size in the cache
+        key. Under a process group rank 0's choice is taken by every
+        process."""
+        calibrate_scanner(self, self.mesh.local_devices()[0], force,
+                          f"|mesh{self.n_dev}", self._agree)
+
+    def _agree(self, choice: str) -> str:
+        if self.mesh.distributed:
+            box = [choice]
+            dist.broadcast_object_list(box, src=0)
+            choice = box[0]
+        return choice
 
     @property
     def tables(self):
@@ -281,54 +268,11 @@ class ShardedScanner:
         return {d: self._snap.place(a, d) for d in self._snap.devices}
 
     def _bind(self) -> None:
-        """Derive what depends on the snapshot and the halo (JAX
-        ``_bind_kernels``): the halo in gram steps, the stepped kernels'
-        warm-up (``_warm_steps``, from the tables' depth; K4's, one symbol
-        longer, ``_emit_warm``) and the 1-char kernels' (K1, K2, K6, K7
-        dense, K8: ``_warm_syms``, in symbols, with or without a stepped
-        table), the raw-encode LUTs and the engine's digit planes (``_mxu``, ``_hybrid``: (planes by
-        device, count_bits, n_planes, S_pad)) with the kernels' copy keyed
-        by (state, letter), one per replica (``_planes_t`` by device,
-        ``scan_mxu.transpose_planes``). The one rebind of
-        ``__init__``, ``refresh()``, calibration and ``autotune.probe``."""
-        st = self._stepped
-        self._halo_steps = -(-self.halo // st.k) if st is not None else 0
-        self._halo_sym = self._halo_steps * st.k if st is not None else 0
-        self._warm_steps = (multistep.warm_steps_for(self.tables, st.k)
-                            if st is not None else 0)
-        self._emit_warm = (multistep.emit_warm_steps_for(self.tables, st.k)
-                           if st is not None else 0)
-        self._warm_syms = multistep.warm_steps_for(self.tables, 1)
-        self._lut_cache.clear()
-        self._mxu = self._hybrid = self._planes_t = None
-        tabs = self.tables
-        if self._engine == "mxu":
-            built = scan_mxu.build_planes(tabs.delta, tabs.nb_outputs)
-            if built is None:
-                raise ValueError(
-                    "automaton too large for the MXU engine (padded states "
-                    "or digit planes over the ops/scan_mxu.py limits); use "
-                    "engine='gather'")
-            self._mxu = (self._replicate(built[0]),) + built[1:]
-            self._planes_t = self._transpose(self._mxu[0], built[2])
-        elif self._engine == "hybrid":
-            built = None
-            if self._snap.packed is not None:
-                built = scan_mxu.build_planes(
-                    tabs.delta, tabs.nb_outputs,
-                    max_states=scan_hybrid.MAX_HYBRID_STATES)
-            if built is None:
-                raise ValueError(
-                    "automaton too large for the hybrid engine (padded "
-                    "states over ops/scan_hybrid.MAX_HYBRID_STATES, or no "
-                    "packed stepped table); use engine='gather'")
-            self._hybrid = (self._replicate(built[0]),) + built[1:]
-            self._planes_t = self._transpose(self._hybrid[0], built[2])
-
-    def _transpose(self, planes: Dict[torch.device, torch.Tensor],
-                   n_planes: int) -> Dict[torch.device, torch.Tensor]:
-        return {d: scan_mxu.transpose_planes(p, self.V, n_planes)
-                for d, p in planes.items()}
+        """``bind_scanner`` (JAX ``_bind_kernels``) with the planes and
+        their kernels' copy on every replica's device, by device. The one
+        rebind of ``__init__``, ``refresh()``, calibration and
+        ``autotune.probe``."""
+        bind_scanner(self, self._replicate)
 
     def refresh(self) -> bool:
         """Bring the replicated snapshot up to the machine's dictionary

@@ -2010,27 +2010,15 @@ def phase_sparse_kernels(build, state: dict, gate: dict, text: bytes
 
 def forced_two_table():
     """Force the two-table k-gram form as tests/test_torch_unpacked.py
-    does: the packed entry's width reads as too wide, and build_stepped
-    returns its packed table as delta_k and cnt_k. Returns the function
-    that undoes it."""
+    does: the packed entry's width reads as too wide, so the snapshot
+    composes the two tables on the card. Returns the function that undoes
+    it."""
     from aho_corasick_1975_tpu_torch.ops import multistep
-    orig, orig_bits = multistep.build_stepped, multistep.packed_count_bits
-
-    def unpacked(tables, k, cap_rows=None):
-        st = orig(tables, k)
-        if st.packed is not None:
-            cb = st.count_bits
-            st.delta_k = (st.packed >> cb).astype(np.int32)
-            st.cnt_k = (st.packed & ((1 << cb) - 1)).astype(np.int32)
-            st.packed = st.cap_packed = None
-            st.count_bits = 0
-        return st
+    orig_bits = multistep.packed_count_bits
 
     def undo():
-        multistep.build_stepped = orig
         multistep.packed_count_bits = orig_bits
 
-    multistep.build_stepped = unpacked
     multistep.packed_count_bits = lambda max_cnt, S: None
     return undo
 

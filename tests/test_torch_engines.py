@@ -393,3 +393,45 @@ def test_recalibrate_is_safe_while_another_thread_scans():
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
     assert sc.count(text) == expected
+
+
+@pytest.mark.parametrize("kind", ["dense", "mesh"])
+def test_planes_are_built_once_per_rebind_and_calibration(monkeypatch, kind):
+    """Both scanners bind through one derivation: a rebind builds the
+    digit planes once, and a calibration once for its candidates, the
+    probe's rebinds and the winner; the halo and warm-ups agree between
+    the two scanners."""
+    from aho_corasick_1975_tpu_torch.parallel.mesh import make_mesh
+    from aho_corasick_1975_tpu_torch.parallel.sharded_scan import (
+        ShardedScanner)
+    calls = []
+    build_planes = scan_mxu.build_planes
+
+    def counted(*a, **kw):
+        calls.append(kw.get("max_states"))
+        return build_planes(*a, **kw)
+
+    monkeypatch.setattr(scan_mxu, "build_planes", counted)
+    m = _calib_machine()
+
+    def scanner(**kw):
+        if kind == "dense":
+            return m.scanner(n_streams=16, device="cpu", **kw)
+        return ShardedScanner(m, make_mesh(devices=["cpu"] * 2),
+                              n_streams_per_device=8, **kw)
+
+    sc = scanner(engine="hybrid")
+    assert len(calls) == 1 and sc._hybrid is not None
+    calls.clear()
+    sc = scanner(calibrate=True)
+    assert set(sc.stats["calibration"]) == {"gather", "mxu", "hybrid"}
+    assert len(calls) == 1
+    calls.clear()
+    sc.recalibrate()
+    assert len(calls) == 1
+    other = (ShardedScanner(m, make_mesh(devices=["cpu"] * 2),
+                            n_streams_per_device=8) if kind == "dense"
+             else m.scanner(n_streams=16, device="cpu"))
+    for name in ("_halo_steps", "_halo_sym", "_warm_steps", "_emit_warm",
+                 "_warm_syms"):
+        assert getattr(sc, name) == getattr(other, name), name

@@ -1278,7 +1278,7 @@ def test_stepped_emit_boundary_needs_the_longer_warm_up(lib, k, kind):
     t = m.compile()
     assert t.max_depth == 7
     snap = DeviceSnapshot(t, step_k=1, device="cpu")
-    st = multistep.build_stepped(t, k, cap_rows=snap.cap)
+    st = jms.build_stepped(t, k, cap_rows=snap.cap)
     V, cb, P, n_body, hs = snap.V, st.count_bits, 4, 24, 1
     L = n_body * k
     lut = m.vocab.byte_lut()

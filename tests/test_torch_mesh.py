@@ -428,8 +428,6 @@ def test_packed_only_snapshot_is_bit_identical(monkeypatch, unpacked):
     if unpacked:
         monkeypatch.setattr(jms, "build_stepped",
                             _unpacked(jms.build_stepped))
-        monkeypatch.setattr(pms, "build_stepped",
-                            _unpacked(pms.build_stepped))
         monkeypatch.setattr(pms, "packed_count_bits",
                             lambda max_cnt, S: None)
     m, _ = _words_machine(3, 40, "abcd", 6)

@@ -469,10 +469,10 @@ def test_stepped_delta_cells_equal_reference(k):
                          jms.stepped_delta_cells(old, new, k)):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
-    d_old, c_old = ms.compose_rows(old.delta, old.nb_outputs,
-                                   np.arange(old.n_states), k)
-    d_new, c_new = ms.compose_rows(new.delta, new.nb_outputs,
-                                   np.arange(new.n_states), k)
+    d_old, c_old = jms.compose_rows(old.delta, old.nb_outputs,
+                                    np.arange(old.n_states), k)
+    d_new, c_new = jms.compose_rows(new.delta, new.nb_outputs,
+                                    np.arange(new.n_states), k)
     d_app = np.full_like(d_new, -7)
     c_app = np.full_like(c_new, -7)
     d_app[:old.n_states] = d_old

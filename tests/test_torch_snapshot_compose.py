@@ -1,10 +1,11 @@
-"""The snapshot's packed k-gram table, composed on its device from the
-uploaded 1-char tables (CPU tensors here), against the host's
-``build_stepped``: bit for bit at capacity, with the same ``count_bits``
-and k, in one row block or several; after a rebuild for capacity,
-vocabulary or count width; the two-table form, which the host still
-builds; the span note that says where the table was made; and the dense
-refinement's packed k=1 table (``DenseScanner._pk1``)."""
+"""The snapshot's k-gram table, composed on its device from the uploaded
+1-char tables (CPU tensors here), against the JAX package's
+``build_stepped``: bit for bit at capacity, packed with the same
+``count_bits`` and k, or in two tables where the packed entry is forced
+too wide, in one row block or several; after a rebuild for capacity,
+vocabulary or count width; the span note that says where the table was
+made; and the dense refinement's packed k=1 table
+(``DenseScanner._pk1``)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import random
 import numpy as np
 import pytest
 
+from aho_corasick_1975_tpu.ops import multistep as jms
 from aho_corasick_1975_tpu_torch import DenseScanner, Machine
 from aho_corasick_1975_tpu_torch.core.builder import round_cap
 from aho_corasick_1975_tpu_torch.models.snapshot import DeviceSnapshot
@@ -66,6 +68,7 @@ def _host_max(t, k: int) -> int:
 
 
 def _unpacked(orig):
+    """The JAX package's build_stepped, its table returned unpacked."""
     def build_stepped(tables, k, cap_rows=None):
         st = orig(tables, k)
         if st.packed is not None:
@@ -78,24 +81,50 @@ def _unpacked(orig):
     return build_stepped
 
 
+def _two_table_width(monkeypatch):
+    """The port's packed entry reads as too wide: the two-table form."""
+    monkeypatch.setattr(ms, "packed_count_bits", lambda max_cnt, S: None)
+
+
 def _snapshot(t, k: int) -> DeviceSnapshot:
     """A snapshot at k; at k = 1 one of the 1-char tables alone, whose
-    packed table is then composed (as "auto" does where it fits)."""
+    packed table is then composed (as "auto" does where it fits), or, at
+    the two-table width, its two tables (which no snapshot keeps at k =
+    1)."""
     snap = DeviceSnapshot(t, step_k=k, device="cpu")
     if k == 1:
-        assert snap.packed is None and snap._compose(1)
+        assert snap.stepped is None
+        if not snap._compose(1):
+            snap.delta_k, snap.cnt_k = ms.compose_two_tables(
+                snap.dflat.view(snap.cap, snap.V), snap.nb_out, t.n_states,
+                1, snap.cap)
+            snap.stepped = ms.SteppedTables(k=1, V=snap.V, count_bits=0)
     return snap
 
 
+def _at_cap(table: np.ndarray, cap: int, Vk: int) -> np.ndarray:
+    out = np.zeros(cap * Vk, np.int32)
+    out[:table.size] = table
+    return out
+
+
 def _same_as_host(snap, k: int):
-    """The snapshot's tables equal build_stepped's at its capacity."""
+    """The snapshot's tables equal the JAX package's build_stepped at its
+    capacity: packed, or forced unpacked for the two-table form."""
     t = snap.tables
-    st = ms.build_stepped(t, k, cap_rows=snap.cap)
-    assert st.packed is not None and snap.packed is not None
     assert (snap.step_k, snap.stepped.k) == (k, k)
-    assert snap.stepped.count_bits == st.count_bits
-    assert snap.stepped.packed is None
-    np.testing.assert_array_equal(snap.packed.numpy(), st.cap_packed)
+    if snap.packed is not None:
+        st = jms.build_stepped(t, k, cap_rows=snap.cap)
+        assert st.packed is not None and snap.delta_k is None
+        assert snap.stepped.count_bits == st.count_bits
+        np.testing.assert_array_equal(snap.packed.numpy(), st.cap_packed)
+    else:
+        st = _unpacked(jms.build_stepped)(t, k)
+        assert snap.stepped.count_bits == st.count_bits == 0
+        for name in ("delta_k", "cnt_k"):
+            np.testing.assert_array_equal(
+                getattr(snap, name).numpy(),
+                _at_cap(getattr(st, name), snap.cap, st.Vk))
     dflat = np.zeros((snap.cap, snap.V), np.int32)
     dflat[:t.n_states] = t.delta
     np.testing.assert_array_equal(snap.dflat.numpy(), dflat.reshape(-1))
@@ -103,9 +132,13 @@ def _same_as_host(snap, k: int):
 
 @pytest.mark.parametrize("k", [1, 2, 3])
 @pytest.mark.parametrize("kind", sorted(DICTS))
-def test_composed_table_is_build_stepped(kind, k):
+@pytest.mark.parametrize("form", ["packed", "two_table"])
+def test_composed_table_is_build_stepped(monkeypatch, form, kind, k):
+    if form == "two_table":
+        _two_table_width(monkeypatch)
     t = _machine(DICTS[kind](k)).compile()
     snap = _snapshot(t, k)
+    assert (snap.packed is None) == (form == "two_table")
     delta = snap.dflat.view(snap.cap, snap.V)
     got = ms.max_gram_count(delta, snap.nb_out, t.n_states, k)
     assert got == _host_max(t, k)
@@ -176,49 +209,42 @@ def _build_note(**kw) -> tuple:
     return snap, recs[0]["counts"]
 
 
-@pytest.mark.parametrize("form", ["device", "host", "none"])
+@pytest.mark.parametrize("form", ["packed", "two_table", "none"])
 def test_the_build_notes_where_it_composed(monkeypatch, form):
-    """The packed table is composed on the device with no host build; the
-    two-table width (forced) still takes build_stepped's host tables, or
-    none with ``packed_only``."""
-    if form == "device":
-        def refuse(*a, **kw):
-            raise AssertionError("the packed path built a table on the host")
-        monkeypatch.setattr(ms, "build_stepped", refuse)
-        monkeypatch.setattr(ms, "pack", refuse)
-    else:
-        monkeypatch.setattr(ms, "build_stepped",
-                            _unpacked(ms.build_stepped))
-        monkeypatch.setattr(ms, "packed_count_bits", lambda max_cnt, S: None)
+    """Either form of the table is composed on the device, the two-table
+    width (forced) too, and none is kept with ``packed_only``; no host
+    composer is left in the port."""
+    assert not any(hasattr(ms, f) for f in
+                   ("build_stepped", "pack", "compose_rows"))
+    if form != "packed":
+        _two_table_width(monkeypatch)
     snap, counts = _build_note(packed_only=form == "none")
-    assert counts["compose"] == form and counts["k"] == 2
-    if form == "device":
-        monkeypatch.undo()
-        _same_as_host(snap, 2)
-    elif form == "host":
-        st = ms.build_stepped(snap.tables, 2)
-        assert snap.packed is None and snap.stepped.count_bits == 0
-        np.testing.assert_array_equal(snap.delta_k.numpy()[:st.delta_k.size],
-                                      st.delta_k)
-        np.testing.assert_array_equal(snap.cnt_k.numpy()[:st.cnt_k.size],
-                                      st.cnt_k)
-    else:
+    assert counts["k"] == 2
+    assert counts["compose"] == ("none" if form == "none" else "device")
+    if form == "none":
         assert snap.stepped is None and snap.packed is None
         assert snap.delta_k is None and snap.cnt_k is None
+    else:
+        assert (snap.packed is None) == (form == "two_table")
+        _same_as_host(snap, 2)
 
 
 @pytest.mark.parametrize("kind", sorted(DICTS))
 def test_pk1_is_the_packed_1char_table(kind):
     """The dense refinement's k=1 table, composed on the device at k = 2,
-    equals pack(delta, nb, 1, cb1), and again after an in-place refresh."""
+    equals the JAX package's k=1 composition packed at cb1, and again
+    after an in-place refresh."""
     m = _machine(DICTS[kind](2))
     sc = DenseScanner(m, n_streams=4, step_k=2, device="cpu")
     for _ in range(2):
         t = sc.tables
         pk1, cb1 = sc._pk1()
         assert cb1 == max(1, int(t.nb_outputs.max()).bit_length())
+        d, cnt = jms.compose_rows(t.delta, t.nb_outputs,
+                                  np.arange(t.n_states), 1)
         np.testing.assert_array_equal(
-            pk1.numpy(), ms.pack(t.delta, t.nb_outputs, 1, cb1))
+            pk1.numpy(),
+            ((d.astype(np.int64) << cb1) | cnt).astype(np.int32).ravel())
         m.insert_keyword("abba")
         m.insert_keyword("bba")
         assert sc.refresh() is True

@@ -2,12 +2,12 @@
 
 Where (state, count) need more than 31 bits the k-gram table is kept as two
 int32 tables, ``delta_k`` and ``cnt_k``. Small automata never need it, so
-the tests force it as tests/test_multistep.py, test_refresh.py and
-test_count_many.py do: ``build_stepped`` is wrapped, in both packages, to
+the tests force it: the JAX package's ``build_stepped`` is wrapped, as
+tests/test_multistep.py, test_refresh.py and test_count_many.py do, to
 return its table unpacked, and the port's ``packed_count_bits`` reports
-the packed entry too wide, so that its snapshot does not compose the
-packed table on its device. Then the port's snapshot must hold the JAX
-snapshot's k and tables bit for bit, and count, count_many, find_matches,
+the packed entry too wide, so that its snapshot composes the two tables
+on its device. Then the port's snapshot must hold the JAX snapshot's k
+and tables bit for bit, and count, count_many, find_matches,
 the prefilter and refresh must equal the JAX scanner's. Exact throughout.
 """
 
@@ -42,7 +42,6 @@ def _unpacked(orig):
 @pytest.fixture(autouse=True)
 def _force_unpacked(monkeypatch):
     monkeypatch.setattr(jms, "build_stepped", _unpacked(jms.build_stepped))
-    monkeypatch.setattr(pms, "build_stepped", _unpacked(pms.build_stepped))
     monkeypatch.setattr(pms, "packed_count_bits", lambda max_cnt, S: None)
 
 

@@ -1,6 +1,6 @@
 """Seeded inputs shared by the port's op tests (tests/test_torch_ops.py,
 tests/test_torch_kernel_body.py): automaton tables from the port's own
-snapshot, and stream buffers, count_many batches and the prefilter's
+snapshot and the JAX package's k-gram composer, and stream buffers, count_many batches and the prefilter's
 mostly-OOV streams made with numpy, at small sizes."""
 
 from __future__ import annotations
@@ -9,11 +9,11 @@ import random
 
 import numpy as np
 
+from aho_corasick_1975_tpu.ops import multistep as jms
 from aho_corasick_1975_tpu_torch import Machine
 from aho_corasick_1975_tpu_torch.models.snapshot import DeviceSnapshot
-from aho_corasick_1975_tpu_torch.ops.multistep import (build_stepped,
-                                                       emit_warm_steps_for,
-                                                       pack, warm_steps_for)
+from aho_corasick_1975_tpu_torch.ops.multistep import (emit_warm_steps_for,
+                                                       warm_steps_for)
 from aho_corasick_1975_tpu_torch.ops.sparse import elide_windows
 
 KINDS = ("ids", "raw_u8", "raw_i32")
@@ -43,14 +43,17 @@ def tables(k: int, seed: int = 0) -> dict:
     m = machine(seed)
     t = m.compile()
     snap = DeviceSnapshot(t, step_k=1, device="cpu")
-    st = build_stepped(t, k, cap_rows=snap.cap)
+    st = jms.build_stepped(t, k, cap_rows=snap.cap)
     cb1 = max(1, snap.max_nb.bit_length())
+    d1, cnt1 = jms.compose_rows(t.delta, t.nb_outputs, np.arange(t.n_states),
+                                1)
     lut = m.vocab.byte_lut()
     return dict(machine=m, V=snap.V, k=k, count_bits=st.count_bits,
                 n_states=t.n_states,
                 dflat=snap.dflat.numpy(), nb_out=snap.nb_out.numpy(),
                 packed=st.cap_packed, cb1=cb1,
-                pk1=pack(t.delta, t.nb_outputs, 1, cb1),
+                pk1=((d1.astype(np.int64) << cb1) | cnt1).astype(
+                    np.int32).ravel(),
                 warm_steps=warm_steps_for(t, k),
                 emit_warm=emit_warm_steps_for(t, k),
                 byte_lut=np.where(lut < snap.V, lut, 0).astype(np.int32))
