@@ -417,10 +417,11 @@ class DenseScanner:
     def refresh(self) -> bool:
         """Bring the pinned snapshot up to the machine's current dictionary
         (``models/scanner.py:DenseScanner.refresh``): re-emit the dense
-        tables on the host, diff them against the snapshot, recompute the
-        k-gram cells routed through a changed edge
-        (``ops/multistep.py:stepped_delta_cells``) and write rows and cells
-        into the device tables in place.
+        tables on the host, upload them, and diff them against the
+        snapshot on its device, where the changed rows and the k-gram
+        cells routed through a changed edge are found and recomputed
+        (``models/snapshot.py:DeviceSnapshot.refresh``) and written into
+        the device tables in place.
 
         Returns True for the in-place path (or no change), False when it
         fell back to a full rebuild (vocabulary growth, state capacity,

@@ -12,7 +12,8 @@ both packages hold bit-identical tables, and so that ``refresh`` can bring
 an online insertion in without changing a shape.
 
 The device tensors are the only copy the snapshot keeps: the port reads no
-host mirror, so a refresh updates the device tables alone, in place. A mesh
+host mirror, so a refresh finds what changed on the device, against the
+live tables, and updates the device tables alone, in place. A mesh
 scanner (parallel/sharded_scan.py) asks for a replica of every table on
 each distinct device of its mesh (``devices``), and for ``packed_only``:
 no two-table form, as the JAX mesh scanner's snapshot. A refresh writes
@@ -29,7 +30,7 @@ import torch
 
 from ..core.builder import round_cap
 from ..ops import multistep
-from ..ops.multistep import SteppedTables, choose_k, stepped_delta_cells
+from ..ops.multistep import SteppedTables, choose_k
 from ..utils import profiling
 
 
@@ -59,8 +60,8 @@ class DeviceSnapshot:
 
     def place(self, a: np.ndarray, device=None) -> torch.Tensor:
         """Synchronous upload of a host array to ``device`` (default: the
-        snapshot's device): every table upload and scatter goes through
-        here, the span ``ac.upload``."""
+        snapshot's device): every table upload goes through here, the
+        span ``ac.upload``."""
         with profiling.span("ac.upload") as sp:
             a = np.ascontiguousarray(a)
             sp.note("bytes", a.nbytes)
@@ -214,17 +215,21 @@ class DeviceSnapshot:
         """Apply ``new`` (a later snapshot of the same machine) in place
         (``models/snapshot.py:DeviceSnapshot.refresh``).
 
-        Returns "noop" (same content), "inplace" (row and cell scatter into
+        Returns "noop" (same content), "inplace" (row and cell writes into
         the device tables, both k-gram tables in the two-table form), or
         "rebuild:<reason>", a full rebuild for its reason: "vocab"
         (vocabulary growth), "cap" (state capacity), "count_bits" (the
         packed entry's width), or "delta" (a delta past a quarter of the
-        k-gram table). The row diff and the k-gram delta are the span
-        ``ac.refresh.diff``. The scatters are enqueued on the
-        device's current stream; the caller serialises this against scans
-        (the scanner's dispatch lock), so a scan on that stream sees either
-        the old tables or the new ones."""
-        old = self.tables
+        k-gram table). The diff runs on the snapshot's device: ``new``'s
+        1-char tables are uploaded once and compared with the live tables'
+        first rows, which hold the old version, and the changed rows and
+        k-gram cells and their new values are found there
+        (``ops/multistep.py:GramDelta``), with one host sync for their
+        sizes and largest count; all of it is the span ``ac.refresh.diff``
+        (notes ``on_device`` 1 and ``bytes``, the upload). The writes are
+        enqueued on the device's current stream; the caller serialises
+        this against scans (the scanner's dispatch lock), so a scan on that
+        stream sees either the old tables or the new ones."""
         t0 = time.perf_counter()
         self.last_refresh = {}
         if new.vocab_size != self.V:
@@ -232,26 +237,23 @@ class DeviceSnapshot:
         if new.n_states > self.cap:
             return self._rebuild(new, "cap")
 
-        S_old, S_new = old.n_states, new.n_states
+        S_old, S_new, V = self.tables.n_states, new.n_states, self.V
+        st = self.stepped
         with profiling.span("ac.refresh.diff") as sp:
-            changed = np.zeros(S_new, dtype=bool)
-            changed[:S_old] = (
-                np.any(old.delta != new.delta[:S_old], axis=1)
-                | (old.nb_outputs != new.nb_outputs[:S_old]))
-            changed[S_old:] = True
-            rows1 = np.flatnonzero(changed)
-            sp.note("rows", len(rows1))
-            if not len(rows1):
+            d_new = self.place(new.delta)
+            nb_new = self.place(new.nb_outputs)
+            sp.note("on_device", 1)
+            sp.note("bytes", new.delta.nbytes + new.nb_outputs.nbytes)
+            diff = multistep.GramDelta(
+                self.dflat[:S_old * V].view(S_old, V), self.nb_out[:S_old],
+                d_new, nb_new, None if st is None else st.k)
+            n_rows, n_cells, max_cnt = diff.sizes()
+            sp.note("rows", n_rows)
+            if not n_rows:
                 self.tables = new
                 return "noop"
-
-            n_cells = 0
-            cell_update = None
             rebuild = None
-            st = self.stepped
             if st is not None:
-                cells, land, cnt = stepped_delta_cells(old, new, st.k)
-                n_cells = len(cells)
                 sp.note("cells", n_cells)
                 # Past a quarter of the table a rebuild beats the scatter
                 # (the JAX package's measured rule); below 64k cells stay
@@ -259,42 +261,35 @@ class DeviceSnapshot:
                 if n_cells > max(S_new * st.Vk // 4, 1 << 16):
                     rebuild = "delta"
                 elif self.packed is not None:
-                    max_cnt = int(cnt.max()) if cnt.size else 0
                     state_bits = max(1, int(S_new - 1).bit_length())
                     if (max_cnt.bit_length() > st.count_bits
                             or state_bits + st.count_bits > 31):
                         rebuild = "count_bits"
+            if rebuild is None:
+                rows = diff.rows()
+                writes = [("dflat", rows, d_new.index_select(0, rows), V),
+                          ("nb_out", rows, nb_new.index_select(0, rows), 1)]
+                if st is not None:
+                    cells, land, cnt = diff.cells()
+                    if self.packed is not None:
+                        writes.append(("packed", cells, (
+                            (land.long() << st.count_bits) | cnt).int(), 1))
                     else:
-                        cell_update = [("packed", (
-                            (land.astype(np.int64) << st.count_bits)
-                            | cnt).astype(np.int32))]
-                else:
-                    cell_update = [("delta_k", land),
-                                   ("cnt_k", cnt.astype(np.int32))]
+                        writes += [("delta_k", cells, land, 1),
+                                   ("cnt_k", cells, cnt.int(), 1)]
         if rebuild is not None:
             return self._rebuild(new, rebuild)
 
-        self._scatter("dflat", rows1, new.delta[rows1], self.V)
-        self._scatter("nb_out", rows1, new.nb_outputs[rows1], 1)
-        for name, vals in cell_update or ():
-            self._scatter(name, cells, vals, 1)
+        for name, index, vals, width in writes:
+            for d in self.devices:
+                self.replica(d)[name].view(-1, width).index_copy_(
+                    0, index.to(d), vals.to(d).view(-1, width))
         self.tables = new
         self.max_nb = int(new.nb_outputs.max()) if S_new else 0
-        self.last_refresh = {"rows": int(len(rows1)), "cells": int(n_cells),
+        self.last_refresh = {"rows": n_rows, "cells": n_cells,
                              "seconds": time.perf_counter() - t0}
         return "inplace"
 
     def _rebuild(self, new, reason: str) -> str:
         self._build(new)
         return f"rebuild:{reason}"
-
-    def _scatter(self, name: str, rows: np.ndarray, vals: np.ndarray,
-                 width: int) -> None:
-        """Rows of ``width`` entries of the flat table ``name``, written in
-        place into every replica (the port of
-        ``models/snapshot.py:_make_row_scatter``)."""
-        rows = rows.astype(np.int64)
-        vals = np.asarray(vals, np.int32).reshape(-1, width)
-        for d in self.devices:
-            self.replica(d)[name].view(-1, width).index_copy_(
-                0, self.place(rows, d), self.place(vals, d))

@@ -1,16 +1,17 @@
 """k-char stepped scan tables, K3 the packed k-gram count, K5 its
 count_many form and K9 the two-table count.
 
-Tables: ``choose_k`` and ``stepped_delta_cells`` are the numpy functions
-of the JAX package's ``ops/multistep.py``, which cannot be imported
-without JAX: the choice of k, and the cells an online insertion changes
-(refresh). A snapshot composes its k-gram table on its own device from the
-uploaded 1-char tables, in torch ops (``max_gram_count``,
-``packed_count_bits``, ``compose_packed``, ``compose_two_tables``): the
-packed table ``(next_state << count_bits) | gram_count``, so that one
-gather advances k symbols and counts every match inside them, or, where
-(state, count) need more than 31 bits, the two tables ``delta_k`` and
-``cnt_k``, entry for entry the JAX package's ``build_stepped``.
+Tables: ``choose_k`` is the JAX package's choice of k (its
+``ops/multistep.py`` cannot be imported without JAX). A snapshot composes
+its k-gram table on its own device from the uploaded 1-char tables, in
+torch ops (``max_gram_count``, ``packed_count_bits``, ``compose_packed``,
+``compose_two_tables``): the packed table ``(next_state << count_bits) |
+gram_count``, so that one gather advances k symbols and counts every match
+inside them, or, where (state, count) need more than 31 bits, the two
+tables ``delta_k`` and ``cnt_k``, entry for entry the JAX package's
+``build_stepped``. An in-place refresh finds the rows and cells an online
+insertion changes on the same device (``GramDelta``: the JAX package's row
+diff and ``stepped_delta_cells``).
 
 Device half: K3 (csrc/stepped_scan.cu) is the count of
 ``ops/multistep.py:stepped_count_core`` (``make_stepped_count_stream`` /
@@ -31,7 +32,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..core.builder import round_cap
@@ -60,82 +60,6 @@ def choose_k(n_states: int, vocab_size: int, budget_bytes: int,
         if n_states * (vocab_size ** cand) * 4 <= budget_bytes:
             k = cand
     return k
-
-
-def stepped_delta_cells(old, new, k: int):
-    """Exact changed-cell set of the k-gram stepped table between two
-    snapshots of one machine (``ops/multistep.py:stepped_delta_cells``,
-    where the derivation is). dirty_1 marks the (state, letter) cells whose
-    hop or landing count changed; dirty_{j+1}[m, c.g] = dirty_1[m, c] |
-    dirty_j[delta[m, c], g]; the top level is enumerated sparsely, so the
-    cost is O(S*V + output cells).
-
-    Returns (cells, land, cnt): flat int32 indices into the [S_new * V^k]
-    table, the recomputed landing states (int32) and the recomputed k-gram
-    counts (int64)."""
-    assert k >= 1
-    S_old = old.n_states
-    delta, nb = new.delta, new.nb_outputs
-    S_new, V = delta.shape
-    dirty1 = np.ones((S_new, V), dtype=bool)
-    np.not_equal(old.delta, delta[:S_old], out=dirty1[:S_old])
-    nbD = np.ones(S_new, dtype=bool)
-    np.not_equal(old.nb_outputs, nb[:S_old], out=nbD[:S_old])
-    dirty1 |= nbD[delta]
-    if k == 1:
-        sp, cp = np.nonzero(dirty1)
-        cells = (sp.astype(np.int64) * V + cp).astype(np.int32)
-        land = delta[sp, cp].astype(np.int32)
-        return cells, land, nb[land].astype(np.int64)
-    dirty = dirty1
-    for _ in range(k - 2):
-        G = dirty.shape[1]
-        dirty = (dirty1[:, :, None] | dirty[delta]).reshape(S_new, V * G)
-    G = dirty.shape[1]
-    Vk = V * G
-
-    # sparse top level: per (state, first letter) pair, all G tails when
-    # its own hop is dirty, else the landing state's changed tails
-    t_cnt = dirty.sum(axis=1, dtype=np.int64)
-    sp, cp = np.nonzero(dirty1 | (t_cnt[delta] > 0))
-    if not len(sp):
-        z = np.zeros(0, np.int32)
-        return z, z, np.zeros(0, np.int64)
-    mp = delta[sp, cp]
-    full = dirty1[sp, cp]
-    cnts = np.where(full, G, t_cnt[mp])
-    offs = np.cumsum(cnts) - cnts
-    tails_out = np.empty(int(cnts.sum()), np.int64)
-    fi = np.flatnonzero(full)
-    if len(fi):
-        idx = (offs[fi][:, None] + np.arange(G, dtype=np.int64)).reshape(-1)
-        tails_out[idx] = np.tile(np.arange(G, dtype=np.int64), len(fi))
-    si = np.flatnonzero(~full & (cnts > 0))
-    if len(si):
-        # CSR over the changed-tail lists of the dirty states
-        changed_states = np.flatnonzero(t_cnt > 0)
-        _, tails_vals = np.nonzero(dirty[changed_states])
-        tails_start = np.concatenate(
-            [[0], np.cumsum(t_cnt[changed_states])])[:-1]
-        inv = np.full(S_new, -1, np.int64)
-        inv[changed_states] = np.arange(len(changed_states))
-        lens = cnts[si]
-        src0 = tails_start[inv[mp[si]]]
-        inner = (np.arange(int(lens.sum()), dtype=np.int64)
-                 - np.repeat(np.cumsum(lens) - lens, lens))
-        tails_out[np.repeat(offs[si], lens) + inner] = \
-            tails_vals[np.repeat(src0, lens) + inner]
-    srep = np.repeat(sp.astype(np.int64), cnts)
-    grep = np.repeat(cp.astype(np.int64), cnts) * G + tails_out
-    cells = (srep * Vk + grep).astype(np.int32)
-
-    # recompute the cells' values by walking the gram's letters
-    m = srep
-    cnt = np.zeros(len(srep), np.int64)
-    for i in range(k):
-        m = delta[m, grep // (V ** (k - 1 - i)) % V]
-        cnt += nb[m]
-    return cells, m.astype(np.int32), cnt
 
 
 # A snapshot's k-gram table, composed on its device from the uploaded 1-char
@@ -226,6 +150,115 @@ def compose_two_tables(delta: torch.Tensor, nb: torch.Tensor, S: int,
         land[r0 * Vk:r1 * Vk] = d
         cnt_k[r0 * Vk:r1 * Vk] = cnt
     return land, cnt_k
+
+
+class GramDelta:
+    """What an in-place refresh writes, found on the tables' device: the
+    rows of the 1-char tables that differ between two versions of one
+    machine, and the cells of the k-gram table that they change, with the
+    cells' new landing states and counts. The row diff of the JAX
+    package's ``models/snapshot.py:DeviceSnapshot.refresh`` and its
+    ``ops/multistep.py:stepped_delta_cells``, where the derivation is:
+    dirty_1 marks the (state, letter) cells whose hop or landing count
+    changed, dirty_{j+1}[m, c.g] = dirty_1[m, c] | dirty_j[delta[m, c], g],
+    and the top level, here a dense mask in ``_row_blocks``, gives the same
+    cells in the same ascending order.
+
+    ``d_old`` [S_old, V] and ``nb_old`` [S_old] are the old version's
+    tables, ``d_new`` [S_new, V] and ``nb_new`` [S_new] the new one's
+    (int32, one device, S_new >= S_old); ``k`` the k-gram table's, None
+    where there is none (rows only). Construction enqueues the masks and
+    their sizes; ``sizes()`` reads them in one sync; ``rows()`` and
+    ``cells()`` then enumerate them without another."""
+
+    def __init__(self, d_old: torch.Tensor, nb_old: torch.Tensor,
+                 d_new: torch.Tensor, nb_new: torch.Tensor,
+                 k: Optional[int]):
+        S_old = d_old.shape[0]
+        S, V = d_new.shape
+        self.d, self.nb, self.k = d_new, nb_new, k
+        flat = d_new.reshape(-1)
+        nbD = torch.ones(S, dtype=torch.bool, device=d_new.device)
+        torch.ne(nb_old, nb_new[:S_old], out=nbD[:S_old])
+        dirty1 = torch.ones(S, V, dtype=torch.bool, device=d_new.device)
+        torch.ne(d_old, d_new[:S_old], out=dirty1[:S_old])
+        self.changed = dirty1.any(dim=1) | nbD
+        sizes = [self.changed.sum()]
+        self._top: list = []
+        if k is not None:
+            dirty1 |= nbD.index_select(0, flat).view(S, V)
+            if k == 1:
+                self._top = [(0, dirty1)]
+            else:
+                tail = dirty1
+                for _ in range(k - 2):
+                    tail = self._extend(dirty1, tail, 0, S)
+                self._top = [(r0, self._extend(dirty1, tail, r0, r1))
+                             for r0, r1 in _row_blocks(S, V ** k)]
+            sizes.append(self._max_count(dirty1, flat))
+            sizes += [m.sum() for _, m in self._top]
+        self._sizes = torch.stack([n.long() for n in sizes])
+
+    def _extend(self, dirty1, tail, r0: int, r1: int) -> torch.Tensor:
+        """Rows r0..r1 of the next level up from ``tail`` [S, G]: bool
+        [r1 - r0, V * G]."""
+        V, G = dirty1.shape[1], tail.shape[1]
+        d = self.d[r0:r1].reshape(-1)
+        up = tail.index_select(0, d).view(r1 - r0, V, G)
+        return (up | dirty1[r0:r1, :, None]).view(r1 - r0, V * G)
+
+    def _max_count(self, dirty1, flat) -> torch.Tensor:
+        """The largest new count of a changed cell, -1 where none, by
+        ``max_gram_count``'s DP run beside its restriction to the changed
+        cells: hd_j[m] is the largest count of a changed j-gram from m,
+        h_j[m] of any (int64 past k = 1, as the JAX package's counts)."""
+        S, V = dirty1.shape
+        nb_d = self.nb.index_select(0, flat).view(S, V)
+        nb64 = nb_d.long() if self.k > 1 else None
+        # filled in place: at k = 1 nb_d is the diff's largest temporary
+        hd = nb_d.masked_fill_(~dirty1, -1).amax(dim=1).long()
+        h = None if nb64 is None else nb64.amax(dim=1)
+        for _ in range(self.k - 1):
+            hd_d = hd.index_select(0, flat).view(S, V)
+            whole = nb64 + h.index_select(0, flat).view(S, V)
+            hd = torch.where(dirty1, whole, torch.where(
+                hd_d >= 0, nb64 + hd_d, -1)).amax(dim=1)
+            h = whole.amax(dim=1)
+        return hd.amax()
+
+    def sizes(self) -> tuple:
+        """(changed rows, changed cells, their largest new count, 0 where
+        none), in one host sync."""
+        got = self._sizes.tolist()
+        self._n_rows, self._n_top = got[0], got[2:]
+        if self.k is None:
+            return self._n_rows, 0, 0
+        return self._n_rows, sum(self._n_top), max(got[1], 0)
+
+    def rows(self) -> torch.Tensor:
+        """The changed rows, ascending (int64); after ``sizes()``."""
+        return torch.nonzero_static(self.changed,
+                                    size=self._n_rows).view(-1)
+
+    def cells(self) -> tuple:
+        """(cells, land, cnt) after ``sizes()``: the changed cells' flat
+        indices into the [S_new * V^k] table, ascending (int64), their
+        landing states (int32) and their counts (int64), recomputed by
+        walking each gram's letters."""
+        V, k = self.d.shape[1], self.k
+        Vk = V ** k
+        cells = torch.cat([
+            torch.nonzero_static(m.view(-1), size=n).view(-1) + r0 * Vk
+            for (r0, m), n in zip(self._top, self._n_top)])
+        flat = self.d.reshape(-1)
+        m = cells // Vk
+        cnt = torch.zeros_like(cells)
+        for i in range(k):
+            c = cells // V ** (k - 1 - i) % V
+            land = flat.index_select(0, m * V + c)
+            cnt += self.nb.index_select(0, land)
+            m = land.long()
+        return cells, land, cnt
 
 
 def combine_grams(win: torch.Tensor, V: int, k: int) -> torch.Tensor:

@@ -411,8 +411,8 @@ def max_abs_err(a, b) -> int:
 
 # The plain-torch steps that no kernel replaces, on the paths that run
 # them: the device block filter (prefilter counts of a resident tensor),
-# the refresh's row scatter, and find_matches' refinement of live grams
-# (both forms). name -> {"calls", "ms", "bytes"}, summed over the calls
+# the snapshot's refresh (its diff and writes), and find_matches'
+# refinement of live grams (both forms). name -> {"calls", "ms", "bytes"}, summed over the calls
 # timed by plain_ops.
 PLAIN_OPS: dict = {}
 
@@ -424,8 +424,8 @@ def plain_ops(*expect: str):
     count), into PLAIN_OPS, with the bytes it must move: each tensor
     argument read once (the tables whole: their capacity rows), each
     output written once; the block filter reads the body and writes the
-    order; the scatter uploads its rows and values and writes the values
-    into the table. Fails unless each step named in `expect` was timed
+    order; a snapshot's refresh uploads the new 1-char tables, which bind
+    it (its diff and writes run on the card). Fails unless each step named in `expect` was timed
     in the block, so that a renamed or rebound step cannot drop its row
     unnoticed."""
     from aho_corasick_1975_tpu_torch.models import scanner as msc
@@ -441,9 +441,8 @@ def plain_ops(*expect: str):
         _, nB, L_blk, _ = a
         return 4 * nB * L_blk + nbytes(out[0])
 
-    def scatter_bytes(a, out):
-        rows, vals = np.asarray(a[2]), np.asarray(a[3])
-        return 8 * rows.size + 2 * 4 * vals.size
+    def refresh_bytes(a, out):
+        return a[1].delta.nbytes + a[1].nb_outputs.nbytes
 
     def timed(name, orig, moved):
         def fn(*a, **k):
@@ -459,7 +458,7 @@ def plain_ops(*expect: str):
     patches = [(msc, "hits_extract", refine_bytes),
                (msc, "hits_extract_dense", refine_bytes),
                (sparse, "block_filter", filter_bytes),
-               (msnap.DeviceSnapshot, "_scatter", scatter_bytes)]
+               (msnap.DeviceSnapshot, "refresh", refresh_bytes)]
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
              patches]
     try:
@@ -3038,8 +3037,8 @@ def main() -> int:
     phase_sessions(act, build, machine, sc, text, n, ms.ends,
                    min(count_times))
 
-    # 8. refresh at bench_refresh.py's shape (its row scatters timed)
-    with plain_ops("_scatter"):
+    # 8. refresh at bench_refresh.py's shape (the snapshot's refresh timed)
+    with plain_ops("refresh"):
         phase_refresh(act, build)
 
     # 9. the sparse prefilter: (a)-(b), (c) the auto gate, (d) kernels

@@ -5,8 +5,11 @@ The cases of tests/test_refresh.py other than the unpacked two-table mode
 (the port drops that table): after online insertions a refreshed scanner
 scans exactly as a freshly built one, takes the in-place path where the
 reference does and rebuilds where it does, and its device tables equal the
-JAX snapshot's bit for bit after the same insertions. The port's
-stepped_delta_cells equals the JAX package's. find_matches after a refresh
+JAX snapshot's bit for bit after the same insertions. The port's device
+diff finds the JAX package's changed rows and stepped_delta_cells' cells,
+and an in-place refresh at Test 3's shape class, in the two-table form and
+on a mesh's replicas leaves the tables of a fresh snapshot. find_matches
+after a refresh
 goes through the per-version packed k=1 table, and counts through the
 rebound halo and the stepped and 1-char kernels' rebound warm-ups.
 """
@@ -451,10 +454,28 @@ def test_refresh_revalidates_the_raw_lut():
     np.testing.assert_array_equal(sc.count_many([b"xa", b"a\x00"]), [0, 1])
 
 
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _changed_rows(old, new) -> np.ndarray:
+    """The JAX package's refresh's row diff (``models/snapshot.py:
+    DeviceSnapshot.refresh``), restated: rows whose hop row or count
+    changed, and every new row."""
+    S_old = old.n_states
+    changed = np.ones(new.n_states, bool)
+    changed[:S_old] = (np.any(old.delta != new.delta[:S_old], axis=1)
+                       | (old.nb_outputs != new.nb_outputs[:S_old]))
+    return np.flatnonzero(changed)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3])
 def test_stepped_delta_cells_equal_reference(k):
-    """The port's stepped_delta_cells equals the JAX package's, and the
-    cells it returns turn the old k-gram table into the new one."""
+    """The device derivation (``GramDelta`` on device="cpu") finds the JAX
+    package's changed rows and its stepped_delta_cells' cells, landing
+    states (int32) and counts (int64) element for element, reads their
+    sizes and largest count in one ``sizes()``, and the cells it returns
+    turn the old k-gram table into the new one."""
     rng = np.random.default_rng(11)
     alphabet = "abc"
     m = ac.Machine()
@@ -464,11 +485,19 @@ def test_stepped_delta_cells_equal_reference(k):
         m.insert_keyword("".join(rng.choice(list(alphabet),
                                             int(rng.integers(1, 8)))))
     new = m.compile()
-    cells, land, cnt = ms.stepped_delta_cells(old, new, k)
-    for got, want in zip((cells, land, cnt),
-                         jms.stepped_delta_cells(old, new, k)):
-        assert got.dtype == want.dtype
-        np.testing.assert_array_equal(got, want)
+    delta = ms.GramDelta(_t(old.delta), _t(old.nb_outputs), _t(new.delta),
+                         _t(new.nb_outputs), k)
+    n_rows, n_cells, max_cnt = delta.sizes()
+    rows = delta.rows()
+    cells, land, cnt = delta.cells()
+    want = jms.stepped_delta_cells(old, new, k)
+    np.testing.assert_array_equal(rows.numpy(), _changed_rows(old, new))
+    assert (n_rows, n_cells, max_cnt) == (len(rows), len(want[0]),
+                                          int(want[2].max()))
+    assert land.dtype == torch.int32 and cnt.dtype == torch.int64
+    for got, w in zip((cells, land, cnt), want):
+        np.testing.assert_array_equal(got.numpy(), w)
+    cells, land, cnt = cells.numpy(), land.numpy(), cnt.numpy()
     d_old, c_old = jms.compose_rows(old.delta, old.nb_outputs,
                                     np.arange(old.n_states), k)
     d_new, c_new = jms.compose_rows(new.delta, new.nb_outputs,
@@ -481,6 +510,90 @@ def test_stepped_delta_cells_equal_reference(k):
     c_app.reshape(-1)[cells] = cnt
     np.testing.assert_array_equal(d_app, d_new)
     np.testing.assert_array_equal(c_app, c_new)
+    # the largest count comes from a DP over the masks, not the cells:
+    # many small growths reach its rarer branches
+    for seed in range(300):
+        rng = np.random.default_rng(seed)
+
+        def word():
+            return "".join(rng.choice(list(alphabet),
+                                      int(rng.integers(1, 6))))
+        m = ac.Machine()
+        for _ in range(int(rng.integers(1, 6))):
+            m.insert_keyword(word())
+        old = m.compile()
+        for _ in range(int(rng.integers(1, 3))):
+            m.insert_keyword(word())
+        new = m.compile()
+        if new.vocab_size != old.vocab_size:
+            continue
+        want = jms.stepped_delta_cells(old, new, k)
+        assert ms.GramDelta(_t(old.delta), _t(old.nb_outputs),
+                            _t(new.delta), _t(new.nb_outputs),
+                            k).sizes() == (
+            len(_changed_rows(old, new)), len(want[0]),
+            int(want[2].max()) if len(want[2]) else 0)
+
+
+@pytest.mark.parametrize("form", ["packed_k1", "two_table", "mesh"])
+def test_inplace_refresh_on_device_equals_reference(form, monkeypatch):
+    """Test 3's shape class: random 7-letter keywords, then more of them,
+    a growth that stays under the capacity, so the refresh goes in place.
+    The packed k = 1 table of a DenseScanner (Test 3's own form), the
+    two-table form (forced, at k = 2) and a mesh's snapshot on two
+    distinct CPU devices (a replica each): the refresh writes its rows and
+    cells, as many as the JAX package's row diff and stepped_delta_cells
+    find, and every replica's tables then equal a fresh snapshot's bit for
+    bit, and the scanner counts as a fresh one."""
+    from aho_corasick_1975_tpu_torch.parallel.mesh import make_mesh
+    from aho_corasick_1975_tpu_torch.parallel.sharded_scan import \
+        ShardedScanner
+    rng = np.random.default_rng(23)
+
+    def words(n):
+        return ["".join(chr(97 + c) for c in rng.integers(0, 26, 7))
+                for _ in range(n)]
+    spec = dict(step_k="auto", step_budget_bytes=4 << 20)
+    n0, n1 = 3000, 150
+    if form == "two_table":
+        monkeypatch.setattr(ms, "packed_count_bits", lambda max_cnt, S: None)
+        spec, n0, n1 = dict(step_k=2), 600, 40
+
+    def scanner(m):
+        if form == "mesh":
+            return ShardedScanner(m, make_mesh(devices=["cpu:0", "cpu:1"]),
+                                  n_streams_per_device=4, **spec)
+        return DenseScanner(m, device="cpu", n_streams=4, **spec)
+    m = Machine()
+    m.insert_keywords(words(n0))
+    sc = scanner(m)
+    old = sc._snap.tables
+    online = words(n1)
+    m.insert_keywords(online)
+    assert sc.refresh() is True
+    snap, new = sc._snap, m.compile()
+    assert snap.tables.version == new.version and new.n_states > old.n_states
+    k = 2 if form == "two_table" else 1
+    assert snap.step_k == k and (snap.delta_k is not None) == (
+        form == "two_table")
+    assert snap.last_refresh["rows"] == len(_changed_rows(old, new))
+    assert snap.last_refresh["cells"] == len(
+        jms.stepped_delta_cells(old, new, k)[0]) > 0
+    fresh = scanner(m)
+    assert len(snap.devices) == (2 if form == "mesh" else 1)
+    for d in snap.devices:
+        for name, t in snap.replica(d).items():
+            want = getattr(fresh._snap, name)
+            assert (t is None) == (want is None), name
+            if t is not None:
+                # the capacity is the old version's: the rows past the
+                # fresh snapshot's are padding, zero in both
+                n = min(len(t), len(want))
+                assert torch.equal(t[:n], want[:n]), (d, name)
+                assert not t[n:].any() and not want[n:].any()
+    text = " ".join(online[::3] + words(200))
+    host = m.match_stream(m.initiate(), text, parallel=False)
+    assert sc.count(text) == fresh.count(text) == host > 0
 
 
 def test_refresh_under_concurrent_scans():

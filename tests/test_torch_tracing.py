@@ -254,8 +254,21 @@ def test_refresh_records_its_outcome_and_work():
     assert rec["counts"]["rows"] > 0 and rec["counts"]["cells"] > 0
     kids = {r["name"] for r in profiling.records()
             if r["parent"] == rec["id"]}
-    assert {"ac.compile", "ac.refresh.diff", "ac.upload"} <= kids
+    assert {"ac.compile", "ac.refresh.diff"} <= kids
     assert "ac.snapshot.build" not in kids
+    # the diff runs on the snapshot's device: its uploads of the new
+    # 1-char tables are its children, and its bytes are theirs
+    (diff,) = [r for r in profiling.records()
+               if r["name"] == "ac.refresh.diff"]
+    ups = [r for r in profiling.records() if r["name"] == "ac.upload"
+           and r["parent"] == diff["id"]]
+    tables = sc.tables
+    assert diff["counts"]["on_device"] == 1
+    assert diff["counts"]["bytes"] == sum(
+        r["counts"]["bytes"] for r in ups) == (
+        tables.delta.nbytes + tables.nb_outputs.nbytes)
+    assert all(diff["t0"] <= r["t0"] <= r["t1"] <= diff["t1"] for r in ups)
+    assert len(ups) == 2
     profiling.reset()
     m.insert_keywords([b"zebra"])           # new letters: the vocabulary grows
     with profiling.tracing():
