@@ -56,9 +56,10 @@ columns, through the same ring.
 ``count``, ``find_matches`` and ``refresh`` are the root spans ``ac.count``,
 ``ac.find_matches`` and ``ac.refresh`` of utils/profiling.py, whose
 children are the staging, the launches, the refinement (``ac.refine``), the
-decode (``ac.decode``), the read-back (``ac.readback``), the compile, the
-snapshot's diff, rebuild and uploads; ``stats["last_op"]`` names the path
-the last call took.
+decode (``ac.decode``), the read-back (``ac.readback``), K2 with its states'
+read-back (``ac.states``, a root span where ``scan_states`` is called
+alone), the compile, the snapshot's diff, rebuild and uploads;
+``stats["last_op"]`` names the path the last call took.
 """
 
 from __future__ import annotations
@@ -565,18 +566,26 @@ class DenseScanner:
     # -- scanning ------------------------------------------------------------
 
     def scan_states(self, signs, head=None) -> np.ndarray:
-        """states[t] after consuming symbol t, for the whole stream (K2)."""
+        """states[t] after consuming symbol t, for the whole stream (K2).
+        The span ``ac.states`` covers the staging, K2 and the states'
+        read-back: symbols, the ``bytes`` read back and the ``table_bytes``
+        of the 1-char table K2 walks."""
         if len(signs) == 0:
             return np.zeros(0, dtype=np.int32)
         # The LUT and the tables are read under the lock: refresh() swaps
         # them.
-        with self._dispatch:
+        with profiling.span("ac.states") as sp, self._dispatch:
+            sp.note("symbols", len(signs))
             raw = self._raw_stream(signs)
             ext, lut, head_ids, B, L, T = self._stage(signs, raw, head,
                                                       self.halo, 128)
-            out = dense_states(self._snap.dflat, self.V, self.halo, B, L,
-                               ext, lut, head_ids, **self._dense_fields())
+            dflat = self._snap.dflat
+            out = dense_states(dflat, self.V, self.halo, B, L, ext, lut,
+                               head_ids, **self._dense_fields())
             out = out[:T].cpu().numpy()
+            if sp:
+                sp.note("bytes", out.nbytes)
+                sp.note("table_bytes", dflat.nbytes)
         self._record("scan_states")
         return out
 
@@ -1054,7 +1063,9 @@ class DenseScanner:
         scanner retrieves through K8 over the live-block windows. Without
         a packed table, ``max_hits`` takes K8 over the whole stream.
         ``max_hits`` bounds the result and raises if more positions
-        match."""
+        match. The span ``ac.find_matches`` notes the ``route``:
+        "device" (K4 and the refinement, or K8), "sparse" (the prefilter)
+        or "states" (K2's states decoded on the host)."""
         # Under the lock from the scan to the decode: refresh() swaps the
         # tables both read.
         with profiling.span("ac.find_matches") as sp, self._dispatch:
@@ -1071,7 +1082,8 @@ class DenseScanner:
 
     def _host_matchset(self, states: np.ndarray, offset: int) -> MatchSet:
         """MatchSet of a full per-position state stream, decoded on the
-        host."""
+        host: the route "states" of ``ac.find_matches``."""
+        profiling.note("route", "states")
         with profiling.span("ac.decode") as sp:
             sp.note("on_device", 0)
             ends, end_states, idx = decode_matches_arrays(
@@ -1095,18 +1107,20 @@ class DenseScanner:
             else:
                 out = self._sparse_hits(signs, offset, head, max_hits, raw)
             if out is not None:
+                profiling.note("route", "sparse")
                 self._record("find_matches_sparse")
                 return out
         auto = max_hits is None
         _guard_pos32(len(raw[0]) if raw is not None else len(signs))
         st, snap = self._stepped, self._snap
         with self._dispatch:
+            if snap.packed is None and auto:
+                # the full decode of K2's states (the prefilter declined
+                # and no packed table exists)
+                return self._host_matchset(
+                    self.scan_states(signs, head=head), offset)
+            profiling.note("route", "device")
             if snap.packed is None:
-                if auto:
-                    # the full decode of K2's states (the prefilter
-                    # declined and no packed table exists)
-                    return self._host_matchset(
-                        self.scan_states(signs, head=head), offset)
                 # K8 over the whole stream: exactly the hit positions
                 ext, lut, head_ids, B, L, T = self._stage(signs, raw, head,
                                                           self.halo, 128)

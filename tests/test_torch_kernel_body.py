@@ -30,8 +30,10 @@ keyword ends just before each sub-stream, which K3's warm-up would miss;
 the 1-char kernels also
 over the 1-char tables staged as on the SM and read in place, K2's states
 and K8's positions and states element for element, K2's staged state
-writes at every alignment), and the launcher's pick of P is held at the
-slice's, config 3's and the step_k=1 slice's shapes.
+writes at every alignment; K2's and K8's stream forms also where keywords
+of 64 and 70 bytes end on every sub-stream's first row), and the
+launcher's pick of P is held at the slice's, config 3's and the step_k=1
+slice's shapes.
 """
 
 import ctypes
@@ -1702,6 +1704,128 @@ def test_k7_boundary_needs_the_warm_up(lib, form, split):
         outs.append(out)
     assert torch.equal(outs[0], plain)
     assert int(outs[1].sum()) <= int(plain.sum()) - planted
+
+
+# Keywords past 64 bytes (a long domain's length) beside tc's short ones:
+# the warm-up and the halo are 69 symbols; streams of 3,072 body symbols,
+# 96 a sub-stream at P = 32, so that a keyword planted to end on each
+# sub-stream's first row lies within the sub-stream before it
+LONG_LENGTHS = (64, 70)
+LONG_L = 32 * 96
+
+
+@pytest.fixture(scope="module")
+def long_tables():
+    """tc.tables(1)'s fields for tc's keywords and two long ones over the
+    same letters, and the long keywords."""
+    rng = random.Random(17)
+    long_kws = [bytes(rng.choice(b"abcd") for _ in range(n))
+                for n in LONG_LENGTHS]
+    m = Machine()
+    for kw in tc.keywords() + long_kws:
+        m.insert_keyword(kw)
+    t = m.compile()
+    snap = DeviceSnapshot(t, step_k=1, device="cpu")
+    lut = m.vocab.byte_lut()
+    tab = dict(V=snap.V, dflat=snap.dflat.numpy(), nb_out=snap.nb_out.numpy(),
+               n_states=t.n_states, warm_steps=multistep.warm_steps_for(t, 1),
+               byte_lut=np.where(lut < snap.V, lut, 0).astype(np.int32))
+    assert tab["warm_steps"] == max(LONG_LENGTHS) - 1
+    return tab, long_kws, {}
+
+
+def _long_case(long_tables, kernel, kind, split):
+    """(entry point, launch fields, the plain version's output, the JAX
+    package's, the planted (row, length)) of one stream of each kind where
+    a long keyword is planted to end on the first body row of every
+    sub-stream at P = ``split``, stream starts past the first included;
+    made once per (kernel, kind, split)."""
+    tab, long_kws, cache = long_tables
+    key = (kernel, kind, split)
+    if key in cache:
+        return cache[key]
+    V, halo, L = tab["V"], tab["warm_steps"], LONG_L
+    s = tc.stream(tab, kind, halo, L, seed=split)
+    ext = s["ext"].copy()
+    planted = []
+    for b in range(tc.B):
+        for p in range(split):
+            if b == p == 0:
+                continue
+            row = b * L + L * p // split
+            kw = np.frombuffer(long_kws[(b + p) % 2], np.uint8)
+            sym = tab["byte_lut"][kw] if kind == "ids" else kw
+            ext[halo + row - len(kw) + 1:halo + row + 1] = sym
+            planted.append((row, len(kw)))
+    s = dict(s, ext=ext)
+    dflat, nb_out = _t(tab["dflat"]), _t(tab["nb_out"])
+    jt = (jnp.asarray(tab["dflat"]), jnp.asarray(tab["nb_out"]))
+    args = (V, halo, tc.B, L, _t(ext), _t(s["lut"]), _t(s["head_ids"]))
+    jraw = (() if s["lut"] is None else (jnp.asarray(s["lut"]),)) + (
+        jnp.asarray(ext),) + (() if s["lut"] is None
+                              else (jnp.asarray(s["head_ids"]),))
+    fields = dict(_common(s, halo, L, V), table=dflat,
+                  warm_steps=tab["warm_steps"], n_states=tab["n_states"])
+    if kernel == "k2":
+        plain = scan_dense.dense_states_plain(dflat, *args)
+        make = (jxla.make_blocked_scan_stream if s["lut"] is None
+                else jxla.make_blocked_scan_raw)
+        jwant = np.asarray(make(V, halo, tc.B, L)(jt[0], *jraw))
+        out = ("ac_dense_states", fields, plain, jwant, planted)
+    else:
+        plain = hits.dense_hits_plain(dflat, nb_out, *args)
+        make = (jhits.make_blocked_hits_stream if s["lut"] is None
+                else jhits.make_blocked_hits_raw)
+        jwant = make(V, halo, tc.B * L, tc.B, L)(*jt, *jraw)
+        out = ("ac_dense_hits", dict(fields, nb_out=nb_out), plain, jwant,
+               planted)
+    cache[key] = out
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(TABLE_PATHS))
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("kind", tc.KINDS)
+@pytest.mark.parametrize("kernel", ["k2", "k8"])
+def test_long_keywords_across_every_split(lib, long_tables, kernel, kind,
+                                          split, path):
+    """K2's stream form and K8's, at every P, where keywords of 64 and 70
+    bytes end on the first body row of every sub-stream and stream past
+    the first (ids, raw bytes, raw int32 past the LUT's end with head
+    ids), over the tables staged on the SM and read in place: K2's states
+    and K8's positions and states equal the plain version's and the JAX
+    package's element for element with the tables' 69 symbols of
+    warm-up, and each planted row holds its long keyword's match; with one
+    symbol less every sub-stream past a stream's first loses the 70-byte
+    keyword's (the 64-byte one needs no more than 63)."""
+    name, fields, plain, jwant, planted = _long_case(long_tables, kernel,
+                                                     kind, split)
+    nb_out = long_tables[0]["nb_out"]
+    shape = None if name in HITS_ENTRIES else plain.shape
+    got = _dense_launch(lib, name, fields, split, path, shape)
+    assert lib.ac_last_split() == split
+    if name in HITS_ENTRIES:
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        assert got[2:] == plain[2:]
+        tc.same_hits(got, jwant)
+        assert {r for r, _ in planted} <= set(got[0].tolist())
+    else:
+        assert torch.equal(got, plain)
+        np.testing.assert_array_equal(got.numpy(), jwant)
+        assert all(nb_out[int(got[r])] > 0 for r, _ in planted)
+    inner = [r for r, n in planted
+             if r % fields["L"] and n == max(LONG_LENGTHS)]
+    if split == 1:
+        assert not inner
+        return
+    assert inner
+    short = _dense_launch(lib, name, dict(fields,
+                                          warm_steps=fields["warm_steps"] - 1),
+                          split, path, shape)
+    if name in HITS_ENTRIES:
+        assert short[2] <= plain[2] - len(inner)
+    else:
+        assert all(int(short[r]) != int(plain[r]) for r in inner)
 
 
 @pytest.mark.parametrize("split", [1, 2, 4])

@@ -238,6 +238,47 @@ def test_each_chunk_of_a_pipelined_count_fills_and_waits_once(monkeypatch):
                                                  for i in range(chunks)]
 
 
+# find_matches' routes: K2's states decoded on the host where no packed
+# k-gram table exists (a budget of 64 bytes), K4 and the refinement, the
+# prefilter's K8 windows
+ROUTES = {"states": dict(step_budget_bytes=64), "device": {},
+          "sparse": dict(prefilter="on")}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_find_matches_notes_its_route_and_states_nest_under_it(route):
+    sc = _machine().scanner(device="cpu", n_streams=4, **ROUTES[route])
+    assert (sc._snap.packed is None) == (route == "states")
+    with profiling.tracing():
+        ms = sc.find_matches(TEXT)
+    assert len(ms) == 9
+    recs = profiling.records()
+    (find,) = [r for r in recs if r["name"] == "ac.find_matches"]
+    assert find["parent"] is None and find["counts"]["route"] == route
+    states = [r for r in recs if r["name"] == "ac.states"]
+    (decode,) = [r for r in recs if r["name"] == "ac.decode"]
+    assert decode["parent"] == find["id"]
+    assert decode["counts"]["on_device"] == int(route != "states")
+    if route != "states":
+        assert not states
+        return
+    (st,) = states
+    assert st["parent"] == find["id"] and st["call"] == find["id"]
+    assert find["t0"] <= st["t0"] <= st["t1"] <= decode["t0"]
+    assert st["counts"] == {"symbols": len(TEXT), "bytes": 4 * len(TEXT),
+                            "table_bytes": sc._snap.dflat.nbytes}
+    # called alone, scan_states is a root span of its own
+    profiling.reset()
+    with profiling.tracing():
+        states = sc.scan_states(TEXT)
+    assert len(states) == len(TEXT)
+    recs = profiling.records()
+    (st,) = [r for r in recs if r["parent"] is None]
+    assert st["name"] == "ac.states" and st["call"] == st["id"]
+    assert st["counts"]["bytes"] == states.nbytes
+    assert all(r["call"] == st["id"] for r in recs)
+
+
 def _refresh_record():
     (rec,) = [r for r in profiling.records() if r["name"] == "ac.refresh"]
     return rec
@@ -311,6 +352,7 @@ def test_no_span_name_is_a_harness_span_name():
     program = _source_names(PKG, r'profiling\.span\("([^"]+)"\)')
     assert {"ac.count", "ac.stage.wait", "ac.stage.fill", "ac.launch",
             "ac.find_matches", "ac.refine", "ac.readback", "ac.decode",
+            "ac.states",
             "ac.insert", "ac.insert.vocab", "ac.refresh", "ac.compile",
             "ac.refresh.diff", "ac.snapshot.build", "ac.upload",
             "ac.build"} == program
